@@ -1,0 +1,183 @@
+"""The federated round engine — Algorithm 1/3 steps 1-9 as one function.
+
+A round:
+  1. (host) the scheduler samples S_t, |S_t| = M clients and their weights
+     n_k/n (repro_torch.core.sampling);
+  2. broadcast w_t to the M clients;
+  3. every client runs H local optimizer steps (Algorithm 2);
+  4. aggregate the *biased gradient* delta_t = sum_k (n_k/n)(w_t - w^k);
+  5. the server optimizer (FedAvg / FedMom / ...) consumes delta_t.
+
+Two placements with identical algorithm semantics (tests assert equality),
+both on one device:
+
+  * ``mesh``: step 3 is a ``torch.func.vmap`` over the clients, step 4 one
+    fp32 weighted reduction of the per-client differences, rounded once to
+    ``delta_dtype``;
+  * ``scan``: clients run one after another into an fp32 accumulator —
+    one client replica alive at a time.
+
+Secure aggregation (``RoundConfig.secure``), logical-axis sharding
+(``param_axes``) and ``bucketed_round_step`` belong to later slices of the
+port and raise ``PlanError``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+from torch.func import vmap
+
+from repro_torch.core import client as client_lib
+from repro_torch.core.server_opt import ServerOpt, ServerState
+from repro_torch.device import resolve_device
+from repro_torch.launch.plan import PlanError
+from repro_torch.optim import local as local_opt_lib
+from repro_torch.tree import leaves, tree_map
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+@dataclass(frozen=True)
+class RoundConfig:
+    clients_per_round: int          # M (= C, the client extent)
+    local_steps: int                # H
+    lr: float                       # gamma_t (client stepsize)
+    placement: str = "mesh"         # mesh | scan
+    local_opt: str = "sgd"
+    local_opt_kwargs: tuple = ()
+    delta_dtype: str = "float32"    # bfloat16 variant = memory hillclimb
+    compute_dtype: str = "bfloat16"
+    secure: Optional[Any] = None    # secure aggregation: not yet ported
+
+    def __post_init__(self):
+        if self.secure is not None:
+            raise PlanError(
+                "RoundConfig.secure (secure aggregation) is not yet ported "
+                "to repro_torch; run the open aggregation",
+                plane="per_round", nearest="per_round")
+        for name in ("delta_dtype", "compute_dtype"):
+            if getattr(self, name) not in DTYPES:
+                raise ValueError(f"{name} must be one of {sorted(DTYPES)}, "
+                                 f"got {getattr(self, name)!r}")
+
+
+def _f32(x):
+    return x.to(torch.float32)
+
+
+def _check_state_device(state: ServerState, dev: torch.device):
+    for x in leaves((state.w, state.extra)):
+        if x.device != dev:
+            raise ValueError(
+                f"server state lies on {x.device} but the round runs on "
+                f"{dev}: move it there first (interop.server_state_from_"
+                f"numpy / tree_map(lambda x: x.to(device), ...))")
+
+
+def round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
+               batches: Any, weights, rcfg: RoundConfig,
+               param_axes: Optional[Any] = None,
+               lr=None, step_mask=None, device=None) -> tuple:
+    """One federated round.
+
+    ``batches``: tree with leading axes [C, H, ...] (C clients x H local
+    minibatches).  ``weights``: [C] fp32, the n_k/n of the sampled clients.
+    ``lr``: per-round client stepsize gamma_t (overrides rcfg.lr).
+    ``step_mask``: optional [C, H] {0,1} — heterogeneous local work H_k per
+    client.  Aggregation keeps the raw n_k/n weights: a fully-masked client
+    returns w^k = w_t and contributes zero to delta_t.  Only the *metrics*
+    reweight (over clients that did any work).
+    ``device``: where the round runs (``None`` = ``cuda``); batches, weights
+    and mask may be numpy arrays or tensors and are moved there, the server
+    state must already lie there.
+    Returns (new_state, metrics).
+    """
+    dev = resolve_device(device)
+    if param_axes is not None:
+        raise PlanError("param_axes (logical-axis sharding) is not yet "
+                        "ported to repro_torch", plane="per_round",
+                        nearest="per_round")
+    _check_state_device(state, dev)
+    batches = tree_map(lambda x: torch.as_tensor(x, device=dev), batches)
+    weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+    mask = (None if step_mask is None else
+            torch.as_tensor(step_mask, dtype=torch.float32, device=dev))
+    C = weights.shape[0]
+    opt = local_opt_lib.get(rcfg.local_opt, **dict(rcfg.local_opt_kwargs))
+    lr = torch.as_tensor(rcfg.lr if lr is None else lr, dtype=torch.float32,
+                         device=dev)
+    w_c = tree_map(lambda x: x.to(DTYPES[rcfg.compute_dtype]), state.w)
+    ddt = DTYPES[rcfg.delta_dtype]
+
+    def one_client(b, m=None):
+        return client_lib.local_update(loss_fn, w_c, b, lr, opt, step_mask=m)
+
+    if rcfg.placement == "mesh":
+        if mask is None:
+            final, losses = vmap(one_client)(batches)
+        else:
+            final, losses = vmap(one_client)(batches, mask)
+        # products and accumulation stay fp32 whatever delta_dtype is; only
+        # the reduced result is rounded to ddt
+        delta = tree_map(
+            lambda w0, wk: torch.einsum("c,c...->...", weights,
+                                        _f32(w0[None] - wk)).to(ddt),
+            w_c, final)
+    elif rcfg.placement == "scan":
+        acc = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                             device=dev), w_c)
+        loss_list = []
+        for c in range(C):
+            b_k = tree_map(lambda x: x[c], batches)
+            wk, loss = one_client(b_k, None if mask is None else mask[c])
+            acc = tree_map(lambda d, w0, wkl: d + weights[c] * _f32(w0 - wkl),
+                           acc, w_c, wk)
+            loss_list.append(loss)
+        losses = torch.stack(loss_list)
+        delta = tree_map(lambda d: d.to(ddt), acc)
+    else:
+        raise ValueError(rcfg.placement)
+
+    new_state = server_opt.update(state, delta)
+    eff_w = weights
+    if mask is not None:
+        eff_w = weights * (torch.sum(mask, dim=1) > 0).to(torch.float32)
+    wsum = torch.clamp(torch.sum(eff_w), min=1e-12)
+    metrics = {
+        "loss": torch.sum(eff_w * losses) / wsum,
+        "losses": losses,
+        "delta_norm": _global_norm(delta),
+        "completed": torch.sum(eff_w > 0).to(torch.int32),
+        "round": state.t,
+    }
+    return new_state, metrics
+
+
+def bucketed_round_step(*args, **kwargs):
+    """Per-size-tier dispatch of the streaming plane: a later slice."""
+    raise PlanError("bucketed_round_step (n_k-bucketed streaming compute) is "
+                    "not yet ported to repro_torch; use round_step",
+                    plane="streaming", nearest="per_round")
+
+
+def _global_norm(tree):
+    return torch.sqrt(sum(torch.sum(torch.square(_f32(x)))
+                          for x in leaves(tree)))
+
+
+# ---------------------------------------------------------------------------
+# eq. (2) reference implementation — used by tests to certify that the
+# biased-gradient form (eq. 3, used above) is *identical* to model averaging
+# ---------------------------------------------------------------------------
+def model_averaging_reference(w_t, local_models, weights):
+    """eq. (2): w_{t+1} = sum_{k in S_t} (n_k/n) w^k + (1 - sum n_k/n) w_t."""
+    weights = torch.as_tensor(weights, dtype=torch.float32)
+    active_mass = torch.sum(weights)
+    return tree_map(
+        lambda w0, wk: torch.einsum("c,c...->...", weights.to(wk.device),
+                                    _f32(wk))
+        + (1.0 - active_mass.to(w0.device)) * _f32(w0),
+        w_t, local_models)

@@ -1,0 +1,26 @@
+"""Which device an entry point of the port runs on.
+
+The port is written for the card: ``FederatedTrainer``, ``round_step`` and
+the examples run on ``cuda`` unless the caller asks for another device
+(``device="cpu"``, as the tests do).  Without a card and without such a
+request they raise — they never carry on silently on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means ``cuda``, which
+    must then be available.  A CUDA device without an index gets the
+    current one, so it compares equal to the device of tensors on it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: the port runs on the card by "
+            "default — pass device='cpu' to run on the CPU")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

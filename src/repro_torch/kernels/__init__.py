@@ -1,0 +1,9 @@
+"""Hand-written Hopper kernels of the port, one subpackage each:
+
+  kernel.py — binding and launch of the CUDA source in ``csrc/``
+  ops.py    — public wrapper: CUDA tensors to the kernel, CPU tensors to ref
+  ref.py    — the same function in plain PyTorch
+
+Kernels build from source at first use (``_build.py``), never at import.
+"""
+from repro_torch.kernels.fedmom_update import ops as fedmom_ops  # noqa: F401

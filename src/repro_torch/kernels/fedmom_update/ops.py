@@ -1,0 +1,43 @@
+"""Public wrapper for the fused FedMom / FedAvgM server update.
+
+Dispatch is by where the tensors lie: CUDA tensors go to the hand-written
+kernel (``kernel.py``), CPU tensors to the plain version (``ref.py``).
+There is no fallback — a CUDA tree that the kernel cannot take raises, and
+a tree whose leaves lie on different devices raises.  Outputs follow the
+input leaves' dtypes on both paths.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.fedmom_update import kernel as _k
+from repro_torch.kernels.fedmom_update import ref as _ref
+from repro_torch.tree import leaves, tree_map
+
+
+def _on_cuda(*trees) -> bool:
+    devices = {x.device for t in trees for x in leaves(t)}
+    if len(devices) > 1:
+        raise ValueError(f"fedmom_update: leaves on several devices "
+                         f"{sorted(map(str, devices))}")
+    return bool(devices) and next(iter(devices)).type == "cuda"
+
+
+def _as_dtypes(tree, like):
+    return tree_map(lambda x, l: x.to(l.dtype), tree, like)
+
+
+def _update(ref_fn, kind, w, s, delta, eta, beta):
+    if _on_cuda(w, s, delta):
+        return _k.fused_update_tree(w, s, delta, eta=eta, beta=beta,
+                                    kind=kind)
+    w_new, s_new = ref_fn(w, s, delta, eta, beta)
+    return _as_dtypes(w_new, w), _as_dtypes(s_new, s)
+
+
+def fused_update_tree(w, v, delta, *, eta: float, beta: float):
+    """FedMom (Nesterov): one fused launch over the whole parameter tree."""
+    return _update(_ref.fedmom_update, "fedmom", w, v, delta, eta, beta)
+
+
+def fused_avgm_tree(w, m, delta, *, eta: float, beta: float):
+    """FedAvgM (heavy-ball): same fused stream, different update body."""
+    return _update(_ref.fedavgm_update, "fedavgm", w, m, delta, eta, beta)
