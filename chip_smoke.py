@@ -4,22 +4,36 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout, imports nothing of JAX, and drives the
-port's main path — the per-round FedAvg / FedMom LeNet trainer at the
-quickstart configuration — on the card.  Phases, each printed as it runs;
-any failure exits non-zero:
+port's two ported paths on the card: the per-round FedAvg / FedMom LeNet
+trainer at the quickstart configuration, and the streaming shard-cache
+plane (padded, bucketed, and bucketed through the fused ``client_step``
+kernel) at the Zipf linreg configuration of ``BENCH_6.json``
+(``benchmarks/perf_compare.py`` ``_zipf_clients`` / ``bench_bucketed``,
+rebuilt here).  Phases, each printed as it runs; any failure exits
+non-zero:
 
   1. card and settings: ``nvidia-smi`` name and power limit; TF32 off;
-  2. build: every CUDA kernel of the path compiled from ``src/repro_torch/
-     csrc`` (one ``nvcc`` per source, all started together);
-  3. kernel against plain: each kernel against its plain PyTorch version on
-     the card, at the main path's shapes and at a large ragged size, with
-     device times (CUDA graphs + events) beside the memory bound;
-  4. main path: FedAvg then FedMom (fused kernel) on ``cuda``; losses finite
-     and falling, kernel launches counted over exactly this phase; host
-     ms/round;
-  5. card against CPU: the same FedMom rounds on ``cpu`` and ``cuda``, the
-     card's run under the profiler (device-busy share, top kernels);
-  6. one JSON line of kernels, then the result line.
+  2. build: every CUDA kernel compiled from ``src/repro_torch/csrc`` (one
+     ``nvcc`` per source, all started together);
+  3. ``fedmom_update`` against its plain version on the card (bit-equal),
+     at both paths' shapes and at a large ragged size, with device times
+     (CUDA graphs + events) beside the memory bound;
+  4. ``client_step`` against its plain version on the card (atol/rtol
+     1e-5) at every tier shape of the streaming lanes, with and without
+     H_k masks, plus a ragged shape; device times beside the bound;
+  5. per-round path: FedAvg then FedMom (fused kernel) on ``cuda``; losses
+     finite and falling, kernel launches counted over exactly this phase;
+  6. per-round card against CPU: the same FedMom rounds on ``cpu`` and
+     ``cuda``, the card's run under the profiler;
+  7. streaming path: the padded, bucketed and hook lanes, each a warm-up
+     run then a timed run with the launch counts set to 0 just before it
+     and read just after; losses finite (they rise at this configuration,
+     on the JAX package too: see phase 7), launch counts, cache
+     hit rate, the padded lane's device draw against its host replay, the
+     three lanes' final parameters against each other; the hook lane
+     profiled over two chunks;
+  8. streaming card against CPU: the hook lane on ``cpu`` and ``cuda``;
+  9. one JSON line of kernels, then the result line.
 
 Without a card, or outside a checkout of the repo, it exits non-zero and
 prints no result.
@@ -47,6 +61,22 @@ CMP_ATOL = 1e-4                    # card vs CPU params after CMP_ROUNDS:
 CMP_RTOL = 1e-4                    # cuDNN and the CPU sum the convolutions
                                    # in other orders (fp32, TF32 off); eta=30
                                    # amplifies those last-bit differences
+
+# the streaming path: BENCH_6.json's configuration (non-smoke
+# benchmarks/perf_compare.py bench_bucketed over _zipf_clients)
+Z_K, Z_D, Z_NTOP = 512, 64, 8192   # clients, features, largest n_k
+Z_M, Z_H, Z_B, Z_LR = 8, 4, 8, 0.05
+Z_ETA, Z_BETA = 2.0, 0.9           # FedMom, through fedmom_update
+Z_CR, Z_ROUNDS = 8, 100            # chunk_rounds; timed rounds per lane
+Z_BYTES = Z_M * Z_CR * Z_NTOP * (Z_D * 4 + 4)   # one chunk's padded set
+Z_PROFILE_CHUNKS = 2
+Z_CMP_ROUNDS = 16                  # streaming card-against-CPU rounds
+CS_ATOL = CS_RTOL = 1e-5           # client_step kernel vs plain: gradient
+                                   # sums in another order (fp32)
+LANE_ATOL = LANE_RTOL = 1e-4       # final params, lane vs lane and card vs
+                                   # CPU after Z_ROUNDS / Z_CMP_ROUNDS: the
+                                   # tiers sum the delta in another order,
+                                   # the kernel its gradients
 
 
 def phase(name):
@@ -137,6 +167,336 @@ def check_kernel(kernel, ref, kind, n, gen, offset=0):
     return err, bitwise, (w, s, d, plain)
 
 
+def zipf_clients():
+    """``_zipf_clients`` of benchmarks/perf_compare.py at BENCH_6's sizes:
+    n_k = max(2, floor(8192 / (r + 1)^1.2)), x ~ N(0, 1), y = x @ w_k."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    clients = []
+    for r in range(Z_K):
+        n = max(2, int(Z_NTOP / (r + 1) ** 1.2))
+        x = rng.normal(size=(n, Z_D)).astype(np.float32)
+        clients.append({"x": x,
+                        "y": (x @ rng.normal(size=Z_D)).astype(np.float32)})
+    return clients
+
+
+def linreg_loss(params, batch):
+    import torch
+    pred = batch["x"] @ params["w"] + params["b"]
+    return torch.mean(torch.square(pred - batch["y"])), {}
+
+
+def zipf_trainer(clients, device, hook):
+    """BENCH_6's ``_zipf_trainer``: FedMom (eta 2, beta 0.9) through the
+    fused update kernel; with ``hook`` the fused client_step hook."""
+    import torch
+    from repro_torch.core import (DeviceUniformSampler, RoundConfig,
+                                  fedmom)
+    from repro_torch.data import FederatedDataset
+    from repro_torch.kernels.client_step.ops import linreg_tier_step
+    from repro_torch.launch.train import FederatedTrainer
+    ds = FederatedDataset([dict(c) for c in clients], seed=1)
+    opt = fedmom(eta=Z_ETA, beta=Z_BETA, use_fused_kernel=True)
+    w0 = {"w": torch.zeros(Z_D), "b": torch.zeros(())}
+    return FederatedTrainer(
+        loss_fn=linreg_loss, server_opt=opt,
+        rcfg=RoundConfig(clients_per_round=Z_M, local_steps=Z_H, lr=Z_LR,
+                         placement="mesh", compute_dtype="float32"),
+        dataset=ds, sampler=DeviceUniformSampler(ds.population(), Z_M,
+                                                 seed=2),
+        state=opt.init(w0),
+        client_step_fn=linreg_tier_step() if hook else None,
+        local_batch=Z_B, device=device)
+
+
+def tier_launches(sampler, tier_of, n_rounds, chunk_rounds):
+    """client_step launches a bucketed run makes: one per occupied tier
+    and round, the tiers occupied anywhere in the round's chunk."""
+    total = 0
+    for s in range(0, n_rounds, chunk_rounds):
+        e = min(s + chunk_rounds, n_rounds)
+        tiers = {int(tier_of[c]) for t in range(s, e)
+                 for c in sampler.sample(t)[0]}
+        total += (e - s) * len(tiers)
+    return total
+
+
+def client_step_bound_ms(C, H, B, D, masked):
+    """Least time on the card for one client_step launch: each input byte
+    read once (the H*B gathered rows of D+1 floats, their row ids, the
+    slots, the start weights, the masks), each output written once, over
+    the memory rate.  The flops (about 4*B*D a client and step) at the
+    fp32 rate take a thousandth of that, so bytes bound it."""
+    read = C * H * B * (D + 1) * 4 + C * H * B * 4 + C * 4 + (D + 1) * 4
+    read += C * H * 4 if masked else 0
+    write = C * (D + 2) * 4
+    return (read + write) / HBM_BYTES_PER_S * 1e3
+
+
+def check_client_step(cs_kernel, cs_ref, xs, ys, slots, idx, w, b, mask):
+    """Kernel and plain version on the same card inputs: max abs error
+    over the three outputs; raises past CS_ATOL / CS_RTOL."""
+    import torch
+    got = cs_kernel.client_step(xs, ys, slots, idx, w, b, Z_LR, Z_H, Z_B,
+                                step_mask=mask)
+    want = cs_ref.client_step(xs, ys, slots, idx, w, b, Z_LR, Z_H, Z_B,
+                              step_mask=mask)
+    sync(xs.device)
+    err = 0.0
+    for name, g, r in zip(("w", "b", "loss"), got, want):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"client_step {name}: non-finite output")
+        err = max(err, float((g - r).abs().max()))
+        if not torch.allclose(g, r, atol=CS_ATOL, rtol=CS_RTOL):
+            raise AssertionError(
+                f"client_step {name} (C={slots.shape[0]}, N={xs.shape[1]}, "
+                f"D={xs.shape[2]}): kernel differs from the plain version "
+                f"by {float((g - r).abs().max()):.3e} (atol {CS_ATOL}, rtol "
+                f"{CS_RTOL})")
+    if mask is not None:
+        off = mask.sum(dim=1) == 0
+        if off.any() and not (torch.equal(got[0][off],
+                                          w.expand_as(got[0])[off])
+                              and torch.equal(got[1][off],
+                                              b.expand_as(got[1])[off])
+                              and bool((got[2][off] == 0).all())):
+            raise AssertionError("client_step: an all-masked client moved "
+                                 "its weights or reported a loss")
+    return err
+
+
+def sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def client_step_phase(dev, z_clients, cs_kernel, cs_ref):
+    """Phase 4: the kernel against its plain version at every tier shape
+    of the hook lane's cache (its own tier tensors, real slots and keyed
+    draws; C = 1, 2, 4, 8; with and without H_k masks, one client all
+    masked) and at a ragged shape; device times at C = M per tier.
+    Returns (max abs err, {tier rows: (ms, plain ms, bound ms)}, the
+    largest tier's rows)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.federated import minibatch_indices
+    from repro_torch.data.stream import ShardCache, StreamingFederatedDataset
+    sds = StreamingFederatedDataset(z_clients, seed=1)
+    # the hook lane's cache: its tier tensors are the kernel's inputs
+    cache = ShardCache(sds, capacity_bytes=Z_BYTES, device=dev)
+    layout = cache.layout
+    key = sds.base_key(dev)
+    rng = np.random.default_rng(0)
+    w = torch.as_tensor(rng.normal(size=Z_D).astype(np.float32), device=dev)
+    bias = torch.as_tensor(np.float32(rng.normal()), device=dev)
+    lr_dev = torch.tensor(Z_LR, device=dev)     # no host copy in a graph
+    cs_err = 0.0
+    cs_timing = {}
+    print(f"{layout.n_tiers} tiers of {layout.sizes} rows, clients per tier "
+          f"{layout.tier_counts}, slots {cache.tier_slots}")
+    for tier, n_rows in enumerate(layout.sizes):
+        members = np.flatnonzero(layout.tier_of == tier)
+        cache.ensure(members[:Z_M])
+        view = cache.view()
+        xs, ys = view.tier_arrays[tier]["x"], view.tier_arrays[tier]["y"]
+        for C in (1, 2, 4, 8):
+            cids = torch.as_tensor(members[np.arange(C) % min(len(members),
+                                                             Z_M)],
+                                   device=dev)
+            slots = view.client_slots[cids].to(torch.int32)
+            idx = minibatch_indices(key, tier, cids, view.counts[cids],
+                                    Z_H * Z_B)
+            h_k = rng.integers(0, Z_H + 1, size=C)
+            h_k[0] = 0                                # an all-masked client
+            mask = torch.as_tensor(
+                (np.arange(Z_H)[None] < h_k[:, None]).astype(np.float32),
+                device=dev)
+            for m in (None, mask):
+                cs_err = max(cs_err, check_client_step(
+                    cs_kernel, cs_ref, xs, ys, slots, idx, w, bias, m))
+        # device time at the tier's widest launch (C = M), host taken out
+        ms = graph_ms(lambda: cs_kernel.client_step(
+            xs, ys, slots, idx, w, bias, Z_LR, Z_H, Z_B))
+        plain_ms = graph_ms(lambda: cs_ref.client_step(
+            xs, ys, slots, idx, w, bias, lr_dev, Z_H, Z_B))
+        bound_ms = client_step_bound_ms(Z_M, Z_H, Z_B, Z_D, False)
+        cs_timing[n_rows] = (ms, plain_ms, bound_ms)
+        print(f"client_step N={n_rows:>5d} S={xs.shape[0]:>3d} C=1,2,4,8 "
+              f"+/- masks within atol/rtol {CS_ATOL}; C={Z_M}: kernel "
+              f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us (device), "
+              f"bound {bound_ms * 1e3:.4f} us (bytes at 3.35 TB/s)")
+    call_ms = cuda_ms(lambda: cs_kernel.client_step(
+        xs, ys, slots, idx, w, bias, Z_LR, Z_H, Z_B), 200)
+    plain_call_ms = cuda_ms(lambda: cs_ref.client_step(
+        xs, ys, slots, idx, w, bias, Z_LR, Z_H, Z_B), 200)
+    print(f"client_step eager call at N={layout.sizes[-1]}, C={Z_M}: kernel "
+          f"{call_ms * 1e3:.2f} us, plain {plain_call_ms * 1e3:.2f} us")
+    # a ragged shape: D past a warp multiple, N not a power of two
+    for C in (1, 3):
+        xs = torch.as_tensor(rng.normal(size=(3, 9, 65)).astype(np.float32),
+                             device=dev)
+        ys = torch.as_tensor(rng.normal(size=(3, 9)).astype(np.float32),
+                             device=dev)
+        slots = torch.as_tensor(rng.permutation(3)[:C].astype(np.int32),
+                                device=dev)
+        idx = torch.as_tensor(rng.integers(0, 9, size=(C, Z_H * Z_B))
+                              .astype(np.int32), device=dev)
+        w65 = torch.as_tensor(rng.normal(size=65).astype(np.float32),
+                              device=dev)
+        mask = torch.as_tensor([[0.0] * Z_H] + [[1.0] * Z_H] * (C - 1),
+                               device=dev)
+        for m in (None, mask):
+            cs_err = max(cs_err, check_client_step(
+                cs_kernel, cs_ref, xs, ys, slots, idx, w65, bias, m))
+    print(f"client_step ragged D=65, N=9, C=1,3 +/- masks within atol/rtol "
+          f"{CS_ATOL}; max abs err over every shape {cs_err:.3e}")
+    return cs_err, cs_timing, layout.sizes[-1]
+
+
+def streaming_lanes(dev, z_clients, fm_kernel, cs_kernel):
+    """Phase 7: the padded, bucketed and hook lanes on ``dev``, each a
+    warm-up run and then a timed run with the launch counts set to 0 just
+    before it and read just after; returns {lane: measurements}."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.plan import CacheSpec, ExecutionPlan
+    from repro_torch.tree import leaves
+    counts = [len(c["y"]) for c in z_clients]
+    print(f"Zipf linreg corpus: K={Z_K} clients, {sum(counts)} rows of D="
+          f"{Z_D}, n_k {min(counts)}..{max(counts)}, "
+          f"{sum(counts) * (Z_D + 1) * 4 / 1e6:.1f} MB; M={Z_M} H={Z_H} "
+          f"b={Z_B} lr={Z_LR} FedMom eta={Z_ETA} beta={Z_BETA}; chunk_rounds="
+          f"{Z_CR}, cache {Z_BYTES} B; {Z_ROUNDS} rounds timed after a "
+          f"warm-up run of as many")
+
+    def fresh(tr):
+        return tr.server_opt.init({"w": torch.zeros(Z_D, device=tr.device),
+                                   "b": torch.zeros((), device=tr.device)})
+
+    lanes = {}
+    for name, spec, hook in (
+            ("padded", CacheSpec(bytes=Z_BYTES, tiers=1), False),
+            ("bucketed", CacheSpec(bytes=Z_BYTES, bucketed=True), False),
+            ("hook", CacheSpec(bytes=Z_BYTES, bucketed=True), True)):
+        plan = ExecutionPlan(plane="streaming", chunk_rounds=Z_CR, cache=spec)
+        tr = zipf_trainer(z_clients, dev, hook)
+        tr.run(Z_ROUNDS, plan=plan, verbose=False)          # warm-up
+        sync(dev)
+        tr.state, tr.history = fresh(tr), []
+        cache = tr.stream_cache
+        hits0, misses0 = cache.hits, cache.misses
+        fm_kernel.launches = cs_kernel.launches = 0
+        t0 = time.perf_counter()
+        hist = tr.run(Z_ROUNDS, plan=plan, verbose=False)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        launched = {"fedmom_update": fm_kernel.launches,
+                    "client_step": cs_kernel.launches}
+        losses = [r["loss"] for r in hist]
+        if len(losses) != Z_ROUNDS or not all(math.isfinite(x)
+                                              for x in losses):
+            raise AssertionError(f"{name}: losses {losses}")
+        if not all(bool(torch.isfinite(x).all()) for x in leaves(tr.state.w)):
+            raise AssertionError(f"{name}: non-finite parameters")
+        # no falling-loss check here: at this configuration every client's
+        # labels come from its own random linear map and FedMom at eta=2,
+        # beta=0.9 drifts, so the loss rises on the JAX package as well;
+        # the lanes are held to each other and to the CPU instead
+        first, last = (statistics.fmean(losses[:5]),
+                       statistics.fmean(losses[-5:]))
+        want_cs = (tier_launches(tr.sampler, cache.layout.tier_of, Z_ROUNDS,
+                                 Z_CR) if hook else 0)
+        if launched != {"fedmom_update": Z_ROUNDS, "client_step": want_cs}:
+            raise AssertionError(
+                f"{name}: launches {launched}, want fedmom_update {Z_ROUNDS} "
+                f"(one per round) and client_step {want_cs} (one per "
+                f"occupied tier and round)")
+        hits, misses = cache.hits - hits0, cache.misses - misses0
+        hit_rate = hits / max(hits + misses, 1)
+        ms = secs / Z_ROUNDS * 1e3
+        lanes[name] = {"trainer": tr, "plan": plan, "ms_per_round": ms,
+                       "hit_rate": hit_rate,
+                       "misses_per_round": misses / Z_ROUNDS,
+                       "launches": launched}
+        print(f"{name:8s} loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
+              f"first 5 {first:.4f}, last 5 {last:.4f}); {ms:.3f} ms/round "
+              f"(host clock, synced at the end); cache {cache.nbytes} B, "
+              f"{cache.layout.n_tiers} tier(s), capacity {cache.capacity}, "
+              f"hit rate {hit_rate:.4f}, misses {misses / Z_ROUNDS:.2f}/round;"
+              f" launches {launched}")
+        if name == "padded":
+            # the shards uploaded were the ones the host replay named: the
+            # device draw must pick the same clients in every round
+            key = tr.sampler.base_key().to(dev)
+            for t in range(Z_ROUNDS):
+                on_card = tr.sampler.sample_device(key, t)[0].cpu().numpy()
+                if not np.array_equal(on_card, tr.sampler.sample(t)[0]):
+                    raise AssertionError(
+                        f"round {t}: the device draw {on_card} differs from "
+                        f"the host replay {tr.sampler.sample(t)[0]}")
+            print(f"padded   device draw equals the host replay in all "
+                  f"{Z_ROUNDS} rounds")
+    ref = lanes["padded"]["trainer"].state.w
+    for name in ("bucketed", "hook"):
+        worst = 0.0
+        for a, b in zip(leaves(ref), leaves(lanes[name]["trainer"].state.w)):
+            worst = max(worst, float((a - b).abs().max()))
+            if not torch.allclose(a, b, atol=LANE_ATOL, rtol=LANE_RTOL):
+                raise AssertionError(
+                    f"{name} and padded final params differ by {worst:.3e} "
+                    f"(atol {LANE_ATOL}, rtol {LANE_RTOL})")
+        print(f"{name:8s} final params agree with padded: max abs diff "
+              f"{worst:.3e} (atol {LANE_ATOL}, rtol {LANE_RTOL})")
+    n_prof = Z_PROFILE_CHUNKS * Z_CR
+    for name, lane in lanes.items():
+        tr = lane["trainer"]
+        tr.state, tr.history = fresh(tr), []
+        wall, busy, n_ops, top = profile_device(
+            lambda: tr.run(n_prof, plan=lane["plan"], verbose=False))
+        lane["busy_share"] = busy / wall
+        print(f"profiled {n_prof} rounds ({Z_PROFILE_CHUNKS} chunks) of "
+              f"{name}: wall {wall * 1e3:.1f} ms, device busy "
+              f"{busy * 1e3:.2f} ms ({100 * busy / wall:.2f}%, idle "
+              f"{100 * (1 - busy / wall):.2f}%), {n_ops / n_prof:.0f} device "
+              f"ops/round; top kernels:")
+        for kname, secs, count in top:
+            print(f"  {secs * 1e3:8.3f} ms  {count:6d}x  {kname[:100]}")
+    return lanes
+
+
+def streaming_card_vs_cpu(z_clients, cs_kernel, plan, devices):
+    """Phase 8: the hook lane on ``devices`` = (the CPU, the card): the
+    plain version there, the kernel here; final parameters held to
+    LANE_ATOL / LANE_RTOL."""
+    import torch
+    from repro_torch.tree import leaves
+    runs = []
+    for device in devices:
+        tr = zipf_trainer(z_clients, device, True)
+        cs_kernel.launches = 0
+        hist = tr.run(Z_CMP_ROUNDS, plan=plan, verbose=False)
+        runs.append((tr, [r["loss"] for r in hist], cs_kernel.launches))
+    (cpu, cpu_losses, cpu_launches), (card, card_losses, card_launches) = runs
+    if cpu_launches != 0 or card_launches == 0:
+        raise AssertionError(
+            f"client_step launches cpu {cpu_launches}, card {card_launches}: "
+            f"want none on the CPU (plain version) and some on the card")
+    worst = 0.0
+    for a, b in zip(leaves(cpu.state.w), leaves(card.state.w)):
+        b = b.cpu()
+        worst = max(worst, float((a - b).abs().max()))
+        if not torch.allclose(a, b, atol=LANE_ATOL, rtol=LANE_RTOL):
+            raise AssertionError(
+                f"card and CPU params differ by {worst:.3e} "
+                f"(atol {LANE_ATOL}, rtol {LANE_RTOL})")
+    loss_diff = max(abs(a - b) for a, b in zip(cpu_losses, card_losses))
+    print(f"params agree: max abs diff {worst:.3e} (atol {LANE_ATOL}, rtol "
+          f"{LANE_RTOL}); losses differ by at most {loss_diff:.3e}; "
+          f"client_step launches on the card {card_launches}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -149,6 +509,8 @@ def main() -> int:
                                   fedmom)
     from repro_torch.data import FederatedDataset, synthetic_femnist
     from repro_torch.kernels import _build
+    from repro_torch.kernels.client_step import kernel as cs_kernel
+    from repro_torch.kernels.client_step import ref as cs_ref
     from repro_torch.kernels.fedmom_update import kernel as fm_kernel
     from repro_torch.kernels.fedmom_update import ref as fm_ref
     from repro_torch.launch.train import FederatedTrainer
@@ -191,7 +553,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     n_main = sum(x.numel() for x in leaves(
         small.lenet_init(prng.PRNGKey(0))))
-    sizes = (n_main, 2 ** 26 + 3)
+    # the per-round path's LeNet, the streaming path's linreg (D + 1), and
+    # a large ragged size
+    sizes = (n_main, Z_D + 1, 2 ** 26 + 3)
     max_err = 0.0
     timing = {}
     for kind in ("fedmom", "fedavgm"):
@@ -241,8 +605,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
-    phase("4. main path: per-round FedAvg then FedMom (fused) on cuda")
+    phase("4. kernel against plain (client_step)")
     dev = torch.device("cuda")
+    z_clients = zipf_clients()
+    cs_err, cs_timing, cs_top = client_step_phase(dev, z_clients, cs_kernel,
+                                                  cs_ref)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------
+    phase("5. per-round path: FedAvg then FedMom (fused) on cuda")
     t0 = time.perf_counter()
     clients, _ = synthetic_femnist(n_clients=K, seed=0)
     ds = FederatedDataset(clients, seed=1)
@@ -314,7 +685,7 @@ def main() -> int:
           f"work): {(time.perf_counter() - t0) / ROUNDS * 1e3:.2f} ms/round")
 
     # ------------------------------------------------------------------
-    phase(f"5. card against CPU: {CMP_ROUNDS} FedMom rounds")
+    phase(f"6. per-round card against CPU: {CMP_ROUNDS} FedMom rounds")
     out = {}
     for device in ("cpu", "cuda"):
         def go():
@@ -347,9 +718,29 @@ def main() -> int:
           f"{CMP_RTOL}); losses cpu {out['cpu'][1]} cuda {out['cuda'][1]}")
 
     # ------------------------------------------------------------------
-    phase("6. kernels")
+    phase("7. streaming path: padded, bucketed and hook lanes on cuda")
+    lanes = streaming_lanes(dev, z_clients, fm_kernel, cs_kernel)
+
+    # ------------------------------------------------------------------
+    phase(f"8. streaming card against CPU: {Z_CMP_ROUNDS} rounds of the "
+          f"hook lane")
+    streaming_card_vs_cpu(z_clients, cs_kernel, lanes["hook"]["plan"],
+                          (torch.device("cpu"), dev))
+
+    # ------------------------------------------------------------------
+    phase("9. kernels")
     ms, plain_ms, bound_ms = timing[("fedmom", n_main)]
-    print(json.dumps({"card": card, "main_path_ms_per_round": ms_round}))
+    cs_ms, cs_plain_ms, cs_bound_ms = cs_timing[cs_top]
+    print(json.dumps({
+        "card": card, "main_path_ms_per_round": ms_round,
+        "streaming_ms_per_round": {k: v["ms_per_round"]
+                                   for k, v in lanes.items()},
+        "streaming_hit_rate": {k: v["hit_rate"] for k, v in lanes.items()},
+        "streaming_misses_per_round": {k: v["misses_per_round"]
+                                       for k, v in lanes.items()},
+        "streaming_device_busy_share": {k: v["busy_share"]
+                                        for k, v in lanes.items()},
+        "streaming_launches": {k: v["launches"] for k, v in lanes.items()}}))
     line = {"kernels": [{
         "name": "fedmom_update",
         "route": "cuda",
@@ -360,6 +751,18 @@ def main() -> int:
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "client_step",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/client_step.cu",
+        "replaces": "src/repro/kernels/client_step/kernel.py:75",
+        "launches": lanes["hook"]["launches"]["client_step"],
+        "max_abs_err": cs_err,
+        "ms": cs_ms,
+        "plain_ms": cs_plain_ms,
+        "bound_ms": cs_bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
     }]}

@@ -1,0 +1,165 @@
+"""Chunks of federated rounds run back to back on the device.
+
+The JAX package traces a chunk of rounds into one ``lax.scan``.  PyTorch
+runs eagerly, so a chunk here is a Python loop over its rounds that
+enqueues every round's work without reading anything back: the per-round
+metrics stay device tensors, are stacked over the chunk, and the trainer
+reads them once per chunk (``launch/train.py`` ``_drain_chunk``).
+
+* ``scan_rounds_ondevice``: each round samples S_t with the keyed draw
+  (``sampler.sample_device``) on the device, gathers its
+  ``[C, H, b, ...]`` minibatches from a dataset honouring the
+  ``gather_round_batch`` contract (a streaming ``CacheView``) and runs
+  ``round_step``.  Draws are keyed by ``(seed, t, client_id)``, so the
+  trajectory is the per-round plane's.
+* ``scan_rounds_bucketed``: the cohort is staged on the host grouped by
+  cache size tier, with the keyed minibatch draws staged too; either every
+  tier's rows are gathered and concatenated into one ``round_step``
+  (fused-concat form), or each tier goes through a ``client_step_fn`` hook
+  (``bucketed_round_step``), such as the fused ``kernels/client_step``.
+
+``scan_rounds`` and ``scan_rounds_sampled`` (host-staged batches) belong to
+the scanned plane, a later slice of the port.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.round import RoundConfig, bucketed_round_step, round_step
+from repro_torch.core.server_opt import ServerOpt, ServerState
+from repro_torch.device import resolve_device
+from repro_torch.tree import tree_map
+
+_STACKED = ("loss", "delta_norm", "completed")
+
+
+def _stack(per_round: list) -> dict:
+    """[R] device tensors per metric (``round`` as host ints); a
+    ``clients`` stream, when the rounds carry one, as [R, C]."""
+    out = {k: torch.stack([m[k] for m in per_round]) for k in _STACKED}
+    out["round"] = [int(m["round"]) for m in per_round]
+    if "clients" in per_round[0]:
+        out["clients"] = torch.stack([m["clients"] for m in per_round])
+    return out
+
+
+def _lr(lrs: Optional[Sequence[float]], r: int, rcfg: RoundConfig) -> float:
+    return rcfg.lr if lrs is None else float(lrs[r])
+
+
+def scan_rounds_ondevice(loss_fn: Callable, server_opt: ServerOpt,
+                         state: ServerState, dataset, sampler,
+                         data_key: torch.Tensor, sample_key: torch.Tensor,
+                         t0: int, n_rounds: int, rcfg: RoundConfig,
+                         local_batch_size: int,
+                         param_axes: Optional[Any] = None,
+                         lrs: Optional[Sequence[float]] = None,
+                         step_masks: Optional[np.ndarray] = None,
+                         device=None) -> tuple:
+    """Run rounds ``t0 .. t0 + n_rounds - 1`` with sampling and data gather
+    on the device.
+
+    Round ``t``: ``sampler.sample_device(sample_key, t)`` draws S_t, the
+    dataset gathers its ``[C, H, b, ...]`` minibatches keyed by
+    ``(data_key, t, client_id)`` and ``round_step`` consumes them.  ``lrs``:
+    optional [n_rounds] host floats; ``step_masks``: optional
+    [n_rounds, C, H].  Returns ``(state, metrics)`` with [n_rounds]
+    ``loss`` / ``delta_norm`` / ``completed`` device tensors, ``round``
+    host ints, and ``clients`` [n_rounds, C]: the ids the device draw
+    picked, which the trainer holds against its host replay.
+    """
+    dev = resolve_device(device)
+    per_round = []
+    for r in range(n_rounds):
+        t = int(t0) + r
+        idx, w = sampler.sample_device(sample_key, t)
+        batches = dataset.gather_round_batch(data_key, t, idx,
+                                             rcfg.local_steps,
+                                             local_batch_size)
+        state, metrics = round_step(
+            loss_fn, server_opt, state, batches, w, rcfg,
+            param_axes=param_axes, lr=_lr(lrs, r, rcfg),
+            step_mask=None if step_masks is None else step_masks[r],
+            device=dev)
+        del metrics["losses"]
+        metrics["clients"] = idx
+        per_round.append(metrics)
+    return state, _stack(per_round)
+
+
+def scan_rounds_bucketed(loss_fn: Callable, server_opt: ServerOpt,
+                         state: ServerState, view, tiers_present: tuple,
+                         tier_cids: tuple, tier_weights: tuple,
+                         tier_idx: tuple, t0: int, n_rounds: int,
+                         rcfg: RoundConfig, local_batch_size: int,
+                         param_axes: Optional[Any] = None,
+                         lrs: Optional[Sequence[float]] = None,
+                         tier_masks: Optional[tuple] = None,
+                         client_step_fn: Optional[Callable] = None,
+                         device=None) -> tuple:
+    """Run ``n_rounds`` rounds with host-staged, tier-bucketed cohorts.
+
+    ``tiers_present``: the tier indices with any participant in the chunk.
+    ``tier_cids`` / ``tier_weights`` / ``tier_idx`` / ``tier_masks``:
+    tuples aligned with it of [R, C_i] client ids, [R, C_i] weights,
+    [R, C_i, H*b] staged minibatch draws and optional [R, C_i, H] H_k
+    masks, each round's per-tier cohort right-padded with a resident client
+    of the same tier at weight 0 (padding rows carry all-ones masks).  They
+    move to the device once per chunk.
+
+    Without ``client_step_fn`` (fused-concat form) each round gathers every
+    tier's rows (``CacheView.gather_tier_rows``), concatenates them along
+    the cohort axis and runs one ``round_step``.  With it, each tier's
+    update goes through the hook inside ``bucketed_round_step``:
+    ``client_step_fn(view, tier, cids [C_i], idx [C_i, H*b], w_c, lr,
+    mask, local_steps, batch_size) -> (final_params [C_i, ...],
+    losses [C_i])``, ``lr`` a host float.
+
+    Same trajectory as ``scan_rounds_ondevice`` within fp32 reduction order
+    (bit-equal with one occupied tier).  Returns ``(state, metrics)`` as
+    ``scan_rounds_ondevice`` does, without ``clients``.
+    """
+    dev = resolve_device(device)
+
+    def put(arrays, dtype):
+        return tuple(torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+                     for a in arrays)
+
+    cids = put(tier_cids, torch.int64)
+    ws = put(tier_weights, torch.float32)
+    idxs = put(tier_idx, torch.int32)
+    ms = None if tier_masks is None else put(tier_masks, torch.float32)
+    H = rcfg.local_steps
+    per_round = []
+    for r in range(n_rounds):
+        lr = _lr(lrs, r, rcfg)
+        if client_step_fn is None:
+            parts = [view.gather_tier_rows(tier, cids[i][r], idxs[i][r], H,
+                                           local_batch_size)
+                     for i, tier in enumerate(tiers_present)]
+            batch = tree_map(lambda *ls: torch.cat(ls, dim=0), *parts)
+            state, metrics = round_step(
+                loss_fn, server_opt, state, batch,
+                torch.cat([w[r] for w in ws]), rcfg, param_axes=param_axes,
+                lr=lr,
+                step_mask=None if ms is None else torch.cat(
+                    [m[r] for m in ms]),
+                device=dev)
+            del metrics["losses"]
+        else:
+            def update(w_c, i, data, mask, lr=lr):
+                return client_step_fn(view, tiers_present[i], data[0],
+                                      data[1], w_c, lr, mask, H,
+                                      local_batch_size)
+            state, metrics = bucketed_round_step(
+                loss_fn, server_opt, state,
+                tuple((c[r], ix[r]) for c, ix in zip(cids, idxs)),
+                tuple(w[r] for w in ws), rcfg, param_axes=param_axes,
+                lr=lr, tier_masks=None if ms is None else tuple(
+                    m[r] for m in ms),
+                tier_update_fn=update, device=dev)
+        per_round.append(metrics)
+    return state, _stack(per_round)

@@ -17,9 +17,10 @@ both on one device:
   * ``scan``: clients run one after another into an fp32 accumulator —
     one client replica alive at a time.
 
-Secure aggregation (``RoundConfig.secure``), logical-axis sharding
-(``param_axes``) and ``bucketed_round_step`` belong to later slices of the
-port and raise ``PlanError``.
+``bucketed_round_step`` runs one round as per-size-tier launches (the
+bucketed streaming plane).  Secure aggregation (``RoundConfig.secure``) and
+logical-axis sharding (``param_axes``) belong to later slices of the port
+and raise ``PlanError``.
 """
 from __future__ import annotations
 
@@ -96,10 +97,7 @@ def round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
     Returns (new_state, metrics).
     """
     dev = resolve_device(device)
-    if param_axes is not None:
-        raise PlanError("param_axes (logical-axis sharding) is not yet "
-                        "ported to repro_torch", plane="per_round",
-                        nearest="per_round")
+    _no_param_axes(param_axes)
     _check_state_device(state, dev)
     batches = tree_map(lambda x: torch.as_tensor(x, device=dev), batches)
     weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
@@ -156,11 +154,92 @@ def round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
     return new_state, metrics
 
 
-def bucketed_round_step(*args, **kwargs):
-    """Per-size-tier dispatch of the streaming plane: a later slice."""
-    raise PlanError("bucketed_round_step (n_k-bucketed streaming compute) is "
-                    "not yet ported to repro_torch; use round_step",
-                    plane="streaming", nearest="per_round")
+def _no_param_axes(param_axes):
+    if param_axes is not None:
+        raise PlanError("param_axes (logical-axis sharding) is not yet "
+                        "ported to repro_torch", plane="per_round",
+                        nearest="per_round")
+
+
+def bucketed_round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
+                        tier_data: tuple, tier_weights: tuple,
+                        rcfg: RoundConfig, param_axes: Optional[Any] = None,
+                        lr=None, tier_masks: Optional[tuple] = None,
+                        tier_update_fn=None, device=None) -> tuple:
+    """One federated round dispatched as per-size-tier launches.
+
+    The cohort arrives grouped by the shard cache's n_k size tiers
+    (``data/stream.py`` ``tier_layout``) and each tier runs on its own
+    extent: a 4-sample client never rides in the same vmap as a 4096-sample
+    one.  ``tier_data`` / ``tier_weights`` / ``tier_masks`` are tuples over
+    the occupied tiers: ``tier_weights[i]`` [C_i] fp32 n_k/n (zero-weight
+    padding contributes no delta and no loss), ``tier_data[i]`` the tier's
+    [C_i, H, b, ...] batch stack (or an opaque payload for
+    ``tier_update_fn``), ``tier_masks[i]`` optional [C_i, H] H_k masks.
+
+    ``tier_update_fn(w_c, i, data, mask) -> (final_params [C_i, ...],
+    losses [C_i])`` replaces the per-tier vmap (the fused
+    ``kernels/client_step`` hook plugs in here).
+
+    The delta accumulates tier by tier, one fp32 einsum each, so a
+    multi-tier round equals the padded ``round_step`` within fp32
+    reassociation and a single occupied tier equals it bit for bit.
+    Returns ``(new_state, metrics)`` with ``round_step``'s keys minus the
+    per-client ``losses``.
+    """
+    if rcfg.placement != "mesh":
+        raise ValueError(
+            "bucketed dispatch is a per-tier vmap — placement='mesh' only "
+            f"(got {rcfg.placement!r}); use the padded round_step for scan")
+    dev = resolve_device(device)
+    _no_param_axes(param_axes)
+    _check_state_device(state, dev)
+    opt = local_opt_lib.get(rcfg.local_opt, **dict(rcfg.local_opt_kwargs))
+    lr_t = torch.as_tensor(rcfg.lr if lr is None else lr,
+                           dtype=torch.float32, device=dev)
+    w_c = tree_map(lambda x: x.to(DTYPES[rcfg.compute_dtype]), state.w)
+    ddt = DTYPES[rcfg.delta_dtype]
+
+    def run_tier(w_c, i, batches, mask):
+        batches = tree_map(lambda x: torch.as_tensor(x, device=dev), batches)
+
+        def one_client(b, m=None):
+            return client_lib.local_update(loss_fn, w_c, b, lr_t, opt,
+                                           step_mask=m)
+        if mask is None:
+            return vmap(one_client)(batches)
+        return vmap(one_client)(batches, mask)
+
+    update = tier_update_fn or run_tier
+    acc = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                         device=dev), w_c)
+    loss_num = torch.zeros((), dtype=torch.float32, device=dev)
+    loss_den = torch.zeros((), dtype=torch.float32, device=dev)
+    completed = torch.zeros((), dtype=torch.int32, device=dev)
+    for i, (data, weights) in enumerate(zip(tier_data, tier_weights)):
+        weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+        mask = (None if tier_masks is None else torch.as_tensor(
+            tier_masks[i], dtype=torch.float32, device=dev))
+        final, losses = update(w_c, i, data, mask)
+        acc = tree_map(
+            lambda d, w0, wk: d + torch.einsum("c,c...->...", weights,
+                                               _f32(w0[None] - wk)),
+            acc, w_c, final)
+        eff_w = weights
+        if mask is not None:
+            eff_w = weights * (torch.sum(mask, dim=1) > 0).to(torch.float32)
+        loss_num = loss_num + torch.sum(eff_w * losses)
+        loss_den = loss_den + torch.sum(eff_w)
+        completed = completed + torch.sum(eff_w > 0).to(torch.int32)
+    delta = tree_map(lambda d: d.to(ddt), acc)
+    new_state = server_opt.update(state, delta)
+    metrics = {
+        "loss": loss_num / torch.clamp(loss_den, min=1e-12),
+        "delta_norm": _global_norm(delta),
+        "completed": completed,
+        "round": state.t,
+    }
+    return new_state, metrics
 
 
 def _global_norm(tree):

@@ -3,6 +3,14 @@ from repro_torch.data.federated import (  # noqa: F401
     FederatedDataset,
     minibatch_indices,
 )
+from repro_torch.data.stream import (  # noqa: F401
+    CacheView,
+    ShardCache,
+    ShardProvider,
+    StreamingFederatedDataset,
+    TierLayout,
+    next_pow2,
+)
 from repro_torch.data.partition import (  # noqa: F401
     dirichlet_partition,
     label_shard_partition,

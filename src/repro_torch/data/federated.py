@@ -42,12 +42,16 @@ def minibatch_indices(key: torch.Tensor, t, client_id, n_k,
     """Alg. 2's with-replacement minibatch draw for one client and round.
 
     ``need = H * b`` uniform indices into [0, n_k), keyed by (key, t,
-    client_id) only.  ``client_id`` / ``n_k`` may be equal-length integer
-    arrays: the result is then ``[C, need]``, row c bit-equal to a call for
-    client c alone (threefry is counter-based, so the batched draw is the
-    per-client draw, as under the reference's ``vmap``).
+    client_id) only.  ``t`` / ``client_id`` / ``n_k`` may be ints or
+    equal-length integer arrays (a vector ``t`` is the batched host replay
+    of a whole chunk's ``(t, cid, n_k)`` lanes): the result is then
+    ``[C, need]``, row c bit-equal to a call for lane c alone (threefry is
+    counter-based, so the batched draw is the per-lane draw, as under the
+    reference's ``vmap``).
     """
-    kt = prng.fold_in(prng.fold_in(key, int(t)), client_id)
+    kt = prng.fold_in(prng.fold_in(key, t), client_id)
+    if isinstance(n_k, int):
+        return prng.randint(kt, (need,), 0, n_k)
     n_k = torch.as_tensor(n_k, dtype=torch.int64, device=key.device)
     return prng.randint(kt, (need,), 0, n_k[..., None])
 

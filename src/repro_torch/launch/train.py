@@ -1,24 +1,41 @@
-"""Federated training driver: ``FederatedTrainer.run`` on the per-round plane.
+"""Federated trainer: ``FederatedTrainer.run(n, plan=...)``.
 
 Couples the host-side scheduler (client sampling, round-batch assembly,
-checkpointing, logging) with the round engine
-(``core.round.round_step``), one round per iteration of a Python loop, on
-the trainer's ``device`` (``cuda`` unless the caller asks for another).
-This is the JAX package's ``plan="per_round"`` plane; the trajectory is the
-reference's within fp32 tolerance, because sampling and minibatch draws are
-the same keyed threefry draws.
+checkpointing, logging) with the round engine, on the trainer's ``device``
+(``cuda`` unless the caller asks for another).  Two of the JAX package's
+execution planes are ported, and both train the reference's trajectory
+within fp32 tolerance, because sampling and minibatch draws are the same
+keyed threefry draws:
+
+* ``plan="per_round"`` (the default): one ``round_step`` per round, host
+  Python between rounds;
+* ``plan=ExecutionPlan(plane="streaming", chunk_rounds=..., cache=
+  CacheSpec(...))``: the corpus stays on the host as per-client shards, a
+  bounded device-side ``ShardCache`` holds the shards of each chunk's
+  participants in n_k-tiered slots, and each chunk of rounds runs back to
+  back on the device (``core.multiround.scan_rounds_ondevice``: keyed
+  sampling and gather on the device).  ``CacheSpec(bucketed=True)`` stages
+  each chunk's cohort on the host grouped by size tier and runs sized
+  per-tier work (``scan_rounds_bucketed``), optionally through the fused
+  ``kernels/client_step`` kernel via ``client_step_fn``.  Needs a
+  ``KeyedReplayable`` sampler: the host replay names each chunk's
+  participants before its compute is enqueued.
+
+A ``TrainSession`` (created per trainer, shareable via ``session=``) owns
+the streaming dataset and the persistent ``ShardCache`` across ``run()``
+calls: a second run re-uploads nothing for already-resident clients.
 
 Every run takes ``resume=True``: ``checkpoint.latest_round`` +
 ``restore_state`` pick the trajectory up at the round after the last
-durable save (a checkpoint written by either package), and keyed draws
-make the resumed run equal to an uninterrupted one.  Heterogeneous local
-work: ``hetero_steps_fn(t) -> [C] H_k`` runs each client's first H_k of the
-H staged local steps.  Time-varying participation (``DeviceDiurnalSampler``)
+durable save (a checkpoint written by either package), and keyed draws make
+the resumed run equal to an uninterrupted one.  Heterogeneous local work:
+``hetero_steps_fn(t) -> [C] H_k`` runs each client's first H_k of the H
+staged local steps.  Time-varying participation (``DeviceDiurnalSampler``)
 works through the padded-C convention (``rcfg.clients_per_round`` must
 equal ``sampler.lowered_clients``).
 
-The chunked planes, ``client_step_fn``, ``param_axes`` and ``session`` belong
-to later slices of the port and raise ``PlanError``.
+The scanned, device and auto planes and ``param_axes`` belong to later
+slices of the port and raise ``PlanError``.
 """
 from __future__ import annotations
 
@@ -33,13 +50,92 @@ import torch
 from repro_torch.checkpoint import (AsyncCheckpointWriter, append_metrics,
                                     latest_round, prune_metrics,
                                     restore_state)
-from repro_torch.core.round import RoundConfig, round_step
-from repro_torch.core.sampling import KeyedReplayable, UniformSampler
+from repro_torch.core.multiround import (scan_rounds_bucketed,
+                                         scan_rounds_ondevice)
+from repro_torch.core.round import DTYPES, RoundConfig, round_step
+from repro_torch.core.sampling import (KeyedReplayable, UniformSampler,
+                                       participants_in_span)
 from repro_torch.core.server_opt import ServerOpt, ServerState
-from repro_torch.data.federated import FederatedDataset
+from repro_torch.data.federated import FederatedDataset, minibatch_indices
+from repro_torch.data.stream import ShardCache, StreamingFederatedDataset
 from repro_torch.device import resolve_device
-from repro_torch.launch.plan import ExecutionPlan, PlanError, as_plan
+from repro_torch.launch.plan import (ExecutionPlan, PlanError, TrainSession,
+                                     as_plan, resolve)
 from repro_torch.tree import tree_map
+
+
+def _cache_counters(cache: Optional[ShardCache]):
+    return None if cache is None else (cache.hits, cache.misses,
+                                       cache.evictions,
+                                       tuple(cache.tier_hits),
+                                       tuple(cache.tier_misses),
+                                       tuple(cache.tier_evictions))
+
+
+def _cache_stats(before, cache: Optional[ShardCache]):
+    """Per-chunk delta of the cache counters (+ cumulative hit rate).
+    Uploads made for chunk i+1 while chunk i is in flight land on chunk
+    i's record; the per-run sums are exact.  ``cache_tier_*`` attribute the
+    same deltas to the n_k size tiers (index = tier, smallest first)."""
+    if cache is None:
+        return None
+    return {"cache_hits": cache.hits - before[0],
+            "cache_misses": cache.misses - before[1],
+            "cache_evictions": cache.evictions - before[2],
+            "cache_hit_rate": round(cache.hit_rate, 6),
+            "cache_tier_hits": [a - b for a, b
+                                in zip(cache.tier_hits, before[3])],
+            "cache_tier_misses": [a - b for a, b
+                                  in zip(cache.tier_misses, before[4])],
+            "cache_tier_evictions": [a - b for a, b
+                                     in zip(cache.tier_evictions,
+                                            before[5])]}
+
+
+def _eval_spans(t0: int, n_rounds: int, chunk_rounds: int,
+                eval_every: Optional[int] = None) -> list:
+    """Chunk spans ``[s, e)`` of at most ``chunk_rounds`` rounds.  Chunked
+    planes eval at chunk ends, so a cadence finer than the chunk size is
+    honoured by ending a span early after every eval round (``(e - 1) %
+    eval_every == 0``, the rounds the per-round plane evals).
+    ``eval_every=None`` (no eval_fn) keeps the uniform chunking."""
+    spans = []
+    s = t0
+    while s < n_rounds:
+        e = min(s + chunk_rounds, n_rounds)
+        if eval_every:
+            t_ev = -(-s // eval_every) * eval_every
+            if t_ev + 1 < e:
+                e = t_ev + 1
+        spans.append((s, e))
+        s = e
+    return spans
+
+
+def _staged_indices(data_key: torch.Tensor, t, cids, n_k,
+                    need: int) -> np.ndarray:
+    """The host replay of a whole chunk's keyed minibatch draws at once:
+    one batched draw over the flattened (t, cid, n_k) lanes, row l
+    bit-equal to ``minibatch_indices(key, t[l], cids[l], n_k[l], need)``
+    (threefry is counter-based)."""
+    as64 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64)
+    return minibatch_indices(data_key, as64(t), as64(cids), as64(n_k),
+                             need).numpy()
+
+
+@dataclass
+class _Chunk:
+    """A dispatched chunk on its way to the history: ``sealed`` once its
+    eval and checkpoint snapshot are taken, ``drawn`` the host replay's
+    client ids its device draw must equal (padded streaming only)."""
+    s: int
+    e: int
+    metrics: dict
+    cstats: Optional[dict] = None
+    drawn: Optional[list] = None
+    ev: Optional[dict] = None
+    snap: Any = None
+    sealed: bool = False
 
 
 @dataclass
@@ -53,12 +149,14 @@ class FederatedTrainer:
     param_axes: Optional[Any] = None         # sharding: a later slice
     lr_schedule: Optional[Callable] = None   # round t -> gamma_t
     hetero_steps_fn: Optional[Callable] = None  # round t -> [C] ints H_k
-    client_step_fn: Optional[Callable] = None   # bucketed plane: later slice
+    client_step_fn: Optional[Callable] = None   # fused gather+local-SGD
+                                                # hook (kernels/client_step)
+                                                # for the bucketed plane
     ckpt_path: Optional[str] = None
     ckpt_every: int = 0
     metrics_path: Optional[str] = None       # durable per-round jsonl log
     local_batch: int = 10                    # b, the client minibatch size
-    session: Optional[Any] = None            # chunked planes: later slice
+    session: Optional[TrainSession] = None   # warm resources across run()s
     history: list = field(default_factory=list)
     device: Any = None                       # None = cuda
 
@@ -68,15 +166,12 @@ class FederatedTrainer:
                 f"local_batch must be a positive int, got "
                 f"{self.local_batch!r}")
         self.local_batch = int(self.local_batch)
-        for name, what in (("param_axes", "logical-axis sharding"),
-                           ("client_step_fn", "the fused client_step hook "
-                            "of the bucketed streaming plane"),
-                           ("session", "TrainSession (warm resources of "
-                            "the chunked planes)")):
-            if getattr(self, name) is not None:
-                raise PlanError(
-                    f"FederatedTrainer.{name} ({what}) is not yet ported to "
-                    f"repro_torch", nearest="per_round")
+        if self.param_axes is not None:
+            raise PlanError(
+                "FederatedTrainer.param_axes (logical-axis sharding) is not "
+                "yet ported to repro_torch", nearest="per_round")
+        if self.session is None:
+            self.session = TrainSession()
         self.device = resolve_device(self.device)
         self.state = tree_map(
             lambda x: x.to(self.device) if isinstance(x, torch.Tensor)
@@ -114,6 +209,13 @@ class FederatedTrainer:
             idx, self.rcfg.local_steps, self.local_batch, t=t)
         lr_t, mask = self._round_knobs(t)
         return batches, np.asarray(weights, np.float32), lr_t, mask
+
+    def _chunk_knobs(self, t_lo: int, t_hi: int):
+        """[R] lrs + optional [R, C, H] masks for a chunk of rounds."""
+        knobs = [self._round_knobs(t) for t in range(t_lo, t_hi)]
+        masks = None if knobs[0][1] is None else np.stack(
+            [m for _, m in knobs])
+        return [lr for lr, _ in knobs], masks
 
     def _resume_round(self, resume: bool) -> int:
         """First round this run should execute: 0 normally; with
@@ -165,14 +267,16 @@ class FederatedTrainer:
             log_every: Optional[int] = None,
             eval_fn: Optional[Callable] = None, verbose: bool = True,
             resume: bool = False):
-        """Train ``n_rounds`` federated rounds on the per-round plane.
+        """Train ``n_rounds`` federated rounds under ``plan``.
 
-        ``plan``: ``None``, ``"per_round"`` or an
-        ``ExecutionPlan(plane="per_round")``; any other plane raises
-        ``PlanError``.  A plan's ``local_batch`` / ``ckpt`` overrides are
-        scoped to this call.  ``log_every`` overrides ``plan.eval.cadence``;
-        ``eval_fn(state) -> dict`` runs at every cadence round and the last.
-        ``resume=True`` continues from the latest durable checkpoint.
+        ``plan``: ``None`` or ``"per_round"`` (the per-round plane),
+        ``"streaming"`` or an ``ExecutionPlan``; the planes not yet ported
+        raise ``PlanError``.  A plan's ``local_batch`` / ``ckpt`` overrides
+        are scoped to this call.  ``log_every`` overrides
+        ``plan.eval.cadence``; ``eval_fn(state) -> dict`` runs at every
+        cadence round and the last (the streaming plane splits its chunks
+        there).  ``resume=True`` continues from the latest durable
+        checkpoint.  Every resolution is appended to ``session.plan_log``.
         Returns the history (one record per round).
         """
         plan = as_plan(plan)
@@ -186,13 +290,24 @@ class FederatedTrainer:
                 self.ckpt_every = plan.ckpt.every
         try:
             self._check_client_extent()
+            decision = resolve(plan, self, n_rounds)
+            self.session.plan_log.append(decision.record())
             cadence = (log_every if log_every is not None
                        else plan.eval.cadence)
-            return self._run_per_round(n_rounds, cadence, eval_fn, verbose,
-                                       resume)
+            if decision.plane == "per_round":
+                return self._run_per_round(n_rounds, cadence, eval_fn,
+                                           verbose, resume)
+            return self._run_streaming(
+                n_rounds, decision.chunk_rounds, plan.cache.clients,
+                plan.cache.bytes, plan.cache.tiers, decision.bucketed,
+                bool(plan.prefetch), eval_fn,
+                cadence if eval_fn is not None else None, verbose, resume)
         finally:
             self.local_batch, self.ckpt_path, self.ckpt_every = saved
 
+    # ------------------------------------------------------------------
+    # plane: per_round — one round per loop iteration
+    # ------------------------------------------------------------------
     def _run_per_round(self, n_rounds: int, log_every: int, eval_fn,
                        verbose: bool, resume: bool):
         t0 = self._resume_round(resume)
@@ -221,3 +336,303 @@ class FederatedTrainer:
                         and t % self.ckpt_every == 0 and t > 0):
                     writer.submit(self.ckpt_path, self.state, {"round": t})
         return self.history
+
+    # ------------------------------------------------------------------
+    # plane: streaming — shard-cached data (corpus larger than the card)
+    # ------------------------------------------------------------------
+    def streaming_dataset(self) -> StreamingFederatedDataset:
+        """The host-resident shard set (built once, owned by the session)."""
+        return self.session.streaming_dataset(self.dataset)
+
+    @property
+    def stream_cache(self) -> Optional[ShardCache]:
+        """The session's persistent ``ShardCache`` (None before the first
+        streaming run)."""
+        return self.session.shard_cache
+
+    def _run_streaming(self, n_rounds: int, chunk_rounds: int,
+                       cache_clients: Optional[int],
+                       cache_bytes: Optional[int],
+                       cache_tiers: Optional[int], bucketed: bool,
+                       prefetch: bool, eval_fn, eval_every: Optional[int],
+                       verbose: bool, resume: bool):
+        t0 = self._resume_round(resume)
+        sds = self.streaming_dataset()
+        if cache_clients is None and cache_bytes is None:
+            cache_clients = self.rcfg.clients_per_round * chunk_rounds
+        cache = self.session.shard_cache_for(sds, cache_clients, cache_bytes,
+                                             cache_tiers, device=self.device)
+        spans = _eval_spans(t0, n_rounds, chunk_rounds, eval_every)
+        if bucketed:
+            return self._run_streaming_bucketed(spans, n_rounds, sds, cache,
+                                                prefetch, eval_fn, verbose)
+        data_key = sds.base_key(self.device)
+        sample_key = self.sampler.base_key().to(self.device)
+
+        def prepare(i):
+            # the raw per-round sequence (dedup=False): ensure() refreshes
+            # LRU recency from it in last-use order, and the chunk's device
+            # draw is held against it when its metrics are read
+            return participants_in_span(self.sampler, *spans[i],
+                                        dedup=False)
+
+        def dispatch(s, e, view):
+            lrs, masks = self._chunk_knobs(s, e)
+            return scan_rounds_ondevice(
+                self.loss_fn, self.server_opt, self.state, view,
+                self.sampler, data_key, sample_key, s, e - s, self.rcfg,
+                self.local_batch, lrs=lrs, step_masks=masks,
+                device=self.device)
+
+        return self._run_fused_chunks(spans, n_rounds, cache, prepare,
+                                      dispatch, prefetch, eval_fn, verbose,
+                                      check_draws=True)
+
+    # ------------------------------------------------------------------
+    # plane: streaming + cache.bucketed — n_k-shaped per-tier compute
+    # ------------------------------------------------------------------
+    def _bucket_chunk(self, t_lo: int, t_hi: int, tier_of, counts,
+                      data_key):
+        """Host staging for one bucketed chunk: replay each round's cohort
+        (the ``KeyedReplayable`` host sample, the draw the padded plane
+        makes on the device), group its C slots by cache size tier, and
+        right-pad every round's per-tier cohort to the chunk-wide tier
+        width with a same-tier chunk participant at weight 0 (zero weight
+        is zero delta and no loss; same tier because the tier's own corpus
+        is indexed; a chunk participant because it is resident).  Padding
+        rows carry all-ones H_k masks, so their effective weight stays 0.
+        Tier widths are the chunk's per-round maximum rounded up to a power
+        of two and capped at C, as in the reference, so the staged shapes
+        match it.
+
+        Every (t, cid) minibatch draw of the chunk is replayed here in one
+        batched host draw (bit-equal to the device draw); padding rows get
+        row 0 (any in-range row: their weight is 0).
+
+        Returns ``(participants, tiers_present, tier_cids, tier_weights,
+        lrs, tier_idx, tier_masks)``: the raw round-order id sequence
+        ``ShardCache.ensure`` wants, the occupied tiers, then per occupied
+        tier [R, C_i] ids and weights and [R, C_i, H*b] draws, the [R]
+        lrs, and [R, C_i, H] masks (None without ``hetero_steps_fn``)."""
+        R = t_hi - t_lo
+        rounds, lrs, participants = [], [], []
+        for t in range(t_lo, t_hi):
+            idx, weights = self.sampler.sample(t)
+            idx = np.asarray(idx)
+            participants.extend(int(c) for c in idx)
+            lr_t, mask = self._round_knobs(t)
+            lrs.append(lr_t)
+            by_tier: dict = {}
+            for j, cid in enumerate(idx):
+                by_tier.setdefault(int(tier_of[cid]), []).append(j)
+            rounds.append((idx, np.asarray(weights, np.float32), mask,
+                           by_tier))
+        tiers_present = tuple(sorted(
+            {tier for (_, _, _, bt) in rounds for tier in bt}))
+        C = self.rcfg.clients_per_round
+        widths = {tier: min(C, 1 << (max(len(bt.get(tier, ()))
+                                         for (_, _, _, bt) in rounds)
+                                     - 1).bit_length())
+                  for tier in tiers_present}
+        pad_cid: dict = {}
+        for (idx, _, _, bt) in rounds:
+            for tier, js in bt.items():
+                pad_cid.setdefault(tier, int(idx[js[0]]))
+        H = self.rcfg.local_steps
+        need = H * self.local_batch
+        cid_flat = np.concatenate([idx for (idx, _, _, _) in rounds])
+        t_flat = np.repeat(np.arange(t_lo, t_hi),
+                           [len(idx) for (idx, _, _, _) in rounds])
+        idx_all = _staged_indices(data_key, t_flat, cid_flat,
+                                  np.asarray(counts)[cid_flat], need)
+        idx_all = np.split(idx_all, np.cumsum(
+            [len(idx) for (idx, _, _, _) in rounds])[:-1])
+        tier_cids, tier_ws, tier_ms, tier_ix = [], [], [], []
+        for tier in tiers_present:
+            C_i = widths[tier]
+            cids = np.full((R, C_i), pad_cid[tier], np.int64)
+            ws = np.zeros((R, C_i), np.float32)
+            ms = np.ones((R, C_i, H), np.float32)
+            ix = np.zeros((R, C_i, need), np.int32)
+            for r, (idx, weights, mask, bt) in enumerate(rounds):
+                js = np.asarray(bt.get(tier, []), np.intp)
+                k = len(js)
+                if k == 0:
+                    continue           # an all-padding round for this tier
+                cids[r, :k] = idx[js]
+                ws[r, :k] = weights[js]
+                if mask is not None:
+                    ms[r, :k] = mask[js]
+                ix[r, :k] = idx_all[r][js]
+            tier_cids.append(cids)
+            tier_ws.append(ws)
+            tier_ms.append(ms)
+            tier_ix.append(ix)
+        masked = self.hetero_steps_fn is not None
+        return (participants, tiers_present, tuple(tier_cids),
+                tuple(tier_ws), lrs, tuple(tier_ix),
+                tuple(tier_ms) if masked else None)
+
+    def _run_streaming_bucketed(self, spans, n_rounds: int, sds, cache,
+                                prefetch: bool, eval_fn, verbose: bool):
+        """The streaming chunk loop with n_k-shaped compute: ``prepare(i)``
+        stages span i's tier-bucketed cohorts and draws alongside the
+        residency lookahead, and each chunk runs ``scan_rounds_bucketed``.
+        Same trajectory as the padded plane (bit-equal with one occupied
+        tier, fp32-reduction-order tolerance across tiers)."""
+        if self.client_step_fn is not None and (
+                self.rcfg.local_opt != "sgd"
+                or DTYPES[self.rcfg.compute_dtype] != torch.float32):
+            raise PlanError(
+                f"client_step_fn (the fused kernels/client_step hook) "
+                f"covers plain-SGD fp32 local updates; got local_opt="
+                f"{self.rcfg.local_opt!r}, compute_dtype="
+                f"{self.rcfg.compute_dtype!r}", plane="streaming")
+        tier_of = cache.layout.tier_of
+        data_key = sds.base_key()          # the host replay's key
+        staged: dict = {}
+
+        def prepare(i):
+            s, e = spans[i]
+            parts, *rest = self._bucket_chunk(s, e, tier_of, sds.counts,
+                                              data_key)
+            staged[s] = tuple(rest)
+            return parts
+
+        def dispatch(s, e, view):
+            tiers_present, cids, ws, lrs, ixs, ms = staged.pop(s)
+            return scan_rounds_bucketed(
+                self.loss_fn, self.server_opt, self.state, view,
+                tiers_present, cids, ws, ixs, s, e - s, self.rcfg,
+                self.local_batch, lrs=lrs, tier_masks=ms,
+                client_step_fn=self.client_step_fn, device=self.device)
+
+        return self._run_fused_chunks(spans, n_rounds, cache, prepare,
+                                      dispatch, prefetch, eval_fn, verbose)
+
+    # ------------------------------------------------------------------
+    # the chunk loop of the streaming plane
+    # ------------------------------------------------------------------
+    def _run_fused_chunks(self, spans, n_rounds, cache, prepare, dispatch,
+                          prefetch, eval_fn, verbose, check_draws=False):
+        """Per-chunk staging, one dispatch, shared bookkeeping.
+
+        ``prepare(i)`` does the host lookahead for span i and returns its
+        raw participant sequence; it runs before span i-1 is dispatched.
+        ``cache.ensure`` makes span i's shards resident and ``cache.view()``
+        snapshots them; ``dispatch(s, e, view) -> (state, metrics)``
+        enqueues the chunk's rounds.  With ``prefetch``, span i+1's uploads
+        are issued right after chunk i is enqueued.  Cache writes are in
+        place and on the current stream, behind chunk i's reads, and a
+        copy from pageable host memory waits for that stream, so prefetch
+        orders the uploads behind chunk i rather than overlapping them;
+        both settings train the same trajectory.  Without it, chunk i is
+        drained first.
+
+        Chunk i's metrics are read (the one host sync per chunk) after
+        chunk i+1 is enqueued; eval and the checkpoint snapshot see chunk
+        i's own state before that.  ``check_draws``: hold each chunk's
+        device-drawn client ids against the host replay that named its
+        uploads (a mismatch would train on another client's rows)."""
+        def stage(i):
+            return prepare(i) if i < len(spans) else None
+
+        def upload(parts):
+            cache.ensure(parts)
+            return cache.view()
+
+        t_start = time.time()
+        stats0 = _cache_counters(cache)
+        nxt = stage(0)
+        view = upload(nxt) if spans else None
+        pending: Optional[_Chunk] = None
+        with self._writer() as writer:
+            try:
+                for i, (s, e) in enumerate(spans):
+                    drawn, nxt = nxt, stage(i + 1)
+                    if pending is not None:
+                        self._seal_chunk(pending, n_rounds, eval_fn, writer)
+                    self.state, metrics = dispatch(s, e, view)
+                    if nxt is not None and prefetch:
+                        view = upload(nxt)
+                    if pending is not None:
+                        done, pending = pending, None
+                        self._drain_chunk(done, verbose, t_start, writer)
+                    pending = _Chunk(s, e, metrics,
+                                     cstats=_cache_stats(stats0, cache),
+                                     drawn=drawn if check_draws else None)
+                    stats0 = _cache_counters(cache)
+                    if nxt is not None and not prefetch:
+                        self._seal_chunk(pending, n_rounds, eval_fn, writer)
+                        done, pending = pending, None
+                        self._drain_chunk(done, verbose, t_start, writer)
+                        view = upload(nxt)
+                if pending is not None:
+                    self._seal_chunk(pending, n_rounds, eval_fn, writer)
+                    done, pending = pending, None
+                    self._drain_chunk(done, verbose, t_start, writer)
+            except BaseException:
+                # retire the completed-but-unretired chunk before
+                # propagating: its checkpoint may already be durable, so its
+                # metrics are appended too (best effort, never masking the
+                # primary error)
+                if pending is not None:
+                    try:
+                        if not pending.sealed:
+                            self._seal_chunk(pending, n_rounds, None, writer)
+                        self._drain_chunk(pending, verbose, t_start, writer)
+                    except BaseException:
+                        pass
+                raise
+        return self.history
+
+    def _seal_chunk(self, chunk: _Chunk, n_rounds: int, eval_fn,
+                    writer: Optional[AsyncCheckpointWriter]):
+        """What must see the chunk's own state before the next chunk
+        updates it: the chunk-boundary eval and a device-side snapshot for
+        a due checkpoint (saved when a round t > 0 with t % ckpt_every == 0
+        falls inside the chunk, and after the last chunk).  The snapshot is
+        submitted in ``_drain_chunk``, after the chunk's metrics are
+        appended: the checkpoint never runs ahead of the metrics log."""
+        chunk.ev = eval_fn(self.state) if eval_fn is not None else None
+        due = self.ckpt_every and any(
+            t > 0 and t % self.ckpt_every == 0
+            for t in range(chunk.s, chunk.e))
+        if writer and (due or chunk.e == n_rounds):
+            chunk.snap = tree_map(
+                lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
+                self.state)
+        chunk.sealed = True
+
+    def _drain_chunk(self, chunk: _Chunk, verbose: bool, t_start: float,
+                     writer: Optional[AsyncCheckpointWriter]):
+        """The host-blocking half: one metrics read per chunk, the
+        device-draw check, history + jsonl append, progress line, then the
+        checkpoint submit."""
+        m = chunk.metrics
+        vals = torch.stack([m["loss"], m["delta_norm"]]).cpu().numpy()
+        if chunk.drawn is not None:
+            got = m["clients"].cpu().numpy().reshape(-1).tolist()
+            if got != chunk.drawn:
+                raise RuntimeError(
+                    f"rounds {chunk.s}..{chunk.e - 1}: the device draw "
+                    f"picked clients {got} but the host replay that named "
+                    f"the cache uploads picked {chunk.drawn}")
+        recs = [{"round": t, "loss": float(vals[0, i]),
+                 "delta_norm": float(vals[1, i])}
+                for i, t in enumerate(range(chunk.s, chunk.e))]
+        if chunk.ev is not None:
+            recs[-1].update(chunk.ev)
+        if chunk.cstats is not None:
+            recs[-1].update(chunk.cstats)
+        self.history.extend(recs)
+        if self.metrics_path:
+            append_metrics(self.metrics_path, recs)
+        if verbose:
+            print(f"  rounds {chunk.s:5d}..{chunk.e - 1:5d}  "
+                  f"loss={recs[-1]['loss']:.4f} "
+                  f"delta_norm={recs[-1]['delta_norm']:.4f}  "
+                  f"({time.time() - t_start:.1f}s)")
+        if writer and chunk.snap is not None:
+            writer.submit(self.ckpt_path, chunk.snap, {"round": chunk.e - 1},
+                          copy=False)

@@ -16,7 +16,9 @@ on, 64-bit mode off):
   into high and low words, and XORs the two output words.
 
 Torch has no ``add`` for ``uint32``, so the arithmetic runs in ``int64``
-masked to 32 bits.  It runs on whichever device the key lives on.
+masked to 32 bits.  It runs on whichever device the key lives on; plain
+Python ints (a round index, a bound) stay host scalars, so a draw on the
+card copies nothing from the host.
 
 ``normal`` goes through ``erfinv``, which XLA and torch evaluate with
 different polynomials: it is equal to JAX within a few float32 ulps, not
@@ -72,12 +74,20 @@ def _words(key: torch.Tensor):
     return key[..., 0], key[..., 1]
 
 
+def _int_or_tensor(x, device):
+    """A Python int stays a host scalar; anything else becomes an int64
+    tensor on ``device``."""
+    if isinstance(x, int):
+        return x
+    return torch.as_tensor(x, dtype=torch.int64, device=device)
+
+
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
-    """Mix ``data`` (an int, or an integer tensor broadcasting against the
-    key's batch shape) into ``key``."""
+    """Mix ``data`` (an int, or integers broadcasting against the key's
+    batch shape: a vector of round indices or client ids) into ``key``."""
     k0, k1 = _words(key)
-    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _M32
-    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(d), d)
+    d = _int_or_tensor(data, key.device) & _M32
+    y0, y1 = threefry2x32(k0, k1, 0, d)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
 
@@ -112,10 +122,13 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval,
     k = split(key, 2)
     hi = random_bits(k[..., 0, :], shape)
     lo = random_bits(k[..., 1, :], shape)
-    lo_v = torch.as_tensor(minval, dtype=torch.int64, device=key.device)
-    hi_v = torch.as_tensor(maxval, dtype=torch.int64, device=key.device)
-    span = (hi_v - lo_v) & _M32
-    span = torch.where(hi_v <= lo_v, torch.ones_like(span), span)
+    lo_v = _int_or_tensor(minval, key.device)
+    hi_v = _int_or_tensor(maxval, key.device)
+    if isinstance(lo_v, int) and isinstance(hi_v, int):
+        span = 1 if hi_v <= lo_v else (hi_v - lo_v) & _M32
+    else:
+        span = (hi_v - lo_v) & _M32
+        span = torch.where(hi_v <= lo_v, torch.ones_like(span), span)
     mult = (2 ** 16) % span
     mult = ((mult * mult) & _M32) % span
     off = (((hi % span) * mult) & _M32) + (lo % span)

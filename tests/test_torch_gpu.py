@@ -7,20 +7,30 @@ They skip without a CUDA device.  On a GPU host, which need not have JAX
 
 This file imports torch and the port only.  Held to: the CUDA
 ``fedmom_update`` bit-equal to its plain version (both round every
-operation to nearest, no FMA); a round on the card equal to the same round
-on the CPU within atol 1e-5 (cuBLAS and the CPU sum in other orders).
+operation to nearest, no FMA); the CUDA ``client_step`` equal to its plain
+version within atol/rtol 1e-5 (hand-fused gradients summed in another
+order); a round, and a few rounds of both streaming lanes, on the card
+equal to the same on the CPU within atol 1e-5 (cuBLAS and the CPU sum in
+other orders).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import DeviceUniformSampler  # noqa: E402
 from repro_torch.core import round as tround  # noqa: E402
 from repro_torch.core import server_opt as tso  # noqa: E402
+from repro_torch.data import FederatedDataset  # noqa: E402
 from repro_torch.interop import tree_from_numpy  # noqa: E402
+from repro_torch.kernels.client_step import kernel as cs_kernel  # noqa: E402
+from repro_torch.kernels.client_step import ops as cs_ops  # noqa: E402
+from repro_torch.kernels.client_step import ref as cs_ref  # noqa: E402
 from repro_torch.kernels.fedmom_update import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.fedmom_update import ops as tops  # noqa: E402
 from repro_torch.kernels.fedmom_update import ref as tref  # noqa: E402
+from repro_torch.launch.plan import CacheSpec, ExecutionPlan  # noqa: E402
+from repro_torch.launch.train import FederatedTrainer  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 KINDS = ("fedmom", "fedavgm")
@@ -109,3 +119,115 @@ def test_cuda_round_matches_cpu_round(cuda):
     for k in params:
         torch.testing.assert_close(out["cuda"].w[k].cpu(), out["cpu"].w[k],
                                    rtol=1e-5, atol=1e-5)
+
+
+def _cs_inputs(C, H, b, D, N, device, seed=0, masked=False):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, device=device)
+    xs = t(rng.normal(size=(C + 2, N, D)).astype(np.float32))
+    ys = t(rng.normal(size=(C + 2, N)).astype(np.float32))
+    slots = t(rng.permutation(C + 2)[:C].astype(np.int32))
+    idx = t(rng.integers(0, N, size=(C, H * b)).astype(np.int32))
+    w = t(rng.normal(size=D).astype(np.float32))
+    bias = t(np.float32(rng.normal()))
+    mask = None
+    if masked:
+        h_k = rng.integers(0, H + 1, size=C)
+        h_k[0] = 0
+        mask = t((np.arange(H)[None, :] < h_k[:, None]).astype(np.float32))
+    return xs, ys, slots, idx, w, bias, mask
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("C,H,b,D,N", [
+    (8, 4, 8, 64, 8192), (1, 4, 8, 64, 4), (3, 2, 3, 65, 9),
+    (2, 1, 1, 1024, 7), (2, 2, 16, 1024, 20), (4, 3, 130, 8, 50)])
+def test_client_step_kernel_matches_plain(cuda, C, H, b, D, N, masked):
+    """The streaming lane's tier shapes, a ragged D, the largest D, a
+    block past 48 KB of shared memory and a batch wider than a block."""
+    xs, ys, slots, idx, w, bias, mask = _cs_inputs(C, H, b, D, N, cuda,
+                                                   masked=masked)
+    before = cs_kernel.launches
+    got = cs_ops.client_step(xs, ys, slots, idx, w, bias, 0.05, H, b,
+                             step_mask=mask)
+    assert cs_kernel.launches == before + 1
+    want = cs_ref.client_step(xs, ys, slots, idx, w, bias, 0.05, H, b,
+                              step_mask=mask)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+    if masked:
+        assert torch.equal(got[0][0], w) and float(got[2][0]) == 0.0
+
+
+def test_client_step_kernel_refuses_what_it_cannot_take(cuda):
+    xs, ys, slots, idx, w, bias, _ = _cs_inputs(2, 2, 2, 8, 6, cuda)
+    args = [xs, ys, slots, idx, w, bias]
+
+    def call(i, x, **kw):
+        a = list(args)
+        a[i] = x
+        return cs_kernel.client_step(*a, 0.1, kw.get("H", 2), kw.get("b", 2))
+
+    with pytest.raises(ValueError, match="float32"):
+        call(0, xs.double())
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        call(1, ys.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        call(2, slots.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(3, idx.t().contiguous().t())
+    with pytest.raises(ValueError, match="shape"):
+        call(3, idx[:, :3].contiguous())
+    big = torch.zeros((1, 4, 1025), device=cuda)
+    with pytest.raises(ValueError, match="at most 1024"):
+        cs_kernel.client_step(big, ys[:1, :4].contiguous(), slots[:1],
+                              idx[:1], torch.zeros(1025, device=cuda),
+                              bias, 0.1, 2, 2)
+    wide = torch.zeros((1, 4, 1024), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        cs_kernel.client_step(wide, ys[:1, :4].contiguous(), slots[:1],
+                              torch.zeros((1, 64), dtype=torch.int32,
+                                          device=cuda),
+                              torch.zeros(1024, device=cuda), bias, 0.1, 1,
+                              64)
+
+
+def _linreg_loss(p, b):
+    return torch.mean(torch.square(b["x"] @ p["w"] + p["b"] - b["y"])), {}
+
+
+@pytest.mark.parametrize("hook", [False, True])
+def test_streaming_lanes_on_cuda_match_cpu(cuda, hook):
+    """A few rounds of the padded lane, and of the bucketed lane through
+    the fused hook, on the card and on the CPU."""
+    rng = np.random.default_rng(0)
+    clients = []
+    for r in range(24):
+        n = max(2, int(256 / (r + 1) ** 1.2))
+        x = rng.normal(size=(n, 16)).astype(np.float32)
+        clients.append({"x": x, "y": (x @ rng.normal(size=16)).astype(
+            np.float32)})
+    plan = ExecutionPlan(plane="streaming", chunk_rounds=3,
+                         cache=CacheSpec(bucketed=hook))
+    out = {}
+    for dev in ("cpu", cuda):
+        ds = FederatedDataset([dict(c) for c in clients], seed=1)
+        opt = tso.fedmom(eta=2.0, use_fused_kernel=True)
+        tr = FederatedTrainer(
+            loss_fn=_linreg_loss, server_opt=opt,
+            rcfg=tround.RoundConfig(4, 3, 0.05, compute_dtype="float32"),
+            dataset=ds, sampler=DeviceUniformSampler(ds.population(), 4,
+                                                     seed=2),
+            state=opt.init({"w": torch.zeros(16), "b": torch.zeros(())}),
+            client_step_fn=cs_ops.linreg_tier_step() if hook else None,
+            local_batch=4, device=dev)
+        before = cs_kernel.launches
+        hist = tr.run(6, plan=plan, verbose=False)
+        launched = cs_kernel.launches - before
+        assert launched == 0 if (dev == "cpu" or not hook) else launched > 0
+        out[str(dev)] = (tr.state, [r["loss"] for r in hist])
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-5)
+    for k in ("w", "b"):
+        torch.testing.assert_close(out["cuda"][0].w[k].cpu(),
+                                   out["cpu"][0].w[k], rtol=1e-5, atol=1e-5)

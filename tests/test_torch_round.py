@@ -270,8 +270,6 @@ def test_unported_round_features_raise_plan_error():
     with pytest.raises(PlanError, match="secure") as err:
         tround.RoundConfig(2, 1, 0.1, secure=object())
     assert err.value.nearest == "per_round"
-    with pytest.raises(PlanError, match="bucketed_round_step"):
-        tround.bucketed_round_step()
     params, batches, weights = _setup()
     opt = tso.fedavg()
     with pytest.raises(PlanError, match="param_axes"):
@@ -279,6 +277,98 @@ def test_unported_round_features_raise_plan_error():
                           opt.init(tree_from_numpy(params, "cpu")), batches,
                           weights, tround.RoundConfig(4, 3, 0.1),
                           param_axes={"w": ("embed",)}, device="cpu")
+
+
+def _tiers(seed, sizes=(3, 1, 2), H=3, b=5, d=6, masked=False):
+    """A cohort split into size tiers: per tier [C_i, H, b, ...] batches,
+    [C_i] weights (the last client of the first tier a weight-0 pad) and
+    optional [C_i, H] masks, one of them fully masked."""
+    rng = np.random.default_rng(seed)
+    data, ws, ms = [], [], []
+    for c_i in sizes:
+        data.append({"x": rng.normal(size=(c_i, H, b, d)).astype(np.float32),
+                     "y": rng.normal(size=(c_i, H, b)).astype(np.float32)})
+        ws.append(rng.uniform(0.05, 0.3, size=c_i).astype(np.float32))
+        ms.append(_mask(c_i, H, rng.integers(0, H + 1, size=c_i)))
+    ws[0][-1] = 0.0
+    ms[1][:] = 0.0
+    return tuple(data), tuple(ws), tuple(ms) if masked else None
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("opt_name", ["fedavg", "fedmom"])
+def test_bucketed_round_matches_reference(opt_name, masked):
+    """Per-tier vmaps with one fp32 accumulator against the reference's
+    ``bucketed_round_step`` (three tiers, a weight-0 pad, a fully masked
+    tier)."""
+    params = _setup(seed=8)[0]
+    data, ws, ms = _tiers(3, masked=masked)
+    rc = dict(clients_per_round=6, local_steps=3, lr=0.1,
+              compute_dtype="float32")
+    jopt, topt = jso.get(opt_name), tso.get(opt_name)
+    js, jm = jround.bucketed_round_step(
+        jlinreg, jopt, jopt.init(jax.tree.map(jnp.asarray, params)),
+        jax.tree.map(jnp.asarray, data), jax.tree.map(jnp.asarray, ws),
+        jround.RoundConfig(**rc), lr=jnp.float32(0.1),
+        tier_masks=None if ms is None else jax.tree.map(jnp.asarray, ms))
+    ts, tm = tround.bucketed_round_step(
+        tlinreg, topt, topt.init(tree_from_numpy(params, "cpu")), data, ws,
+        tround.RoundConfig(**rc), lr=0.1, tier_masks=ms, device="cpu")
+    _assert_state_close(ts, js)
+    for k in ("loss", "delta_norm"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4,
+                                   atol=1e-6)
+    assert int(tm["completed"]) == int(jm["completed"])
+    assert tm["round"] == int(jm["round"]) and "losses" not in tm
+
+
+def test_bucketed_round_one_tier_bit_equal_to_round_step():
+    params, batches, weights = _setup(seed=6)
+    mask = _mask(4, 3, [3, 0, 1, 2])
+    rc = tround.RoundConfig(4, 3, 0.1, compute_dtype="float32")
+    opt = tso.fedmom()
+    tp = tree_from_numpy(params, "cpu")
+    s1, m1 = tround.round_step(tlinreg, opt, opt.init(tp), batches, weights,
+                               rc, step_mask=mask, device="cpu")
+    s2, m2 = tround.bucketed_round_step(tlinreg, opt, opt.init(tp),
+                                        (batches,), (weights,), rc,
+                                        tier_masks=(mask,), device="cpu")
+    for k in params:
+        assert torch.equal(s1.w[k], s2.w[k])
+    for k in ("loss", "delta_norm", "completed"):
+        assert torch.equal(m1[k], m2[k]), k
+
+
+def test_bucketed_round_hook_replaces_the_per_tier_vmap():
+    """``tier_update_fn`` gets (w_c, tier, payload, mask) and its
+    (final params, losses) are aggregated like the vmap's own."""
+    params = _setup(seed=8)[0]
+    data, ws, ms = _tiers(5, masked=True)
+    rc = tround.RoundConfig(6, 3, 0.1, compute_dtype="float32")
+    opt = tso.fedavg()
+    tp = tree_from_numpy(params, "cpu")
+    seen = []
+
+    def hook(w_c, i, payload, mask):
+        seen.append((i, payload))
+        b = tree_from_numpy(data[i], "cpu")
+        return torch.func.vmap(lambda bb, m: tlocal_update(
+            tlinreg, w_c, bb, torch.tensor(0.1), step_mask=m))(b, mask)
+
+    s1, m1 = tround.bucketed_round_step(tlinreg, opt, opt.init(tp),
+                                        ("a", "b", "c"), ws, rc,
+                                        tier_masks=ms, tier_update_fn=hook,
+                                        device="cpu")
+    s2, m2 = tround.bucketed_round_step(tlinreg, opt, opt.init(tp), data, ws,
+                                        rc, tier_masks=ms, device="cpu")
+    assert seen == [(0, "a"), (1, "b"), (2, "c")]
+    for k in params:
+        assert torch.equal(s1.w[k], s2.w[k])
+    assert torch.equal(m1["loss"], m2["loss"])
+    with pytest.raises(ValueError, match="placement='mesh'"):
+        tround.bucketed_round_step(
+            tlinreg, opt, opt.init(tp), data, ws,
+            tround.RoundConfig(6, 3, 0.1, placement="scan"), device="cpu")
 
 
 def test_round_runs_on_cuda_unless_told_otherwise(monkeypatch):

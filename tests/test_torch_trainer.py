@@ -222,7 +222,7 @@ def test_eval_cadence_and_plan_overrides(world, tmp_path):
     assert latest_round(ck) == 4
 
 
-@pytest.mark.parametrize("plan", ["scanned", "device", "streaming", "auto"])
+@pytest.mark.parametrize("plan", ["scanned", "device", "auto"])
 def test_unported_planes_raise_plan_error(world, plan):
     tr = _torch_trainer(world, "fedavg-uniform")
     with pytest.raises(PlanError, match="not yet ported") as err:
@@ -230,17 +230,75 @@ def test_unported_planes_raise_plan_error(world, plan):
     assert err.value.nearest == "per_round"
 
 
-@pytest.mark.parametrize("field", ["chunk_rounds", "prefetch", "cache",
-                                   "memory_budget_bytes", "scenario",
-                                   "secure", "mesh"])
-def test_unported_plan_fields_raise_plan_error(field):
-    with pytest.raises(PlanError, match=f"ExecutionPlan.{field}") as err:
-        ExecutionPlan(plane="per_round", **{field: object()})
+def test_streaming_plane_trains_the_per_round_trajectory(world, jax_runs):
+    """LeNet on the streaming plane: the shard cache feeds round_step the
+    rows the per-round plane gathers on the host, so the two planes are
+    bit-equal, and both match the reference's per-round run."""
+    cfg = "fedmom-keyed-hetero"
+    ref = _torch_trainer(world, cfg)
+    ref_hist = ref.run(ROUNDS, plan="per_round", verbose=False)
+    tr = _torch_trainer(world, cfg)
+    hist = tr.run(ROUNDS, plan=ExecutionPlan(plane="streaming",
+                                             chunk_rounds=2),
+                  verbose=False)
+    assert [r["loss"] for r in hist] == [r["loss"] for r in ref_hist]
+    for k in ref.state.w:
+        assert torch.equal(tr.state.w[k], ref.state.w[k]), k
+    _, _, j_hist, j_state = jax_runs[cfg]
+    _assert_same(hist, tr.state, j_hist, j_state)
+    assert tr.session.plan_log[-1]["plane"] == "streaming"
+
+
+@pytest.mark.parametrize("field,value", [
+    ("chunk_rounds", "auto"), ("memory_budget_bytes", object()),
+    ("scenario", object()), ("secure", object()), ("mesh", object())],
+    ids=["chunk_rounds", "memory_budget_bytes", "scenario", "secure",
+         "mesh"])
+def test_unported_plan_fields_raise_plan_error(field, value):
+    with pytest.raises(PlanError, match="not yet ported") as err:
+        ExecutionPlan(plane="per_round", **{field: value})
     assert err.value.nearest == "per_round"
+    with pytest.raises(PlanError) as err:
+        ExecutionPlan(plane="streaming", **{field: value})
+    assert err.value.nearest == "streaming"
 
 
-@pytest.mark.parametrize("field", ["param_axes", "client_step_fn",
-                                   "session"])
+@pytest.mark.parametrize("kw,nearest", [
+    ({"chunk_rounds": 0}, None), ({"chunk_rounds": 2.5}, None),
+    ({"prefetch": -1}, None), ({"cache": {"tiers": 0}}, None),
+    ({"cache": {"bytes": -5}}, None), ({"cache": {"bucketed": 1}}, None),
+    ({"cache": {"bucketed": True}}, "streaming"), ({"local_batch": 0}, None),
+], ids=["chunk_rounds=0", "chunk_rounds=2.5", "prefetch=-1",
+        "cache.tiers=0", "cache.bytes<0", "cache.bucketed=1",
+        "bucketed-on-per_round", "local_batch=0"])
+def test_plan_validation_matches_reference(kw, nearest):
+    """The reference's checks with its messages, and the same ``nearest``."""
+    from repro.launch.plan import CacheSpec as JCache
+    from repro.launch.plan import ExecutionPlan as JPlan
+    from repro.launch.plan import PlanError as JPlanError
+    from repro_torch.launch.plan import CacheSpec
+    errs = []
+    for plan_cls, cache_cls, err_cls in ((JPlan, JCache, JPlanError),
+                                         (ExecutionPlan, CacheSpec,
+                                          PlanError)):
+        args = {k: cache_cls(**v) if k == "cache" else v
+                for k, v in kw.items()}
+        with pytest.raises(err_cls) as err:
+            plan_cls(plane="per_round", **args)
+        errs.append(err.value)
+    assert str(errs[1]) == str(errs[0])
+    assert errs[1].nearest == errs[0].nearest == nearest
+
+
+def test_streaming_plan_defaults_are_the_reference_defaults():
+    from repro.launch.plan import ExecutionPlan as JPlan
+    got, want = ExecutionPlan(plane="streaming"), JPlan(plane="streaming")
+    assert (got.chunk_rounds, got.prefetch) == (want.chunk_rounds,
+                                                want.prefetch) == (25, 2)
+    assert vars(got.cache) == vars(want.cache)
+
+
+@pytest.mark.parametrize("field", ["param_axes"])
 def test_unported_trainer_fields_raise_plan_error(world, field):
     with pytest.raises(PlanError, match=field):
         _torch_trainer(world, "fedavg-uniform", **{field: object()})
