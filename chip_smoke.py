@@ -4,13 +4,14 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout, imports nothing of JAX, and drives the
-port's two ported paths on the card: the per-round FedAvg / FedMom LeNet
-trainer at the quickstart configuration, and the streaming shard-cache
-plane (padded, bucketed, and bucketed through the fused ``client_step``
-kernel) at the Zipf linreg configuration of ``BENCH_6.json``
+port's three ported paths on the card: the per-round FedAvg / FedMom LeNet
+trainer at the quickstart configuration, the streaming shard-cache plane
+(padded, bucketed, and bucketed through the fused ``client_step`` kernel)
+at the Zipf linreg configuration of ``BENCH_6.json``
 (``benchmarks/perf_compare.py`` ``_zipf_clients`` / ``bench_bucketed``,
-rebuilt here).  Phases, each printed as it runs; any failure exits
-non-zero:
+rebuilt here), and serving gemma3-1b at full width (``serve.generate``,
+every prefill attention layer through the ``flash_attention`` kernel).
+Phases, each printed as it runs; any failure exits non-zero:
 
   1. card and settings: ``nvidia-smi`` name and power limit; TF32 off;
   2. build: every CUDA kernel compiled from ``src/repro_torch/csrc`` (one
@@ -33,7 +34,25 @@ non-zero:
      three lanes' final parameters against each other; the hook lane
      profiled over two chunks;
   8. streaming card against CPU: the hook lane on ``cpu`` and ``cuda``;
-  9. one JSON line of kernels, then the result line.
+  9. ``flash_attention`` against its plain version on the card (fp32 atol
+     2e-5, bf16 atol 2e-2, the reference's tolerances) at the serving
+     path's shapes (B=8, S=1024, 4 query heads over 1 KV head, d=256,
+     bf16, window 512 and 0) and at d=64 / d=128 in fp32 and bf16; device
+     times (CUDA graphs + events) of the kernel, the plain version and
+     ``scaled_dot_product_attention`` with the same boolean mask (timed
+     only, never used by the port) beside the bound of the (query, key)
+     pairs the masks keep;
+ 10. serving path: gemma3-1b at full width (keyed random weights from the
+     port's ``init``), ``generate`` of B=8 prompts of 1024 tokens, 32 new
+     tokens, greedy, bf16, ``attention_impl="pallas"``; prefill ms, decode
+     ms/token, tokens/s, peak memory, kernel launches over exactly one
+     ``generate`` call (26: one per layer), the device-busy share of one
+     call under the profiler; logprobs finite;
+ 11. serving card against CPU: gemma3-1b at full width cut to one pattern
+     period (6 layers), fp32, B=1, S0=256, 4 new tokens: prefill and
+     decode logits within atol/rtol 1e-3, greedy tokens equal wherever the
+     top-2 logit margin exceeds that tolerance;
+ 12. one JSON line of kernels, then the result line.
 
 Without a card, or outside a checkout of the repo, it exits non-zero and
 prints no result.
@@ -77,6 +96,17 @@ LANE_ATOL = LANE_RTOL = 1e-4       # final params, lane vs lane and card vs
                                    # CPU after Z_ROUNDS / Z_CMP_ROUNDS: the
                                    # tiers sum the delta in another order,
                                    # the kernel its gradients
+
+# the serving path: gemma3-1b at its published widths (configs/gemma3_1b.py)
+G_ARCH = "gemma3-1b"
+G_B, G_S0, G_NEW = 8, 1024, 32     # prompts, prompt length, new tokens
+G_CMP_LAYERS, G_CMP_S0, G_CMP_NEW = 6, 256, 4   # card-vs-CPU cut
+G_CMP_TOL = 1e-3                   # card vs CPU logits (fp32, TF32 off):
+                                   # cuBLAS and the CPU sum 1152- and
+                                   # 6912-long products in other orders
+FA_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:143
+BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12                 # H100 SXM fp32 (CUDA cores) peak
 
 
 def phase(name):
@@ -497,6 +527,257 @@ def streaming_card_vs_cpu(z_clients, cs_kernel, plan, devices):
           f"client_step launches on the card {card_launches}")
 
 
+def flash_kept_pairs(S, window, causal):
+    """(query, key) pairs that the masks keep for one (batch, head), summed
+    per row in closed form: query i keeps keys max(0, i - window + 1)
+    through i when causal (S - 1 when not); the kernel's tiles play no
+    part."""
+    pairs = 0
+    for i in range(S):
+        hi = i if causal else S - 1
+        lo = max(0, i - window + 1) if window > 0 else 0
+        pairs += max(0, hi - lo + 1)
+    return pairs
+
+
+def flash_bound_ms(B, S, Hq, Hkv, d, window, causal, itemsize):
+    """Least time on the card for one flash_attention call: the larger of
+    its bytes (q, k, v read once -- K/V at their Hkv heads -- and out
+    written once) over the memory rate, and its flops (4 d per kept
+    (query, key) pair: QK^T and PV) over the peak rate of the input type.
+    Returns (ms of the bytes, ms of the operations)."""
+    nbytes = (2 * B * S * Hq * d + 2 * B * S * Hkv * d) * itemsize
+    flops = 4 * d * B * Hq * flash_kept_pairs(S, window, causal)
+    rate = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+
+
+def sdpa_call(q, k, v, causal, window):
+    """``scaled_dot_product_attention`` over the same boolean mask (the
+    library yardstick; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    S = q.shape[1]
+    i = torch.arange(S, device=q.device)
+    keep = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= i[None, :] <= i[:, None]
+    if window > 0:
+        keep &= i[None, :] > i[:, None] - window
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                              enable_gqa=True)
+    return call
+
+
+def flash_phase(fa_ops):
+    """Phase 9: the kernel against its plain version at the serving path's
+    shapes and the reference's d=64 / d=128 sweep; device times at the
+    serving shapes.  Returns (max abs err, {window: timings})."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    cases = [(G_B, G_S0, 4, 1, 256, "bfloat16", True, 512),
+             (G_B, G_S0, 4, 1, 256, "bfloat16", True, 0)]
+    for d, S, Hq, Hkv in ((64, 512, 4, 2), (128, 256, 2, 1)):
+        for dtype in ("float32", "bfloat16"):
+            for causal, window in ((True, 0), (True, 64), (False, 0)):
+                cases.append((2, S, Hq, Hkv, d, dtype, causal, window))
+    rng = np.random.default_rng(0)
+    max_err = 0.0
+    timing = {}
+    for B, S, Hq, Hkv, d, dtype, causal, window in cases:
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, d)).astype(
+            np.float32), device=dev).to(dt) for h in (Hq, Hkv, Hkv))
+        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+        ref = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                     use_kernel=False)
+        sync(dev)
+        err = float((out.float() - ref.float()).abs().max())
+        tag = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} d={d} {dtype} causal="
+               f"{causal} window={window}")
+        if not (err <= FA_ATOL[dtype] and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"flash_attention {tag}: kernel differs "
+                                 f"from the plain version by {err:.3e} "
+                                 f"(atol {FA_ATOL[dtype]})")
+        max_err = max(max_err, err)
+        line = f"flash_attention {tag}: max abs err {err:.3e}"
+        if S == G_S0:
+            call_k = lambda: fa_ops.flash_attention(  # noqa: E731
+                q, k, v, causal=causal, window=window)
+            call_p = lambda: fa_ops.flash_attention(  # noqa: E731
+                q, k, v, causal=causal, window=window, use_kernel=False)
+            call_l = sdpa_call(q, k, v, causal, window)
+            lib_err = float((call_l().transpose(1, 2).float()
+                             - ref.float()).abs().max())
+            ms = graph_ms(call_k, iters=10, replays=10)
+            plain_ms = graph_ms(call_p, iters=10, replays=10)
+            lib_ms = graph_ms(call_l, iters=10, replays=10)
+            bytes_ms, ops_ms = flash_bound_ms(B, S, Hq, Hkv, d, window,
+                                              causal, 2)
+            bound_ms = max(bytes_ms, ops_ms)
+            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            timing[window] = (ms, plain_ms, bound_ms, bound_by, lib_ms,
+                              bytes_ms, ops_ms)
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                     f"sdpa {lib_ms:.4f} ms (device; sdpa vs plain "
+                     f"{lib_err:.2e}), bound {bound_ms:.4f} ms ({bound_by}: "
+                     f"{flash_kept_pairs(S, window, causal)} kept pairs "
+                     f"per head)")
+        print(line)
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return max_err, timing
+
+
+def serving_phase(dev, fa_kernel):
+    """Phase 10: generate at gemma3-1b's full width on the card."""
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import generate
+    cfg = get_config(G_ARCH).replace(attention_impl="pallas")
+    print(f"{cfg.name}: {cfg.n_layers} layers ({cfg.n_groups} stacked groups "
+          f"of {cfg.pattern_period} + {cfg.n_remainder} rem), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV head, "
+          f"d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window "
+          f"{cfg.window}, {cfg.dtype}; {cfg.n_params() / 1e9:.4f} G params")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _ = T.init(cfg, prng.PRNGKey(0), device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    from repro_torch.tree import leaves
+    n = sum(x.numel() for x in leaves(params))
+    nbytes = sum(x.numel() * x.element_size() for x in leaves(params))
+    print(f"keyed init: {n} params, {nbytes / 1e9:.3f} GB, {init_s:.2f} s, "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (G_B, G_S0))
+    generate(params, cfg, prompts, 2)                  # warm-up
+    sync(dev)
+    pre = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        cache, _ = T.init_cache(cfg, G_B, G_S0 + G_NEW, device=dev)
+        logits, cache = T.prefill(params, cfg, {"tokens": torch.as_tensor(
+            prompts, device=dev)}, cache)
+        sync(dev)
+        pre.append(time.perf_counter() - t0)
+        del cache, logits
+    prefill_ms = statistics.median(pre) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    fa_kernel.launches = 0
+    t0 = time.perf_counter()
+    res = generate(params, cfg, prompts, G_NEW)
+    sync(dev)
+    total_s = time.perf_counter() - t0
+    launches = fa_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.n_layers:
+        raise AssertionError(f"flash_attention launched {launches} times in "
+                             f"one generate call, want {cfg.n_layers} (one "
+                             f"per prefill attention layer)")
+    if res.tokens.shape != (G_B, G_S0 + G_NEW) or not np.isfinite(
+            res.logprobs).all() or not (res.logprobs[:, :-1] <= 0).all():
+        raise AssertionError(f"generate: tokens {res.tokens.shape}, "
+                             f"logprobs {res.logprobs}")
+    if not ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
+        raise AssertionError("generate: token ids out of the vocabulary")
+    decode_ms = (total_s * 1e3 - prefill_ms) / (G_NEW - 1)
+    tok_s = G_B * G_NEW / total_s
+    print(f"generate B={G_B} S0={G_S0} max_new={G_NEW} greedy: "
+          f"{total_s * 1e3:.2f} ms (host clock, synced); prefill "
+          f"{prefill_ms:.2f} ms (median of 3, cache allocation included); "
+          f"decode {decode_ms:.3f} ms/token; {tok_s:.2f} generated tokens/s; "
+          f"peak memory {peak / 1e9:.3f} GB; flash_attention launches "
+          f"{launches}; mean logprob {float(res.logprobs[:, :-1].mean()):.4f}")
+    wall, busy, n_ops, top = profile_device(
+        lambda: generate(params, cfg, prompts, G_NEW))
+    print(f"profiled one generate call: wall {wall * 1e3:.1f} ms, device "
+          f"busy {busy * 1e3:.2f} ms ({100 * busy / wall:.2f}%, idle "
+          f"{100 * (1 - busy / wall):.2f}%), {n_ops} device ops; top "
+          f"kernels:")
+    for kname, secs, count in top:
+        print(f"  {secs * 1e3:8.3f} ms  {count:6d}x  {kname[:100]}")
+    out = {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+           "tokens_per_s": tok_s, "generate_ms": total_s * 1e3,
+           "peak_memory_gb": peak / 1e9, "init_s": init_s,
+           "device_busy_share": busy / wall, "launches": launches}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_card_vs_cpu(dev, fa_kernel):
+    """Phase 11: gemma3-1b at full width cut to one pattern period, fp32,
+    on the CPU and on the card from the same weights (drawn on the card,
+    copied to the host): greedy ``generate`` on both, then the prefill and
+    decode logits of both along the CPU's generated tokens."""
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import generate
+    from repro_torch.tree import tree_map
+    cfg = get_config(G_ARCH).replace(n_layers=G_CMP_LAYERS, dtype="float32",
+                                     attention_impl="pallas")
+    params = {"cuda": T.init(cfg, prng.PRNGKey(1), device=dev)[0]}
+    params["cpu"] = tree_map(lambda x: x.cpu(), params["cuda"])
+    devices = {"cpu": torch.device("cpu"), "cuda": dev}
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (1, G_CMP_S0))
+    gen = {}
+    for name, device in devices.items():
+        fa_kernel.launches = 0
+        gen[name] = generate(params[name], cfg, prompt, G_CMP_NEW)
+        want = G_CMP_LAYERS if name == "cuda" else 0
+        if fa_kernel.launches != want:
+            raise AssertionError(f"{name}: flash_attention launches "
+                                 f"{fa_kernel.launches}, want {want}")
+    seq = gen["cpu"].tokens
+    logits = {}
+    for name, device in devices.items():
+        p = params[name]
+        cache, _ = T.init_cache(cfg, 1, G_CMP_S0 + G_CMP_NEW, device=device)
+        t = torch.as_tensor(seq, device=device)
+        steps = [T.prefill(p, cfg, {"tokens": t[:, :G_CMP_S0]}, cache)[0]]
+        for i in range(G_CMP_S0, G_CMP_S0 + G_CMP_NEW - 1):
+            steps.append(T.decode_step(p, cfg, cache, t[:, i:i + 1], i)[0])
+        logits[name] = torch.stack(steps)[:, 0].cpu()     # [NEW, V]
+    diff = float((logits["cuda"] - logits["cpu"]).abs().max())
+    if not torch.allclose(logits["cuda"], logits["cpu"], atol=G_CMP_TOL,
+                          rtol=G_CMP_TOL):
+        raise AssertionError(f"card and CPU logits differ by {diff:.3e} "
+                             f"(atol/rtol {G_CMP_TOL})")
+    new_cpu = gen["cpu"].tokens[0, G_CMP_S0:]
+    new_card = gen["cuda"].tokens[0, G_CMP_S0:]
+    checked = 0
+    for i in range(G_CMP_NEW):
+        if not np.array_equal(new_cpu[:i], new_card[:i]):
+            break                 # an earlier near-tie diverged: stop there
+        top2 = torch.topk(logits["cpu"][i], 2).values
+        if float(top2[0] - top2[1]) <= G_CMP_TOL:
+            continue              # a near-tie may go either way
+        if new_cpu[i] != new_card[i]:
+            raise AssertionError(f"greedy token {i}: cpu {new_cpu[i]}, card "
+                                 f"{new_card[i]} (top-2 margin "
+                                 f"{float(top2[0] - top2[1]):.3e})")
+        checked += 1
+    print(f"{cfg.name} cut to {G_CMP_LAYERS} layers, fp32, B=1 S0={G_CMP_S0}"
+          f": prefill + {G_CMP_NEW - 1} decode logits agree, max abs diff "
+          f"{diff:.3e} (atol/rtol {G_CMP_TOL}); greedy tokens cpu "
+          f"{new_cpu.tolist()}, card {new_card.tolist()} ({checked} of "
+          f"{G_CMP_NEW} held equal, the rest near-ties)")
+    del params
+    torch.cuda.empty_cache()
+    return diff
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -513,6 +794,8 @@ def main() -> int:
     from repro_torch.kernels.client_step import ref as cs_ref
     from repro_torch.kernels.fedmom_update import kernel as fm_kernel
     from repro_torch.kernels.fedmom_update import ref as fm_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.train import FederatedTrainer
     from repro_torch.models import small
     from repro_torch.tree import leaves, tree_map
@@ -728,9 +1011,36 @@ def main() -> int:
                           (torch.device("cpu"), dev))
 
     # ------------------------------------------------------------------
-    phase("9. kernels")
+    phase("9. kernel against plain (flash_attention)")
+    fa_err, fa_timing = flash_phase(fa_ops)
+
+    # ------------------------------------------------------------------
+    phase(f"10. serving path: {G_ARCH} at full width on cuda")
+    serving = serving_phase(dev, fa_kernel)
+
+    # ------------------------------------------------------------------
+    phase(f"11. serving card against CPU: {G_ARCH} cut to {G_CMP_LAYERS} "
+          f"layers, fp32")
+    serving["card_vs_cpu_max_abs_diff"] = serving_card_vs_cpu(dev, fa_kernel)
+
+    # ------------------------------------------------------------------
+    phase("12. kernels")
     ms, plain_ms, bound_ms = timing[("fedmom", n_main)]
     cs_ms, cs_plain_ms, cs_bound_ms = cs_timing[cs_top]
+    # flash_attention per launch at the serving path's mix: 22 LOCAL
+    # (window 512) and 4 ATTN (window 0) layers in every prefill
+    from repro_torch.configs import get_config
+    g_cfg = get_config(G_ARCH)
+    n_local = sum(1 for i in range(g_cfg.n_layers) if g_cfg.layer_pattern[
+        i % g_cfg.pattern_period] == "local")
+    mix = {g_cfg.window: n_local, 0: g_cfg.n_layers - n_local}
+
+    def per_launch(j):
+        return sum(fa_timing[w][j] * c for w, c in mix.items()) / sum(
+            mix.values())
+
+    fa_bound_by = ("bytes" if per_launch(5) >= per_launch(6)
+                   else "operations")
     print(json.dumps({
         "card": card, "main_path_ms_per_round": ms_round,
         "streaming_ms_per_round": {k: v["ms_per_round"]
@@ -740,7 +1050,12 @@ def main() -> int:
                                        for k, v in lanes.items()},
         "streaming_device_busy_share": {k: v["busy_share"]
                                         for k, v in lanes.items()},
-        "streaming_launches": {k: v["launches"] for k, v in lanes.items()}}))
+        "streaming_launches": {k: v["launches"] for k, v in lanes.items()},
+        "serving": serving,
+        "flash_attention_by_window": {
+            str(w): dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "bytes_ms", "ops_ms"), t))
+            for w, t in fa_timing.items()}}))
     line = {"kernels": [{
         "name": "fedmom_update",
         "route": "cuda",
@@ -765,6 +1080,18 @@ def main() -> int:
         "bound_ms": cs_bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:94",
+        "launches": serving["launches"],
+        "max_abs_err": fa_err,
+        "ms": per_launch(0),
+        "plain_ms": per_launch(1),
+        "bound_ms": per_launch(2),
+        "bound_by": fa_bound_by,
+        "library_ms": per_launch(4),
     }]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,18 @@
+"""Qwen2.5-14B [dense] — GQA with QKV bias.  [hf:Qwen/Qwen2.5-0.5B family]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-14b",
+    family="dense",
+    n_layers=48,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    d_head=128,
+    d_ff=13824,
+    vocab=152064,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    act="swiglu",
+    source="hf:Qwen/Qwen2.5-0.5B (family card; 14B dims per assignment)",
+)

@@ -1,9 +1,13 @@
 """Carry parameter trees and server states across packages as numpy.
 
 The port and the JAX package share a parameter layout (NHWC/HWIO LeNet,
-the same dict keys), so a tree initialised on one side can drive the other:
+the zoo's nested dicts with ``[n_groups, ...]``-stacked ``groups``, the
+same dict keys), so a tree initialised on one side can drive the other:
 hand the leaves over as numpy arrays (``np.asarray`` of a JAX array is one)
-and build tensors on the wanted device here.  This module imports no JAX.
+and build tensors on the wanted device here.  Parameter, cache and server
+state trees all carry this way; bfloat16 leaves arrive as bfloat16 and
+leave widened to float32, exactly, so a cast back restores their bits.
+This module imports no JAX.
 """
 from __future__ import annotations
 

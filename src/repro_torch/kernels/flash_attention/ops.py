@@ -1,0 +1,43 @@
+"""Public wrapper: model-layout attention, q [B,S,Hq,d], k/v [B,T,Hkv,d].
+
+Dispatch is by where the tensors lie: CUDA tensors go to the hand-written
+kernel (``kernel.py``), which indexes the KV head of each query head
+itself; CPU tensors, and any call with ``use_kernel=False``, go to the
+plain version (``ref.py``) the way the JAX package's ``ops.py`` feeds its
+kernel: K/V repeated to every query head and (B, H) folded.  There is no
+fallback: a CUDA input the kernel cannot take raises.
+
+Forward only, as the reference's kernel: inputs that require grad raise
+until the kernel has a backward (ROADMAP Queue 2 #3).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import kernel as _k
+from repro_torch.kernels.flash_attention import ref as _ref
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """q [B,S,Hq,d], k/v [B,T,Hkv,d] -> [B,S,Hq,d] in q's dtype."""
+    if any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention is forward only: it has no backward yet "
+            "(ROADMAP Queue 2 #3, the autograd.Function)")
+    if use_kernel and q.is_cuda:
+        return _k.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal,
+                                  window=window)
+    B, S, Hq, d = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    groups = Hq // Hkv
+    if groups > 1:
+        k = torch.repeat_interleave(k, groups, dim=2)
+        v = torch.repeat_interleave(v, groups, dim=2)
+    qf = q.transpose(1, 2).reshape(B * Hq, S, d)
+    kf = k.transpose(1, 2).reshape(B * Hq, T, d)
+    vf = v.transpose(1, 2).reshape(B * Hq, T, d)
+    of = _ref.attention_bhsd(qf, kf, vf, causal=causal, window=window)
+    return of.reshape(B, Hq, S, d).transpose(1, 2)

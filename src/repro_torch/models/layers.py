@@ -1,0 +1,173 @@
+"""Primitive layers of the dense transformer path, over explicit tensors.
+
+The port's counterpart of the JAX package's ``models/layers.py``, for what
+the dense serving path uses: the norms, 1-D rotary embeddings, the
+q-chunked masked attention (the plain path that ``attention_impl="xla"``
+selects, and decode at any setting) and the dense MLP.  The reference's
+``shard`` layout hints are identities on one card and are left out.
+``mrope_tables``, ``moe_apply``, the RG-LRU and RWKV functions and
+``causal_conv1d`` come with their slices (ROADMAP Queue 1 #13).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis in fp32, scaled by ``1 + scale``."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.to(torch.float32))).to(dtype)
+
+
+def head_rms_norm(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """qk-norm: RMSNorm over the head_dim of [..., H, Dh]."""
+    return rms_norm(x, scale, eps)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings (1-D)
+# ---------------------------------------------------------------------------
+def rope_tables(positions: torch.Tensor, d_head: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [B, S] -> (sin, cos) each [B, S, d_head//2], fp32."""
+    half = d_head // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=positions.device), exps)
+    ang = positions.to(torch.float32)[..., None] * freqs   # [B,S,half]
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor,
+               cos: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, Dh]; sin/cos [B, S, Dh//2].  Neox-style half rotation,
+    in fp32."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    sin = sin[:, :, None, :]
+    cos = cos[:, :, None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (the plain path: q-chunked, so score memory is O(chunk * T) per
+# head; the CUDA flash kernel is the fast path for prefill)
+# ---------------------------------------------------------------------------
+NEG_INF = -1e30
+
+
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    if groups == 1:
+        return k
+    return torch.repeat_interleave(k, groups, dim=2)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True,
+              window: int = 0,
+              q_offset=0,
+              k_positions: Optional[torch.Tensor] = None,
+              kv_len=None,
+              q_chunk: int = 1024,
+              grouped: Optional[bool] = None) -> torch.Tensor:
+    """q [B,S,Hq,Dh], k/v [B,T,Hkv,Dh] -> [B,S,Hq,Dh].
+
+    ``q_offset``: absolute position of q[0] (decode / chunked prefill).
+    ``k_positions``: absolute position of each cache slot ([T], -1 = empty)
+    for ring-buffer (sliding window) caches.
+    ``kv_len``: number of valid cache entries (decode; an int, or a [B]
+    tensor).
+    ``window`` > 0 masks keys older than ``window`` positions.
+    ``grouped``: compute GQA without expanding K/V (default: decode only,
+    ``S == 1``, as in the reference).
+    Scores are fp32 (bf16 products are exact in fp32, so upcasting before
+    the product is the reference's ``preferred_element_type``); the
+    probabilities are cast to ``v.dtype`` before the PV product, as the
+    reference does.
+    """
+    B, S, Hq, Dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    groups = Hq // Hkv
+    if grouped is None:
+        grouped = (S == 1)          # decode
+    if not grouped and groups > 1:
+        k = _repeat_kv(k, groups)
+        v = _repeat_kv(v, groups)
+        Hkv = Hq
+        groups = 1
+    scale = 1.0 / math.sqrt(Dh)
+    dev = q.device
+
+    if k_positions is not None:
+        kpos = k_positions[None, :].to(torch.int64)          # [1,T]
+        kv_valid = kpos >= 0
+    else:
+        kpos = torch.arange(T, device=dev)[None, :]          # [1,T]
+        kv_valid = torch.ones((1, T), dtype=torch.bool, device=dev)
+    if isinstance(kv_len, int):
+        kv_valid = kv_valid & (kpos < kv_len)
+    elif kv_len is not None:
+        kv_valid = kv_valid & (kpos < kv_len.reshape(-1, 1))
+    kf = k.to(torch.float32)
+
+    def block(qb: torch.Tensor, qpos: torch.Tensor) -> torch.Tensor:
+        # qb [B,sc,Hq,Dh], qpos [sc]; grouped GQA: q viewed as
+        # [B,sc,Hkv,G,Dh] against unexpanded K/V
+        sc = qb.shape[1]
+        qg = qb.reshape(B, sc, Hkv, groups, Dh).to(torch.float32)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+        qp = qpos[None, :, None] + 0 * kpos[:, None, :]    # [1,sc,T]
+        kp = kpos[:, None, :]
+        mask = kv_valid[:, None, :]
+        if causal:
+            mask = mask & (kp <= qp)
+        if window and window > 0:
+            mask = mask & (kp > qp - window)
+        logits = logits.masked_fill(~mask[:, None, None, :, :], NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+        return out.reshape(B, sc, Hq, Dh)
+
+    qpos_all = q_offset + torch.arange(S, device=dev)
+    if S <= q_chunk:
+        return block(q, qpos_all)
+
+    while S % q_chunk:        # largest power-of-two-ish divisor fallback
+        q_chunk //= 2
+    outs = [block(q[:, i:i + q_chunk], qpos_all[i:i + q_chunk])
+            for i in range(0, S, q_chunk)]
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """Gated (swiglu/geglu, 3 matrices) or plain (gelu, 2 matrices) MLP.
+    GELU is the tanh approximation, ``jax.nn.gelu``'s default."""
+    if act in ("swiglu", "geglu"):
+        g = x @ p["wi_gate"]
+        u = x @ p["wi_up"]
+        g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
+        h = g * u
+    elif act == "gelu":
+        h = F.gelu(x @ p["wi_up"], approximate="tanh")
+    else:
+        raise ValueError(act)
+    return h @ p["wo"]

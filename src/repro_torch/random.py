@@ -20,9 +20,17 @@ masked to 32 bits.  It runs on whichever device the key lives on; plain
 Python ints (a round index, a bound) stay host scalars, so a draw on the
 card copies nothing from the host.
 
-``normal`` goes through ``erfinv``, which XLA and torch evaluate with
-different polynomials: it is equal to JAX within a few float32 ulps, not
-bit for bit.  Everything else here is bit-equal.
+``normal`` goes through ``erfinv`` and ``gumbel`` through ``log``, which
+XLA and torch evaluate with different polynomials: they are equal to JAX
+within a few float32 ulps, not bit for bit.  Everything else here is
+bit-equal (``categorical`` too, wherever no two candidates lie within
+those ulps of each other).
+
+A float draw from one key of more than ``_CHUNK`` values is computed slice
+by slice of its counter, so that drawing a 302 M-element embedding holds
+one slice's int64 temporaries at a time, not 2.4 GB each; the counter is
+the row-major iota of the shape, so the values are those of one whole
+draw.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import torch
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
+_CHUNK = 1 << 24           # counters hashed at once by a large float draw
 
 
 def _rotl(x, r: int):
@@ -99,14 +108,20 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack((y0, y1), dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """Uniform 32-bit words (as int64), shape ``key.shape[:-1] + shape``."""
+def random_bits(key: torch.Tensor, shape: Sequence[int],
+                span: tuple[int, int] | None = None) -> torch.Tensor:
+    """Uniform 32-bit words (as int64), shape ``key.shape[:-1] + shape``.
+    With ``span=(start, stop)``, only the words of flat counters ``start``
+    to ``stop - 1`` of that draw, shape ``key.shape[:-1] + (stop - start,)``
+    (the counter is the row-major iota of ``shape``)."""
     shape = tuple(int(s) for s in shape)
+    start, stop = (0, math.prod(shape)) if span is None else span
+    out = shape if span is None else (stop - start,)
     k0, k1 = _words(key)
     lead = k0.shape
-    tail = (1,) * len(shape)
-    idx = torch.arange(math.prod(shape), dtype=torch.int64,
-                       device=key.device).reshape(shape)
+    tail = (1,) * len(out)
+    idx = torch.arange(start, stop, dtype=torch.int64,
+                       device=key.device).reshape(out)
     y0, y1 = threefry2x32(k0.reshape(lead + tail), k1.reshape(lead + tail),
                           idx >> 32, idx & _M32)
     return y0 ^ y1
@@ -150,25 +165,81 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
     return x
 
 
-def uniform(key: torch.Tensor, shape: Sequence[int], minval=0.0,
-            maxval=1.0) -> torch.Tensor:
-    """float32 uniforms in [minval, maxval): 23 random mantissa bits under
-    exponent 0, minus one, scaled, in float32 arithmetic as XLA does."""
-    bits = random_bits(key, shape)
+def _float_draw(key: torch.Tensor, shape: Sequence[int],
+                fn) -> torch.Tensor:
+    """``fn(random_bits(key, shape))`` for an elementwise ``fn`` into
+    float32.  One key's draw is hashed ``_CHUNK`` counters at a time (the
+    same values, a bounded peak); batched keys draw whole."""
+    shape = tuple(int(s) for s in shape)
+    if key.dim() > 1:
+        return fn(random_bits(key, shape))
+    n = math.prod(shape)
+    out = torch.empty(n, dtype=torch.float32, device=key.device)
+    for start in range(0, n, _CHUNK):
+        stop = min(start + _CHUNK, n)
+        out[start:stop] = fn(random_bits(key, shape, (start, stop)))
+    return out.reshape(shape)
+
+
+def _unit_floats(bits: torch.Tensor, minval, maxval) -> torch.Tensor:
+    """32-bit words -> float32 uniforms in [minval, maxval): 23 random
+    mantissa bits under exponent 0, minus one, scaled, in float32
+    arithmetic as XLA does."""
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=bits.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=bits.device)
     return torch.maximum(lo, (f - 1.0) * (hi - lo) + lo)
 
 
+def uniform(key: torch.Tensor, shape: Sequence[int], minval=0.0,
+            maxval=1.0) -> torch.Tensor:
+    """float32 uniforms in [minval, maxval), as ``jax.random.uniform``."""
+    return _float_draw(key, shape,
+                       lambda bits: _unit_floats(bits, minval, maxval))
+
+
 _NORMAL_LO = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+_SQRT2 = math.sqrt(2.0)
 
 
 def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """Standard normals, float32: ``sqrt(2) * erfinv(u)`` with ``u`` uniform
     on (-1, 1).  Equal to ``jax.random.normal`` within a few ulps (the two
     frameworks' ``erfinv`` differ)."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
-    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=torch.float32,
-                         device=key.device)
-    return sqrt2 * torch.erfinv(u)
+    def fn(bits):
+        sqrt2 = torch.full((), _SQRT2, dtype=torch.float32,
+                           device=bits.device)
+        return sqrt2 * torch.erfinv(_unit_floats(bits, _NORMAL_LO, 1.0))
+    return _float_draw(key, shape, fn)
+
+
+_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def _log32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log`` rounded once from float64: within half an ulp of the
+    exact value, where float32 ``log`` implementations differ by ulps."""
+    return torch.log(x.to(torch.float64)).to(torch.float32)
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """Standard Gumbel noise, float32: ``-log(-log(u))`` with ``u`` uniform
+    on [tiny, 1), as ``jax.random.gumbel`` computes it in its default
+    (``"low"``) mode, each ``log`` rounded to float32.  Equal to it within a
+    few float32 ulps of ``max(|g|, 1)`` (the two ``log``s; near g = 0 an
+    ulp of the inner ``log`` is many ulps of g)."""
+    return _float_draw(key, shape, lambda bits: -_log32(
+        -_log32(_unit_floats(bits, _TINY, 1.0))))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis)`` with replacement and
+    no ``shape``: ``argmax(gumbel(key, logits.shape) + logits)`` over
+    ``axis`` (the first index among ties, as JAX takes).  float32 logits
+    only: JAX draws the noise in the logits' dtype."""
+    if logits.dtype != torch.float32:
+        raise TypeError(f"categorical takes float32 logits, got "
+                        f"{logits.dtype}")
+    noise = gumbel(key, logits.shape)
+    return torch.argmax(noise + logits, dim=axis)

@@ -11,7 +11,11 @@ operation to nearest, no FMA); the CUDA ``client_step`` equal to its plain
 version within atol/rtol 1e-5 (hand-fused gradients summed in another
 order); a round, and a few rounds of both streaming lanes, on the card
 equal to the same on the CPU within atol 1e-5 (cuBLAS and the CPU sum in
-other orders).
+other orders); the CUDA ``flash_attention`` equal to its plain version at
+the reference's tolerances (fp32 atol 2e-5, bf16 atol 2e-2) over the
+reference's sweep and at d=256; prefill through the kernel equal to a
+plain path with fp32 probabilities (fp32 atol 1e-4, bf16 atol 0.1), a
+tolerance that a window off by one in one layer exceeds.
 """
 import numpy as np
 import pytest
@@ -29,6 +33,8 @@ from repro_torch.kernels.client_step import ref as cs_ref  # noqa: E402
 from repro_torch.kernels.fedmom_update import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.fedmom_update import ops as tops  # noqa: E402
 from repro_torch.kernels.fedmom_update import ref as tref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402,E501
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.launch.plan import CacheSpec, ExecutionPlan  # noqa: E402
 from repro_torch.launch.train import FederatedTrainer  # noqa: E402
 
@@ -231,3 +237,121 @@ def test_streaming_lanes_on_cuda_match_cpu(cuda, hook):
     for k in ("w", "b"):
         torch.testing.assert_close(out["cuda"][0].w[k].cpu(),
                                    out["cpu"][0].w[k], rtol=1e-5, atol=1e-5)
+
+
+FLASH_SHAPES = [(128, 4, 4, 64), (256, 4, 2, 64), (128, 2, 1, 128),
+                (512, 2, 2, 64), (1024, 4, 1, 256)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0), (True, 512)])
+@pytest.mark.parametrize("S,Hq,Hkv,d", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda, S, Hq, Hkv, d, causal,
+                                              window, dtype):
+    """The reference's sweep (tests/test_kernels.py) plus gemma3's MQA
+    d=256 shape, kernel against the plain version on the same card inputs,
+    at the reference's tolerances."""
+    rng = np.random.default_rng(S + Hq + d)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(rng.normal(size=(2, S, h, d)).astype(
+        np.float32), device=cuda).to(dt) for h in (Hq, Hkv, Hkv))
+    before = fa_kernel.launches
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa_kernel.launches == before + 1
+    ref = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                 use_kernel=False)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and out.shape == q.shape
+    atol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 128, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_kernel.flash_attention(q[..., :32].contiguous(),
+                                  q[..., :32].contiguous(),
+                                  q[..., :32].contiguous())
+    with pytest.raises(ValueError, match="self-attention"):
+        fa_kernel.flash_attention(q, q[:, :64].contiguous(),
+                                  q[:, :64].contiguous())
+    with pytest.raises(ValueError, match="tile"):
+        fa_kernel.flash_attention(q[:, :96].contiguous(),
+                                  q[:, :96].contiguous(),
+                                  q[:, :96].contiguous())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa_kernel.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_kernel.flash_attention(q.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), q, q)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        fa_ops.flash_attention(q.requires_grad_(), q, q)
+
+
+# max abs difference of the prefill logits of reduced gemma3-1b (|logit|
+# up to 3.3), kernel path against a plain path with the same (fp32)
+# probabilities: above the largest sound reading (bf16: 4.9e-2, three
+# bf16 ulps of such a logit), below that of one layer's window off by one
+# (0.52)
+GENERATE_ATOL = {"float32": 1e-4, "bfloat16": 0.1}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_generate_through_kernel_matches_plain_attention(cuda, dtype,
+                                                         monkeypatch):
+    """prefill and generate on reduced gemma3-1b (window 64, S0=256 so
+    every prefill layer takes the kernel), same weights.  The kernel path
+    is held to a plain path that keeps the probabilities in fp32 as the
+    kernel does: in fp32 ``attention_impl="xla"``; in bf16 the kernel's
+    plain version (``use_kernel=False``), since the xla path rounds the
+    probabilities to bf16 before P.V.  The tolerance must also catch a
+    planted fault: the first (LOCAL) layer's kernel run with window 63."""
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import generate
+    cfg = get_config("gemma3-1b-reduced").replace(dtype=dtype,
+                                                  attention_impl="pallas")
+    params, _ = T.init(cfg, prng.PRNGKey(0), device=cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (2, 256))
+    tokens = torch.as_tensor(prompts, device=cuda)
+    kernel_attention = fa_ops.flash_attention
+
+    def prefill(c, attention=kernel_attention):
+        monkeypatch.setattr(fa_ops, "flash_attention", attention)
+        cache, _ = T.init_cache(c, 2, 256, device=cuda)
+        before = fa_kernel.launches
+        logits, _ = T.prefill(params, c, {"tokens": tokens}, cache)
+        monkeypatch.setattr(fa_ops, "flash_attention", kernel_attention)
+        return logits.float().cpu(), fa_kernel.launches - before
+
+    def plain_probs(q, k, v, *, causal, window):
+        return kernel_attention(q, k, v, causal=causal, window=window,
+                                use_kernel=False)
+
+    def window_off_by_one(q, k, v, *, causal, window):
+        seen.append(window)
+        return kernel_attention(q, k, v, causal=causal, window=window - (
+            len(seen) == 1))
+
+    seen = []
+    got, launches = prefill(cfg)
+    assert launches == cfg.n_layers
+    if dtype == "float32":
+        want, plain_launches = prefill(cfg.replace(attention_impl="xla"))
+    else:
+        want, plain_launches = prefill(cfg, plain_probs)
+    assert plain_launches == 0
+    faulty, _ = prefill(cfg, window_off_by_one)
+    assert seen[0] == cfg.window
+    sound = float((got - want).abs().max())
+    fault = float((faulty - want).abs().max())
+    reading = (f"{dtype}: sound {sound:.3e}, planted fault {fault:.3e}, "
+               f"max |logit| {float(want.abs().max()):.3e}, atol "
+               f"{GENERATE_ATOL[dtype]:.0e}")
+    print(reading)
+    assert sound <= GENERATE_ATOL[dtype] < fault, reading
+    res = generate(params, cfg, prompts, 4)
+    assert np.isfinite(res.logprobs).all()
+    assert res.tokens.shape == (2, 260)
