@@ -4,13 +4,16 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout, imports nothing of JAX, and drives the
-port's three ported paths on the card: the per-round FedAvg / FedMom LeNet
+port's four ported paths on the card: the per-round FedAvg / FedMom LeNet
 trainer at the quickstart configuration, the streaming shard-cache plane
 (padded, bucketed, and bucketed through the fused ``client_step`` kernel)
 at the Zipf linreg configuration of ``BENCH_6.json``
 (``benchmarks/perf_compare.py`` ``_zipf_clients`` / ``bench_bucketed``,
-rebuilt here), and serving gemma3-1b at full width (``serve.generate``,
-every prefill attention layer through the ``flash_attention`` kernel).
+rebuilt here), serving gemma3-1b at full width (``serve.generate``, every
+prefill attention layer through the ``flash_attention`` kernel), and
+rwkv6-7b at full width: its forward loss with every layer's recurrence
+through the ``rwkv6_scan`` kernel, and ``serve.generate`` over its
+recurrent state caches.
 Phases, each printed as it runs; any failure exits non-zero:
 
   1. card and settings: ``nvidia-smi`` name and power limit; TF32 off;
@@ -52,7 +55,25 @@ Phases, each printed as it runs; any failure exits non-zero:
      period (6 layers), fp32, B=1, S0=256, 4 new tokens: prefill and
      decode logits within atol/rtol 1e-3, greedy tokens equal wherever the
      top-2 logit margin exceeds that tolerance;
- 12. one JSON line of kernels, then the result line.
+ 12. ``rwkv6_scan`` against its plain version on the card (fp32 atol 2e-3,
+     bf16 atol 5e-2, rtol 1e-2, the reference's tolerances) at the
+     reference's sweep shapes, at extreme decay (log w = -50 and the
+     clip's floor -exp(8)) and at the loss path's shape (B=8, S=1024, 64
+     heads of 64) in fp32 and bf16; device times (CUDA graphs + events) of
+     the kernel and the plain version at the path's shape beside the bound;
+ 13. RWKV6 path: rwkv6-7b at full width (keyed random weights, 32 stacked
+     layers, bf16): ``loss_fn`` of B=8 x 1024 tokens with
+     ``rwkv_impl="pallas"`` (32 kernel launches over exactly one call) and
+     with ``"xla"``, the loss finite; ``generate`` of B=8 prompts of 1024
+     tokens, 32 new, greedy (prefill ms, decode ms/token, tokens/s, peak
+     memory; no kernel launch: the reference's kernel returns no state, so
+     prefill and decode keep the plain recurrence); the device-busy share
+     of one profiled ``loss_fn`` and one ``generate`` call;
+ 14. RWKV6 card against CPU: rwkv6-7b at full width cut to 2 layers, fp32,
+     B=1, S=128 (4 chunks): the forward's logits through the kernel on the
+     card against the plain path on the CPU, prefill + 3 decode logits on
+     each, within atol/rtol 1e-3; greedy tokens equal as in phase 11;
+ 15. one JSON line of kernels, then the result line.
 
 Without a card, or outside a checkout of the repo, it exits non-zero and
 prints no result.
@@ -105,6 +126,16 @@ G_CMP_TOL = 1e-3                   # card vs CPU logits (fp32, TF32 off):
                                    # cuBLAS and the CPU sum 1152- and
                                    # 6912-long products in other orders
 FA_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:143
+# the RWKV6 path: rwkv6-7b at its published widths (configs/rwkv6_7b.py)
+R_ARCH = "rwkv6-7b"
+R_B, R_S = 8, 1024                 # loss_fn batch; generate prompts
+R_NEW = 32                         # generated tokens
+R_CMP_LAYERS, R_CMP_S, R_CMP_NEW = 2, 128, 4   # card-vs-CPU cut
+R_CMP_TOL = 1e-3                   # card vs CPU logits (fp32, TF32 off):
+                                   # 4096- and 14336-long products summed
+                                   # in other orders
+RW_ATOL = {"float32": 2e-3, "bfloat16": 5e-2}   # tests/test_kernels.py:179
+RW_RTOL = 1e-2
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # H100 SXM fp32 (CUDA cores) peak
 
@@ -778,6 +809,310 @@ def serving_card_vs_cpu(dev, fa_kernel):
     return diff
 
 
+def rwkv6_bound_ms(B, S, H, Dk, Dv, itemsize):
+    """Least time on the card for one rwkv6_scan call: the larger of its
+    bytes (r, k, v read once in the input type, log_w and u once in fp32,
+    o written once) over the memory rate, and its flops (a (token, head)
+    needs r.S, 2 Dk Dv; the state's decay and update, 3 Dk Dv; the bonus,
+    3 Dk + 2 Dv) over the peak rate of the input type.  Returns (ms of the
+    bytes, ms of the operations)."""
+    tokens = B * S * H
+    nbytes = (tokens * (2 * Dk + 2 * Dv) * itemsize + tokens * Dk * 4
+              + H * Dk * 4)
+    flops = tokens * (5 * Dk * Dv + 3 * Dk + 2 * Dv)
+    rate = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+
+
+def rwkv6_inputs(B, S, H, Dk, Dv, dtype, rng, lw=None):
+    """r, k, v (normal, in ``dtype``), log_w = -exp(normal) (or the constant
+    ``lw``) and u = 0.1 normal, both fp32: the reference's test draws."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+
+    def t(a):
+        return torch.as_tensor(a.astype(np.float32), device=dev)
+    r, k = (t(rng.normal(size=(B, S, H, Dk))).to(dt) for _ in range(2))
+    v = t(rng.normal(size=(B, S, H, Dv))).to(dt)
+    log_w = t(-np.exp(rng.normal(size=(B, S, H, Dk))) if lw is None
+              else np.full((B, S, H, Dk), lw))
+    return r, k, v, log_w, t(0.1 * rng.normal(size=(H, Dk)))
+
+
+def rwkv6_phase(rw_ops):
+    """Phase 12: the kernel against its plain version at the reference's
+    sweep, at extreme decay and at the loss path's shape; device times at
+    the path's shape.  Returns (max abs err, timings)."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    cases = []
+    for dtype in ("float32", "bfloat16"):
+        for S, H, Dk, Dv, chunk in ((64, 2, 64, 64, 32), (128, 4, 64, 64, 32),
+                                    (96, 1, 32, 32, 32),
+                                    (256, 2, 64, 128, 64)):
+            cases.append((2, S, H, Dk, Dv, chunk, dtype, None))
+        cases.append((R_B, R_S, 64, 64, 64, 32, dtype, None))
+    for lw in (-50.0, -math.exp(8.0)):
+        cases.append((1, 64, 1, 32, 32, 32, "float32", lw))
+    rng = np.random.default_rng(0)
+    max_err = 0.0
+    timing = None
+    for B, S, H, Dk, Dv, chunk, dtype, lw in cases:
+        r, k, v, log_w, u = rwkv6_inputs(B, S, H, Dk, Dv, dtype, rng, lw)
+        if lw is not None:
+            u = torch.zeros_like(u)
+        out = rw_ops.rwkv6(r, k, v, log_w, u, chunk=chunk)
+        ref = rw_ops.rwkv6(r, k, v, log_w, u, chunk=chunk, use_kernel=False)
+        sync(dev)
+        err = float((out.float() - ref.float()).abs().max())
+        atol, rtol = (1e-3, 0.0) if lw is not None else (RW_ATOL[dtype],
+                                                          RW_RTOL)
+        tag = (f"B={B} S={S} H={H} Dk={Dk} Dv={Dv} chunk={chunk} {dtype}"
+               + (f" log_w={lw:.6g}" if lw is not None else ""))
+        if not (bool(torch.isfinite(out).all()) and torch.allclose(
+                out.float(), ref.float(), atol=atol, rtol=rtol)):
+            raise AssertionError(f"rwkv6_scan {tag}: kernel differs from the "
+                                 f"plain version by {err:.3e} (atol {atol}, "
+                                 f"rtol {rtol})")
+        max_err = max(max_err, err)
+        line = (f"rwkv6_scan {tag}: max abs err {err:.3e} (largest |o| "
+                f"{float(ref.float().abs().max()):.3e})")
+        if S == R_S and dtype == "bfloat16":
+            ms = graph_ms(lambda: rw_ops.rwkv6(r, k, v, log_w, u,
+                                               chunk=chunk),
+                          iters=10, replays=10)
+            plain_ms = graph_ms(lambda: rw_ops.rwkv6(
+                r, k, v, log_w, u, chunk=chunk, use_kernel=False),
+                iters=1, replays=3)
+            bytes_ms, ops_ms = rwkv6_bound_ms(B, S, H, Dk, Dv, 2)
+            bound_ms = max(bytes_ms, ops_ms)
+            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            timing = (ms, plain_ms, bound_ms, bound_by, bytes_ms, ops_ms)
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                     f"(device), bound {bound_ms:.4f} ms ({bound_by}; bytes "
+                     f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms); "
+                     f"library: none computes this recurrence")
+        print(line)
+        del r, k, v, log_w, u, out, ref
+    torch.cuda.empty_cache()
+    return max_err, timing
+
+
+def rwkv_path_phase(dev, rw_kernel):
+    """Phase 13: rwkv6-7b at full width on the card: loss_fn through the
+    kernel and through the plain path, then generate."""
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import generate
+    from repro_torch.tree import leaves
+    cfg = get_config(R_ARCH).replace(rwkv_impl="pallas")
+    print(f"{cfg.name}: {cfg.n_layers} layers ({cfg.n_groups} stacked groups "
+          f"of {cfg.pattern_period} + {cfg.n_remainder} rem), d_model "
+          f"{cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} heads of "
+          f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, decay "
+          f"LoRA {cfg.rwkv_decay_lora}, {cfg.dtype}; "
+          f"{cfg.n_params() / 1e9:.4f} G params")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _ = T.init(cfg, prng.PRNGKey(0), device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n = sum(x.numel() for x in leaves(params))
+    nbytes = sum(x.numel() * x.element_size() for x in leaves(params))
+    init_peak = torch.cuda.max_memory_allocated()
+    print(f"keyed init: {n} params, {nbytes / 1e9:.3f} GB, {init_s:.2f} s, "
+          f"peak {init_peak / 1e9:.3f} GB")
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (R_B, R_S)),
+                             device=dev)
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab, (R_B, R_S)),
+                             device=dev)
+    batch = {"tokens": tokens, "labels": labels}
+
+    def timed_loss(c, want_launches):
+        """Median host ms of 3 synced loss_fn calls, the last loss, and the
+        kernel's launches in each call (counted from 0 just before it)."""
+        times = []
+        for _ in range(3):
+            rw_kernel.launches = 0
+            t0 = time.perf_counter()
+            loss, _ = T.loss_fn(params, c, batch)
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+            if rw_kernel.launches != want_launches:
+                raise AssertionError(
+                    f"rwkv6_scan launched {rw_kernel.launches} times in one "
+                    f"loss_fn call with rwkv_impl={c.rwkv_impl!r}, want "
+                    f"{want_launches}")
+        return statistics.median(times) * 1e3, float(loss)
+
+    T.loss_fn(params, cfg, batch)                      # warm-up
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    launches = cfg.n_layers                            # one per layer
+    loss_ms, loss = timed_loss(cfg, launches)
+    loss_peak = torch.cuda.max_memory_allocated()
+    if not math.isfinite(loss):
+        raise AssertionError(f"loss_fn: non-finite loss {loss}")
+    xla_ms, xla_loss = timed_loss(cfg.replace(rwkv_impl="xla"), 0)
+    print(f"loss_fn B={R_B} S={R_S} (host clock, synced, median of 3): "
+          f"pallas {loss_ms:.2f} ms, loss {loss:.6f}, rwkv6_scan launches in "
+          f"each call {launches}; xla {xla_ms:.2f} ms, loss {xla_loss:.6f} "
+          f"(ln vocab = {math.log(cfg.vocab):.4f}); peak memory "
+          f"{loss_peak / 1e9:.3f} GB")
+    wall, busy, n_ops, top = profile_device(
+        lambda: T.loss_fn(params, cfg, batch))
+    print(f"profiled one loss_fn call (pallas): wall {wall * 1e3:.1f} ms, "
+          f"device busy {busy * 1e3:.2f} ms ({100 * busy / wall:.2f}%, idle "
+          f"{100 * (1 - busy / wall):.2f}%), {n_ops} device ops; top kernels:")
+    for kname, secs, count in top:
+        print(f"  {secs * 1e3:8.3f} ms  {count:6d}x  {kname[:100]}")
+    loss_busy = busy / wall
+
+    prompts = rng.integers(0, cfg.vocab, (R_B, R_S))
+    generate(params, cfg, prompts, 2)                  # warm-up
+    sync(dev)
+    pre = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        cache, _ = T.init_cache(cfg, R_B, R_S + R_NEW, device=dev)
+        logits, cache = T.prefill(params, cfg, {"tokens": torch.as_tensor(
+            prompts, device=dev)}, cache)
+        sync(dev)
+        pre.append(time.perf_counter() - t0)
+        del cache, logits
+    prefill_ms = statistics.median(pre) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    rw_kernel.launches = 0
+    t0 = time.perf_counter()
+    res = generate(params, cfg, prompts, R_NEW)
+    sync(dev)
+    total_s = time.perf_counter() - t0
+    gen_launches = rw_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    if gen_launches:
+        raise AssertionError(f"rwkv6_scan launched {gen_launches} times in "
+                             f"generate; the reference's rule keeps prefill "
+                             f"and decode on the plain recurrence")
+    if res.tokens.shape != (R_B, R_S + R_NEW) or not np.isfinite(
+            res.logprobs).all() or not (res.logprobs[:, :-1] <= 0).all():
+        raise AssertionError(f"generate: tokens {res.tokens.shape}, "
+                             f"logprobs {res.logprobs}")
+    if not ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
+        raise AssertionError("generate: token ids out of the vocabulary")
+    decode_ms = (total_s * 1e3 - prefill_ms) / (R_NEW - 1)
+    tok_s = R_B * R_NEW / total_s
+    print(f"generate B={R_B} S0={R_S} max_new={R_NEW} greedy: "
+          f"{total_s * 1e3:.2f} ms (host clock, synced); prefill "
+          f"{prefill_ms:.2f} ms (median of 3, cache allocation included); "
+          f"decode {decode_ms:.3f} ms/token; {tok_s:.2f} generated tokens/s; "
+          f"peak memory {peak / 1e9:.3f} GB; rwkv6_scan launches "
+          f"{gen_launches}; mean logprob "
+          f"{float(res.logprobs[:, :-1].mean()):.4f}")
+    wall, busy, n_ops, top = profile_device(
+        lambda: generate(params, cfg, prompts, R_NEW))
+    print(f"profiled one generate call: wall {wall * 1e3:.1f} ms, device "
+          f"busy {busy * 1e3:.2f} ms ({100 * busy / wall:.2f}%, idle "
+          f"{100 * (1 - busy / wall):.2f}%), {n_ops} device ops; top "
+          f"kernels:")
+    for kname, secs, count in top:
+        print(f"  {secs * 1e3:8.3f} ms  {count:6d}x  {kname[:100]}")
+    out = {"init_s": init_s, "init_peak_gb": init_peak / 1e9,
+           "loss_ms_pallas": loss_ms, "loss_ms_xla": xla_ms, "loss": loss,
+           "loss_xla": xla_loss, "loss_peak_gb": loss_peak / 1e9,
+           "loss_device_busy_share": loss_busy, "launches": launches,
+           "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+           "tokens_per_s": tok_s, "generate_ms": total_s * 1e3,
+           "generate_peak_gb": peak / 1e9, "generate_launches": gen_launches,
+           "generate_device_busy_share": busy / wall}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def rwkv_card_vs_cpu(dev, rw_kernel):
+    """Phase 14: rwkv6-7b at full width cut to 2 layers, fp32, on the CPU and
+    on the card from the same weights (drawn on the card, copied to the
+    host): the forward's logits (kernel on the card, the plain path on the
+    CPU), greedy generate on both, then prefill and decode logits of both
+    along the CPU's generated tokens."""
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import generate
+    from repro_torch.tree import tree_map
+    cfg = get_config(R_ARCH).replace(n_layers=R_CMP_LAYERS, dtype="float32",
+                                     rwkv_impl="pallas")
+    params = {"cuda": T.init(cfg, prng.PRNGKey(1), device=dev)[0]}
+    params["cpu"] = tree_map(lambda x: x.cpu(), params["cuda"])
+    devices = {"cpu": torch.device("cpu"), "cuda": dev}
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (1, R_CMP_S))
+    fwd = {}
+    for name, device in devices.items():
+        c = cfg if name == "cuda" else cfg.replace(rwkv_impl="xla")
+        rw_kernel.launches = 0
+        fwd[name] = T.apply(params[name], c, {"tokens": torch.as_tensor(
+            prompt, device=device)})[0].cpu()
+        want = R_CMP_LAYERS if name == "cuda" else 0
+        if rw_kernel.launches != want:
+            raise AssertionError(f"{name}: rwkv6_scan launches "
+                                 f"{rw_kernel.launches}, want {want}")
+    fwd_diff = float((fwd["cuda"] - fwd["cpu"]).abs().max())
+    if not torch.allclose(fwd["cuda"], fwd["cpu"], atol=R_CMP_TOL,
+                          rtol=R_CMP_TOL):
+        raise AssertionError(f"forward logits: card (kernel) and CPU (plain) "
+                             f"differ by {fwd_diff:.3e} (atol/rtol "
+                             f"{R_CMP_TOL})")
+    gen = {name: generate(params[name], cfg, prompt, R_CMP_NEW)
+           for name in devices}
+    seq = gen["cpu"].tokens
+    logits = {}
+    for name, device in devices.items():
+        p = params[name]
+        cache, _ = T.init_cache(cfg, 1, R_CMP_S + R_CMP_NEW, device=device)
+        t = torch.as_tensor(seq, device=device)
+        steps = [T.prefill(p, cfg, {"tokens": t[:, :R_CMP_S]}, cache)[0]]
+        for i in range(R_CMP_S, R_CMP_S + R_CMP_NEW - 1):
+            steps.append(T.decode_step(p, cfg, cache, t[:, i:i + 1], i)[0])
+        logits[name] = torch.stack(steps)[:, 0].cpu()     # [NEW, V]
+    diff = float((logits["cuda"] - logits["cpu"]).abs().max())
+    if not torch.allclose(logits["cuda"], logits["cpu"], atol=R_CMP_TOL,
+                          rtol=R_CMP_TOL):
+        raise AssertionError(f"card and CPU prefill/decode logits differ by "
+                             f"{diff:.3e} (atol/rtol {R_CMP_TOL})")
+    new_cpu = gen["cpu"].tokens[0, R_CMP_S:]
+    new_card = gen["cuda"].tokens[0, R_CMP_S:]
+    checked = 0
+    for i in range(R_CMP_NEW):
+        if not np.array_equal(new_cpu[:i], new_card[:i]):
+            break                 # an earlier near-tie diverged: stop there
+        top2 = torch.topk(logits["cpu"][i], 2).values
+        if float(top2[0] - top2[1]) <= R_CMP_TOL:
+            continue              # a near-tie may go either way
+        if new_cpu[i] != new_card[i]:
+            raise AssertionError(f"greedy token {i}: cpu {new_cpu[i]}, card "
+                                 f"{new_card[i]} (top-2 margin "
+                                 f"{float(top2[0] - top2[1]):.3e})")
+        checked += 1
+    print(f"{cfg.name} cut to {R_CMP_LAYERS} layers, fp32, B=1 S={R_CMP_S}: "
+          f"forward logits (kernel on the card, plain on the CPU) max abs "
+          f"diff {fwd_diff:.3e}; prefill + {R_CMP_NEW - 1} decode logits max "
+          f"abs diff {diff:.3e} (atol/rtol {R_CMP_TOL}); greedy tokens cpu "
+          f"{new_cpu.tolist()}, card {new_card.tolist()} ({checked} of "
+          f"{R_CMP_NEW} held equal, the rest near-ties)")
+    del params
+    torch.cuda.empty_cache()
+    return max(fwd_diff, diff)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -796,6 +1131,8 @@ def main() -> int:
     from repro_torch.kernels.fedmom_update import ref as fm_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rwkv6_scan import kernel as rw_kernel
+    from repro_torch.kernels.rwkv6_scan import ops as rw_ops
     from repro_torch.launch.train import FederatedTrainer
     from repro_torch.models import small
     from repro_torch.tree import leaves, tree_map
@@ -1024,7 +1361,20 @@ def main() -> int:
     serving["card_vs_cpu_max_abs_diff"] = serving_card_vs_cpu(dev, fa_kernel)
 
     # ------------------------------------------------------------------
-    phase("12. kernels")
+    phase("12. kernel against plain (rwkv6_scan)")
+    rw_err, rw_timing = rwkv6_phase(rw_ops)
+
+    # ------------------------------------------------------------------
+    phase(f"13. RWKV6 path: {R_ARCH} at full width on cuda")
+    rwkv = rwkv_path_phase(dev, rw_kernel)
+
+    # ------------------------------------------------------------------
+    phase(f"14. RWKV6 card against CPU: {R_ARCH} cut to {R_CMP_LAYERS} "
+          f"layers, fp32")
+    rwkv["card_vs_cpu_max_abs_diff"] = rwkv_card_vs_cpu(dev, rw_kernel)
+
+    # ------------------------------------------------------------------
+    phase("15. kernels")
     ms, plain_ms, bound_ms = timing[("fedmom", n_main)]
     cs_ms, cs_plain_ms, cs_bound_ms = cs_timing[cs_top]
     # flash_attention per launch at the serving path's mix: 22 LOCAL
@@ -1052,6 +1402,8 @@ def main() -> int:
                                         for k, v in lanes.items()},
         "streaming_launches": {k: v["launches"] for k, v in lanes.items()},
         "serving": serving,
+        "rwkv6_7b": rwkv,
+        "rwkv6_scan_bound": dict(zip(("bytes_ms", "ops_ms"), rw_timing[4:])),
         "flash_attention_by_window": {
             str(w): dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "bytes_ms", "ops_ms"), t))
@@ -1092,6 +1444,18 @@ def main() -> int:
         "bound_ms": per_launch(2),
         "bound_by": fa_bound_by,
         "library_ms": per_launch(4),
+    }, {
+        "name": "rwkv6_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:81",
+        "launches": rwkv["launches"],
+        "max_abs_err": rw_err,
+        "ms": rw_timing[0],
+        "plain_ms": rw_timing[1],
+        "bound_ms": rw_timing[2],
+        "bound_by": rw_timing[3],
+        "library_ms": None,
     }]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,18 @@
-"""Residual blocks of the dense zoo path (ATTN / LOCAL) with the reference's
-``init_block`` / ``apply_block`` / ``init_block_cache`` interface.
+"""Residual blocks of the zoo's ported families (ATTN / LOCAL / RWKV) with
+the reference's ``init_block`` / ``apply_block`` / ``init_block_cache``
+interface.
 
 The port's counterpart of the JAX package's ``models/blocks.py`` for global
-and sliding-window attention blocks.  ``apply_block(p, cfg, kind, x, ctx)``
-returns ``(x, cache, aux)`` where ``ctx`` carries mode ('train' |
-'prefill' | 'decode'), rope tables, the per-block cache and the decode
-position.  Caches are updated in place (slice assignment into the tensors
-``init_block_cache`` allocated) and returned, where the reference returns
-new arrays from ``dynamic_update_slice`` on a donated cache.
+and sliding-window attention blocks and the RWKV6 block (time mix +
+channel mix).  ``apply_block(p, cfg, kind, x, ctx)`` returns ``(x, cache,
+aux)`` where ``ctx`` carries mode ('train' | 'prefill' | 'decode'), rope
+tables, the per-block cache and the decode position.  Caches are updated
+in place (slice assignment or ``copy_`` into the tensors
+``init_block_cache`` allocated, which may be views of a stacked cache)
+and returned, where the reference returns new arrays from
+``dynamic_update_slice`` on a donated cache.
 
-The other block kinds, cross-attention, MoE and learned positions raise
+RG-LRU blocks, cross-attention, MoE and learned positions raise
 ``NotImplementedError`` naming the ROADMAP item that brings them; nothing
 falls back.  Abstract mode (``KeyGen(None)``) belongs with the dry-run
 tools (ROADMAP Queue 1 #14).
@@ -27,7 +30,6 @@ from repro_torch.models.config import ATTN, LOCAL, RGLRU, RWKV, ModelConfig
 
 _LATER = {
     RGLRU: "RG-LRU blocks come with the RG-LRU slice (ROADMAP Queue 1 #13c)",
-    RWKV: "RWKV6 blocks come with the RWKV slice (ROADMAP Queue 1 #13d)",
 }
 
 
@@ -83,6 +85,21 @@ def _const(val_fn, shape, axes, dtype, *, kg: Optional[KeyGen] = None,
     device = kg.device if device is None else device
     v = val_fn() if callable(val_fn) else val_fn
     return torch.as_tensor(v, dtype=dtype, device=device).reshape(shape), axes
+
+
+def linspace_f32(start: float, stop: float, num: int) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num)`` in float32 by its own formula:
+    ``start * (1 - step) + stop * step`` with ``step = iota * (1 / div)``
+    (XLA's division by a constant), then ``stop`` appended; on the CPU.
+    ``torch.linspace`` rounds otherwise (2,739 of 4,096 values differ at
+    rwkv6-7b's width).  XLA's CPU code contracts some of these
+    multiply-adds into FMAs, so the reference's values may still differ by
+    a float32 ulp or so (ROADMAP Queue 3)."""
+    f32 = torch.float32
+    lo, hi = torch.tensor(start, dtype=f32), torch.tensor(stop, dtype=f32)
+    recip = torch.tensor(1.0, dtype=f32) / torch.tensor(num - 1.0, dtype=f32)
+    step = torch.arange(num - 1, dtype=f32) * recip
+    return torch.cat([lo * (1 - step) + hi * step, hi.reshape(1)])
 
 
 def split_pt(pairs: dict):
@@ -144,16 +161,57 @@ def init_attn_params(kg: KeyGen, cfg: ModelConfig, dtype, *, kv_heads=None):
     return split_pt(pairs)
 
 
+def init_rwkv_block(kg: KeyGen, cfg: ModelConfig, dtype):
+    """The RWKV6 block's parameters, drawn in the reference's order."""
+    D, F = cfg.d_model, cfg.d_ff
+    H, Dh = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    Lo = cfg.rwkv_decay_lora
+    f32 = torch.float32
+    hk = ("embed", "heads", "head_dim")
+    sub = {
+        "ln1": _zeros((D,), ("embed",), f32, kg=kg),
+        "tm": split_pt({
+            "mu": _const(lambda: torch.full((5, D), 0.5), (5, D),
+                         (None, "embed"), f32, kg=kg),
+            "w_r": _dense(kg, (D, H, Dh), hk, dtype),
+            "w_k": _dense(kg, (D, H, Dh), hk, dtype),
+            "w_v": _dense(kg, (D, H, Dh), hk, dtype),
+            "w_g": _dense(kg, (D, H, Dh), hk, dtype),
+            # decay base: per-channel ramp in log-decay space
+            "w0": _const(lambda: linspace_f32(-6.0, -0.3, D), (H, Dh),
+                         ("heads", "head_dim"), f32, kg=kg),
+            "lora_a": _dense(kg, (D, Lo), ("embed", "lora"), dtype),
+            "lora_b": _dense(kg, (Lo, H, Dh), ("lora", "heads", "head_dim"),
+                             dtype, scale=1e-2),
+            "u": _zeros((H, Dh), ("heads", "head_dim"), f32, kg=kg),
+            "ln_x": _zeros((H, Dh), ("heads", "head_dim"), f32, kg=kg),
+            "w_o": _dense(kg, (H, Dh, D), ("heads", "head_dim", "embed"),
+                          dtype),
+        }),
+        "ln2": _zeros((D,), ("embed",), f32, kg=kg),
+        "cm": split_pt({
+            "mu": _const(lambda: torch.full((2, D), 0.5), (2, D),
+                         (None, "embed"), f32, kg=kg),
+            "w_r": _dense(kg, (D, D), (None, "embed"), dtype),
+            "w_k": _dense(kg, (D, F), ("embed", "mlp"), dtype),
+            "w_v": _dense(kg, (F, D), ("mlp", "embed"), dtype),
+        }),
+    }
+    return split_pt(sub)
+
+
 def init_block(kg: KeyGen, cfg: ModelConfig, kind: str, dtype, *,
                cross: bool = False):
     if kind in _LATER:
         raise NotImplementedError(_LATER[kind])
-    if kind not in (ATTN, LOCAL):
+    if kind not in (ATTN, LOCAL, RWKV):
         raise ValueError(kind)
     if cross:
         raise NotImplementedError(
             "cross-attention (encoder-decoder) comes with the enc-dec slice "
             "(ROADMAP Queue 1 #13e)")
+    if kind == RWKV:
+        return init_rwkv_block(kg, cfg, dtype)
     D = cfg.d_model
     sub = {
         "ln1": _zeros((D,), ("embed",), torch.float32, kg=kg),
@@ -243,6 +301,91 @@ def _attn_mix(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# RWKV6 block (time mix + channel mix)
+# ---------------------------------------------------------------------------
+def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]):
+    """x [B,S,D] -> x shifted right by one token; position 0 gets ``prev``
+    (decode carry) or zeros."""
+    first = (torch.zeros_like(x[:, :1]) if prev is None
+             else prev[:, None].to(x.dtype))
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def _rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict):
+    """Returns (out, cache): in prefill and decode the block's ``s`` and
+    ``tm_prev`` written in place, in train mode None."""
+    mode = ctx["mode"]
+    cache = ctx.get("cache")
+    chunk = ctx.get("rwkv_chunk", cfg.rwkv_chunk)
+    prev = cache["tm_prev"] if mode == "decode" else None
+    xs = _token_shift(x, prev)
+    mu = p["mu"].to(x.dtype)
+    # static per-component token-shift interpolation (Finch's ddlerp LoRA is
+    # applied to the decay only, as in the reference)
+    xr, xk, xv, xw, xg = (x + mu[i] * (xs - x) for i in range(5))
+    r = torch.einsum("bsd,dhk->bshk", xr, p["w_r"])
+    k = torch.einsum("bsd,dhk->bshk", xk, p["w_k"])
+    v = torch.einsum("bsd,dhk->bshk", xv, p["w_v"])
+    g = torch.einsum("bsd,dhk->bshk", xg, p["w_g"])
+    # data-dependent decay (the Finch hallmark): log w = -exp(w0 + lora(xw))
+    lora = torch.einsum("bsl,lhk->bshk", torch.tanh(xw @ p["lora_a"]),
+                        p["lora_b"])
+    log_w = -torch.exp(torch.clamp(
+        p["w0"].to(torch.float32) + lora.to(torch.float32), -20.0, 8.0))
+    if mode == "decode":
+        o, state = L.rwkv6_step(r, k, v, log_w, p["u"], cache["s"])
+    elif cfg.rwkv_impl == "pallas" and mode == "train":
+        # the reference's dispatch rule: the kernel returns no state, so it
+        # takes the forward only
+        from repro_torch.kernels.rwkv6_scan import ops as rwkv6_ops
+        o = rwkv6_ops.rwkv6(r, k, v, log_w, p["u"], chunk=chunk)
+        state = None
+    else:
+        o, state = L.rwkv6_chunked(r, k, v, log_w, p["u"], chunk=chunk)
+    o = L.head_rms_norm(o, p["ln_x"], cfg.norm_eps)
+    o = o * torch.nn.functional.silu(g)
+    out = torch.einsum("bshk,hkd->bsd", o, p["w_o"])
+    if mode == "train":
+        return out, None
+    cache["s"].copy_(state)
+    cache["tm_prev"].copy_(x[:, -1])
+    return out, cache
+
+
+def _rwkv_channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict):
+    """Returns (out, cache): ``cm_prev`` written in place outside train
+    mode."""
+    mode = ctx["mode"]
+    cache = ctx.get("cache")
+    prev = cache["cm_prev"] if mode == "decode" else None
+    xs = _token_shift(x, prev)
+    mu = p["mu"].to(x.dtype)
+    xr = x + mu[0] * (xs - x)
+    xk = x + mu[1] * (xs - x)
+    rgate = torch.sigmoid(xr @ p["w_r"])
+    kk = torch.square(torch.relu(xk @ p["w_k"]))
+    out = rgate * (kk @ p["w_v"])
+    if mode == "train":
+        return out, None
+    cache["cm_prev"].copy_(x[:, -1])
+    return out, cache
+
+
+def _apply_rwkv_block(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict):
+    cache = ctx.get("cache") or {}
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    mix, tm_cache = _rwkv_time_mix(p["tm"], cfg, h,
+                                   dict(ctx, cache=cache.get("tm")))
+    x = x + mix
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    y, cm_cache = _rwkv_channel_mix(p["cm"], cfg, h,
+                                    dict(ctx, cache=cache.get("cm")))
+    x = x + y
+    new_cache = None if tm_cache is None else {"tm": tm_cache, "cm": cm_cache}
+    return x, new_cache, 0.0
+
+
+# ---------------------------------------------------------------------------
 # unified block apply
 # ---------------------------------------------------------------------------
 def apply_block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
@@ -250,6 +393,8 @@ def apply_block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     """Returns (x, cache, moe_aux_loss)."""
     if kind in _LATER:
         raise NotImplementedError(_LATER[kind])
+    if kind == RWKV:
+        return _apply_rwkv_block(p, cfg, x, ctx)
     if kind not in (ATTN, LOCAL):
         raise ValueError(kind)
     cache = ctx.get("cache") or {}
@@ -300,6 +445,22 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                 "pos": _const(lambda: torch.full((W,), -1), (W,), ("seq",),
                               torch.int32, device=device),
             }
+        }
+    elif kind == RWKV:
+        H, Dh6 = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        f32 = torch.float32
+        c = {
+            "tm": {
+                "s": _zeros((batch, H, Dh6, Dh6),
+                            ("batch", "heads", "head_dim", None), f32,
+                            device=device),
+                "tm_prev": _zeros((batch, cfg.d_model), ("batch", "embed"),
+                                  f32, device=device),
+            },
+            "cm": {
+                "cm_prev": _zeros((batch, cfg.d_model), ("batch", "embed"),
+                                  f32, device=device),
+            },
         }
     else:
         raise ValueError(kind)

@@ -13,7 +13,11 @@ kernel (``csrc/flash_attention.cu``) for CUDA tensors, under the
 reference's dispatch rule (self-attention with equal query and key
 lengths, a multiple of 128); CPU tensors take the kernel's plain PyTorch
 version.  ``"xla"`` selects the plain PyTorch path (``layers.attention``).
-``rwkv_impl`` is kept for the RWKV slice and read by nothing yet.
+``rwkv_impl="pallas"`` selects the hand-written CUDA ``rwkv6_scan`` kernel
+(``csrc/rwkv6_scan.cu``) for the forward's RWKV6 recurrence (train mode
+only, the reference's rule: the kernel returns no state, so prefill and
+decode keep ``layers.rwkv6_chunked`` / ``rwkv6_step``); ``"xla"`` the
+plain ``layers.rwkv6_chunked``.
 
 Layer heterogeneity (hybrids such as recurrentgemma's 2:1 recurrent:attention
 or gemma3's 5:1 local:global) is expressed with ``layer_pattern`` — a cycle of

@@ -1,12 +1,14 @@
-"""Primitive layers of the dense transformer path, over explicit tensors.
+"""Primitive layers of the zoo's ported families, over explicit tensors.
 
 The port's counterpart of the JAX package's ``models/layers.py``, for what
-the dense serving path uses: the norms, 1-D rotary embeddings, the
+the dense and RWKV6 paths use: the norms, 1-D rotary embeddings, the
 q-chunked masked attention (the plain path that ``attention_impl="xla"``
-selects, and decode at any setting) and the dense MLP.  The reference's
+selects, and decode at any setting), the dense MLP, and the RWKV6
+recurrence (``rwkv6_chunked`` for forward and prefill, the plain path that
+``rwkv_impl="xla"`` selects; ``rwkv6_step`` for decode).  The reference's
 ``shard`` layout hints are identities on one card and are left out.
-``mrope_tables``, ``moe_apply``, the RG-LRU and RWKV functions and
-``causal_conv1d`` come with their slices (ROADMAP Queue 1 #13).
+``mrope_tables``, ``moe_apply``, ``rglru_scan`` and ``causal_conv1d``
+come with their slices (ROADMAP Queue 1 #13).
 """
 from __future__ import annotations
 
@@ -171,3 +173,91 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         raise ValueError(act)
     return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch): chunked linear recurrence with data-dependent decay, the
+# plain path (the CUDA rwkv6_scan kernel computes the same chunked form in
+# the forward when rwkv_impl="pallas")
+# ---------------------------------------------------------------------------
+def rwkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  log_w: torch.Tensor, u: torch.Tensor,
+                  state: Optional[torch.Tensor] = None,
+                  chunk: int = 32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-head RWKV6 recurrence.
+
+    r/k [B,S,H,Dk], v [B,S,H,Dv], log_w [B,S,H,Dk] (<= 0), u [H,Dk],
+    state [B,H,Dk,Dv].  Returns (o [B,S,H,Dv] in v's dtype, state' fp32).
+
+      S_t = diag(w_t) S_{t-1} + k_t v_t^T
+      o_t = r_t @ S_{t-1} + (r_t . u . k_t) v_t
+
+    The intra-chunk scores contract r, exp(L_i - L_j) and k pairwise
+    (torch's einsum), where XLA contracts the three operands at once: fp32
+    sums in another order.
+    """
+    B, S, H, Dk = r.shape
+    Dv = v.shape[-1]
+    f32 = torch.float32
+    s = (torch.zeros((B, H, Dk, Dv), dtype=f32, device=r.device)
+         if state is None else state.to(f32))
+    C = min(chunk, S)
+    while S % C:          # largest power-of-two-ish divisor fallback
+        C //= 2
+    n = S // C
+
+    rf = r.to(f32).reshape(B, n, C, H, Dk)
+    kf = k.to(f32).reshape(B, n, C, H, Dk)
+    vf = v.to(f32).reshape(B, n, C, H, Dv)
+    lw = log_w.to(f32).reshape(B, n, C, H, Dk)
+    uf = u.to(f32)
+
+    # exclusive/inclusive cumulative log-decay within each chunk
+    L_incl = torch.cumsum(lw, dim=2)              # sum_{t<=i}
+    L_excl = L_incl - lw                          # sum_{t<i}
+    L_end = L_incl[:, :, -1]                      # [B,n,H,Dk]
+
+    idx = torch.arange(C, device=r.device)
+    intra_mask = (idx[:, None] > idx[None, :]).to(f32)   # strict lower
+
+    outs = []
+    for c in range(n):
+        rc, kc, vc = rf[:, c], kf[:, c], vf[:, c]
+        le, li, lend = L_excl[:, c], L_incl[:, c], L_end[:, c]
+        # inter-chunk: o_i += (r_i * exp(L_excl_i)) @ S
+        r_dec = rc * torch.exp(le)                # [B,C,H,Dk], exp<=1
+        o = torch.einsum("bchk,bhkv->bchv", r_dec, s)
+        # intra-chunk: o_i += sum_{j<i} (r_i . exp(L_i - L_{j+1}) . k_j) v_j
+        #            + u-bonus diagonal term
+        ddiff = le[:, :, None] - li[:, None, :]   # [B,C(i),C(j),H,Dk]
+        att = torch.einsum("bihk,bijhk,bjhk->bijh", rc,
+                           torch.exp(torch.clamp(ddiff, max=0.0)), kc)
+        att = att * intra_mask[None, :, :, None]
+        diag = torch.einsum("bchk,hk,bchk->bch", rc, uf, kc)
+        o = o + torch.einsum("bijh,bjhv->bihv", att, vc)
+        o = o + diag[..., None] * vc
+        # state update: S' = diag(exp(L_end)) S + sum_j exp(L_end-L_incl_j)
+        # k_j v_j^T
+        k_dec = kc * torch.exp(lend[:, None] - li)   # exp<=1
+        s = (torch.einsum("bhk,bhkv->bhkv", torch.exp(lend), s)
+             + torch.einsum("bchk,bchv->bhkv", k_dec, vc))
+        outs.append(o)
+    o = torch.stack(outs, dim=1).reshape(B, S, H, Dv)
+    return o.to(v.dtype), s
+
+
+def rwkv6_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               log_w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single decode step.  r/k/log_w [B,1,H,Dk], v [B,1,H,Dv],
+    state [B,H,Dk,Dv] -> (o [B,1,H,Dv] in v's dtype, state' fp32)."""
+    f32 = torch.float32
+    rf = r.to(f32)[:, 0]
+    kf = k.to(f32)[:, 0]
+    vf = v.to(f32)[:, 0]
+    w = torch.exp(log_w.to(f32))[:, 0]
+    state = state.to(f32)
+    o = (torch.einsum("bhk,bhkv->bhv", rf, state)
+         + torch.einsum("bhk,hk,bhk->bh", rf, u.to(f32), kf)[..., None] * vf)
+    state = w[..., None] * state + torch.einsum("bhk,bhv->bhkv", kf, vf)
+    return o[:, None].to(v.dtype), state

@@ -15,7 +15,13 @@ other orders); the CUDA ``flash_attention`` equal to its plain version at
 the reference's tolerances (fp32 atol 2e-5, bf16 atol 2e-2) over the
 reference's sweep and at d=256; prefill through the kernel equal to a
 plain path with fp32 probabilities (fp32 atol 1e-4, bf16 atol 0.1), a
-tolerance that a window off by one in one layer exceeds.
+tolerance that a window off by one in one layer exceeds; the CUDA
+``rwkv6_scan`` equal to its plain version at the reference's tolerances
+(fp32 atol 2e-3, bf16 atol 5e-2, rtol 1e-2) over the reference's sweep, at
+rwkv6-7b's head shape and at extreme decay; the forward of reduced
+rwkv6-7b through the kernel equal to the plain ``rwkv6_chunked`` path
+(fp32 atol 5e-4 / rtol 1e-4, the reference's; bf16 atol 0.1), a tolerance
+that one layer's kernel run without its bonus ``u`` exceeds.
 """
 import numpy as np
 import pytest
@@ -35,6 +41,8 @@ from repro_torch.kernels.fedmom_update import ops as tops  # noqa: E402
 from repro_torch.kernels.fedmom_update import ref as tref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402,E501
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import kernel as rw_kernel  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ops as rw_ops  # noqa: E402
 from repro_torch.launch.plan import CacheSpec, ExecutionPlan  # noqa: E402
 from repro_torch.launch.train import FederatedTrainer  # noqa: E402
 
@@ -355,3 +363,140 @@ def test_generate_through_kernel_matches_plain_attention(cuda, dtype,
     res = generate(params, cfg, prompts, 4)
     assert np.isfinite(res.logprobs).all()
     assert res.tokens.shape == (2, 260)
+
+
+# tests/test_kernels.py test_rwkv6_kernel_sweep, plus rwkv6-7b's heads
+# (64 of 64) at two chunks of its 32
+RWKV_SHAPES = [(64, 2, 64, 64, 32), (128, 4, 64, 64, 32), (96, 1, 32, 32, 32),
+               (256, 2, 64, 128, 64), (64, 64, 64, 64, 32),
+               (128, 2, 128, 128, 16)]
+
+
+def _rwkv_inputs(B, S, H, Dk, Dv, device, dtype, seed, lw=None):
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    r, k = (torch.as_tensor(rng.normal(size=(B, S, H, Dk)).astype(
+        np.float32), device=device).to(dt) for _ in range(2))
+    v = torch.as_tensor(rng.normal(size=(B, S, H, Dv)).astype(np.float32),
+                        device=device).to(dt)
+    log_w = (-np.exp(rng.normal(size=(B, S, H, Dk))) if lw is None
+             else np.full((B, S, H, Dk), lw))
+    u = 0.1 * rng.normal(size=(H, Dk))
+    return (r, k, v, torch.as_tensor(log_w.astype(np.float32), device=device),
+            torch.as_tensor(u.astype(np.float32), device=device))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H,Dk,Dv,chunk", RWKV_SHAPES)
+def test_rwkv6_kernel_matches_plain(cuda, S, H, Dk, Dv, chunk, dtype):
+    """Kernel against the plain (sequential) version on the same card
+    inputs, at the reference's tolerances."""
+    r, k, v, lw, u = _rwkv_inputs(2, S, H, Dk, Dv, cuda, dtype, S * H)
+    before = rw_kernel.launches
+    out = rw_ops.rwkv6(r, k, v, lw, u, chunk=chunk)
+    assert rw_kernel.launches == before + 1
+    ref = rw_ops.rwkv6(r, k, v, lw, u, use_kernel=False)
+    torch.cuda.synchronize()
+    assert out.dtype == v.dtype and out.shape == v.shape
+    atol = 2e-3 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=1e-2)
+
+
+def test_rwkv6_kernel_extreme_decay(cuda):
+    """``test_rwkv6_extreme_decay_no_overflow`` on the kernel: log w = -50
+    stays finite and agrees (atol 1e-3); so does the clip's floor, log w =
+    -exp(8), in every token."""
+    for lw in (-50.0, -2980.96):
+        r, k, v, log_w, u = _rwkv_inputs(1, 64, 1, 32, 32, cuda, "float32",
+                                         9, lw=lw)
+        u = torch.zeros_like(u)
+        out = rw_ops.rwkv6(r, k, v, log_w, u)
+        ref = rw_ops.rwkv6(r, k, v, log_w, u, use_kernel=False)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all()), lw
+        torch.testing.assert_close(out, ref, atol=1e-3, rtol=0)
+
+
+def test_rwkv6_kernel_refuses_what_it_cannot_take(cuda):
+    r, k, v, lw, u = _rwkv_inputs(1, 64, 2, 64, 64, cuda, "float32", 0)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        rw_ops.rwkv6(r[:, :48], k[:, :48], v[:, :48], lw[:, :48], u)
+    with pytest.raises(ValueError, match="head dims"):
+        rw_kernel.rwkv6(r[..., :48].contiguous(), k[..., :48].contiguous(),
+                        v, lw[..., :48].contiguous(), u[:, :48].contiguous(),
+                        chunk=32)
+    with pytest.raises(ValueError, match="chunk 8"):
+        rw_kernel.rwkv6(r, k, v, lw, u, chunk=8)
+    with pytest.raises(ValueError, match="log_w is torch.bfloat16"):
+        rw_kernel.rwkv6(r, k, v, lw.bfloat16(), u, chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        rw_kernel.rwkv6(r.transpose(1, 2).contiguous().transpose(1, 2), k,
+                        v, lw, u, chunk=32)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        rw_kernel.rwkv6(r, k, v, lw, u.cpu(), chunk=32)
+    with pytest.raises(NotImplementedError, match="#13g"):
+        rw_ops.rwkv6(r.requires_grad_(), k, v, lw, u)
+
+
+# max abs difference of the logits of reduced rwkv6-7b (|logit| up to
+# ~5), kernel path against the plain rwkv6_chunked path: fp32 the
+# reference's tolerance (tests/test_model_kernel_impls.py); bf16 both paths
+# round o to bf16 from fp32 sums taken in other orders (0.033 between the
+# sequential and the chunked form on the CPU); one layer's kernel run
+# without its bonus u gives ~4.4 on the CPU and must exceed both
+RWKV_MODEL_ATOL = {"float32": 5e-4, "bfloat16": 0.1}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_forward_through_kernel_matches_plain(cuda, dtype,
+                                                    monkeypatch):
+    """``apply`` / ``loss_fn`` of reduced rwkv6-7b (S=256, 8 chunks a
+    launch), ``u`` drawn nonzero: the kernel path (one launch per layer)
+    against ``rwkv_impl="xla"``, and a planted fault (the first layer's
+    kernel run with ``u`` zeroed) that the tolerance must catch."""
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config("rwkv6-7b-reduced").replace(dtype=dtype,
+                                                 rwkv_impl="pallas")
+    params, _ = T.init(cfg, prng.PRNGKey(0), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for i in range(cfg.n_layers):
+        u = params["rem"][f"l{i}"]["tm"]["u"]
+        u.copy_(0.1 * torch.randn(u.shape, generator=g, device=cuda))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 256)), device=cuda)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    kernel_rwkv6 = rw_ops.rwkv6
+    seen = []
+
+    def no_bonus_in_first_layer(r, k, v, log_w, u, **kw):
+        seen.append(1)
+        if len(seen) == 1:
+            u = torch.zeros_like(u)
+        return kernel_rwkv6(r, k, v, log_w, u, **kw)
+
+    before = rw_kernel.launches
+    got, _ = T.apply(params, cfg, batch)
+    assert rw_kernel.launches == before + cfg.n_layers
+    want, _ = T.apply(params, cfg.replace(rwkv_impl="xla"), batch)
+    assert rw_kernel.launches == before + cfg.n_layers
+    monkeypatch.setattr(rw_ops, "rwkv6", no_bonus_in_first_layer)
+    faulty, _ = T.apply(params, cfg, batch)
+    monkeypatch.setattr(rw_ops, "rwkv6", kernel_rwkv6)
+    assert len(seen) == cfg.n_layers
+    sound = float((got - want).abs().max())
+    fault = float((faulty - want).abs().max())
+    reading = (f"{dtype}: sound {sound:.3e}, planted fault {fault:.3e}, max "
+               f"|logit| {float(want.abs().max()):.3e}, atol "
+               f"{RWKV_MODEL_ATOL[dtype]:.0e}")
+    print(reading)
+    assert sound <= RWKV_MODEL_ATOL[dtype] < fault, reading
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-4)
+    loss_k, _ = T.loss_fn(params, cfg, batch)
+    loss_p, _ = T.loss_fn(params, cfg.replace(rwkv_impl="xla"), batch)
+    assert bool(torch.isfinite(loss_k))
+    # each token's loss moves by at most twice the largest logit change
+    assert abs(float(loss_k) - float(loss_p)) <= 2 * RWKV_MODEL_ATOL[dtype]
