@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout, imports nothing of JAX, and drives the
-port's four ported paths on the card: the per-round FedAvg / FedMom LeNet
+port's five ported paths on the card: the per-round FedAvg / FedMom LeNet
 trainer at the quickstart configuration, the streaming shard-cache plane
 (padded, bucketed, and bucketed through the fused ``client_step`` kernel)
 at the Zipf linreg configuration of ``BENCH_6.json``
@@ -13,7 +13,11 @@ rebuilt here), serving gemma3-1b at full width (``serve.generate``, every
 prefill attention layer through the ``flash_attention`` kernel), and
 rwkv6-7b at full width: its forward loss with every layer's recurrence
 through the ``rwkv6_scan`` kernel, and ``serve.generate`` over its
-recurrent state caches.
+recurrent state caches; and recurrentgemma-9b at full width: the
+``rglru_scan`` kernel's own path (its wrapper on the gates of a layer of
+the model, as the reference drives it) and ``serve.generate`` over its
+RG-LRU and ring caches (every LOCAL layer of prefill through
+``flash_attention``).
 Phases, each printed as it runs; any failure exits non-zero:
 
   1. card and settings: ``nvidia-smi`` name and power limit; TF32 off;
@@ -39,9 +43,11 @@ Phases, each printed as it runs; any failure exits non-zero:
   8. streaming card against CPU: the hook lane on ``cpu`` and ``cuda``;
   9. ``flash_attention`` against its plain version on the card (fp32 atol
      2e-5, bf16 atol 2e-2, the reference's tolerances) at the serving
-     path's shapes (B=8, S=1024, 4 query heads over 1 KV head, d=256,
-     bf16, window 512 and 0) and at d=64 / d=128 in fp32 and bf16; device
-     times (CUDA graphs + events) of the kernel, the plain version and
+     paths' shapes (gemma3-1b: B=8, S=1024, 4 query heads over 1 KV head,
+     d=256, bf16, window 512 and 0; recurrentgemma-9b: B=8, S=4096, 16
+     query heads over 1 KV head, d=256, bf16, window 2048) and at d=64 /
+     d=128 in fp32 and bf16; device times (CUDA graphs + events) at the
+     paths' shapes of the kernel, the plain version and
      ``scaled_dot_product_attention`` with the same boolean mask (timed
      only, never used by the port) beside the bound of the (query, key)
      pairs the masks keep;
@@ -73,7 +79,27 @@ Phases, each printed as it runs; any failure exits non-zero:
      B=1, S=128 (4 chunks): the forward's logits through the kernel on the
      card against the plain path on the CPU, prefill + 3 decode logits on
      each, within atol/rtol 1e-3; greedy tokens equal as in phase 11;
- 15. one JSON line of kernels, then the result line.
+ 15. ``rglru_scan`` against its plain version on the card, bit for bit, at
+     the reference's sweep, at ragged S past the kernel's 16-step tiles
+     (S=100, a prime S, S=7), at a = 1 - 1e-7 over 4,096 steps and at the
+     path's B and R;
+ 16. RG-LRU path: recurrentgemma-9b at full width (keyed random weights,
+     12 stacked groups of (RGLRU, RGLRU, LOCAL) + 2 RGLRU, bf16,
+     ``attention_impl="pallas"``): (b) ``ops.rglru_scan`` on the gates of
+     layer 0 at B=8 x 4096 (u as the block makes it), one launch, bit-equal
+     to the plain version and within atol/rtol 1e-4 of the layer's
+     log-depth scan, with device times of the kernel, the plain version
+     and the log-depth scan beside the bound; (a) ``generate`` of B=8
+     prompts of 4096 tokens, 32 new, greedy (prefill ms, decode ms/token,
+     tokens/s, peak memory; 12 ``flash_attention`` and no ``rglru_scan``
+     launch over exactly one call: the reference's model runs its
+     log-depth scan), the device-busy share of one profiled call;
+ 17. RG-LRU card against CPU: recurrentgemma-9b at full width cut to 8
+     layers (2 stacked groups + the 2-layer remainder), fp32, B=1, S0=256,
+     4 new tokens, weights drawn on the card and carried to the host
+     through ``interop``: prefill and decode logits within atol/rtol 1e-3;
+     greedy tokens equal as in phase 11;
+ 18. one JSON line of kernels, then the result line.
 
 Without a card, or outside a checkout of the repo, it exits non-zero and
 prints no result.
@@ -136,6 +162,16 @@ R_CMP_TOL = 1e-3                   # card vs CPU logits (fp32, TF32 off):
                                    # in other orders
 RW_ATOL = {"float32": 2e-3, "bfloat16": 5e-2}   # tests/test_kernels.py:179
 RW_RTOL = 1e-2
+# the RG-LRU path: recurrentgemma-9b at its published widths
+# (configs/recurrentgemma_9b.py)
+RG_ARCH = "recurrentgemma-9b"
+RG_B, RG_S0, RG_NEW = 8, 4096, 32  # prompts, prompt length, new tokens
+RG_CMP_LAYERS, RG_CMP_S0, RG_CMP_NEW = 8, 256, 4   # card-vs-CPU cut
+RG_CMP_TOL = 1e-3                  # card vs CPU logits (fp32, TF32 off):
+                                   # 4096- and 12288-long products summed
+                                   # in other orders
+RG_LAYER_TOL = 1e-4                # kernel vs the model layer's log-depth
+                                   # scan: tests/test_kernels.py:247
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # H100 SXM fp32 (CUDA cores) peak
 
@@ -604,14 +640,18 @@ def sdpa_call(q, k, v, causal, window):
 
 
 def flash_phase(fa_ops):
-    """Phase 9: the kernel against its plain version at the serving path's
+    """Phase 9: the kernel against its plain version at the serving paths'
     shapes and the reference's d=64 / d=128 sweep; device times at the
-    serving shapes.  Returns (max abs err, {window: timings})."""
+    paths' shapes.  The plain version runs on slices of the batch so that
+    its fp32 score matrix stays under 4 GiB (two slices of 4 rows at
+    recurrentgemma-9b's shape).  Returns (max abs err, {window: timings})."""
     import numpy as np
     import torch
     dev = torch.device("cuda")
-    cases = [(G_B, G_S0, 4, 1, 256, "bfloat16", True, 512),
-             (G_B, G_S0, 4, 1, 256, "bfloat16", True, 0)]
+    path_cases = [(G_B, G_S0, 4, 1, 256, "bfloat16", True, 512),
+                  (G_B, G_S0, 4, 1, 256, "bfloat16", True, 0),
+                  (RG_B, RG_S0, 16, 1, 256, "bfloat16", True, 2048)]
+    cases = list(path_cases)
     for d, S, Hq, Hkv in ((64, 512, 4, 2), (128, 256, 2, 1)):
         for dtype in ("float32", "bfloat16"):
             for causal, window in ((True, 0), (True, 64), (False, 0)):
@@ -623,9 +663,15 @@ def flash_phase(fa_ops):
         dt = getattr(torch, dtype)
         q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, d)).astype(
             np.float32), device=dev).to(dt) for h in (Hq, Hkv, Hkv))
+        rows = max(1, 2 ** 32 // (Hq * S * S * 4))
+
+        def call_p():
+            parts = [fa_ops.flash_attention(
+                q[i:i + rows], k[i:i + rows], v[i:i + rows], causal=causal,
+                window=window, use_kernel=False) for i in range(0, B, rows)]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
         out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
-        ref = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
-                                     use_kernel=False)
+        ref = call_p()
         sync(dev)
         err = float((out.float() - ref.float()).abs().max())
         tag = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} d={d} {dtype} causal="
@@ -636,17 +682,16 @@ def flash_phase(fa_ops):
                                  f"(atol {FA_ATOL[dtype]})")
         max_err = max(max_err, err)
         line = f"flash_attention {tag}: max abs err {err:.3e}"
-        if S == G_S0:
+        if (B, S, Hq, Hkv, d, dtype, causal, window) in path_cases:
             call_k = lambda: fa_ops.flash_attention(  # noqa: E731
                 q, k, v, causal=causal, window=window)
-            call_p = lambda: fa_ops.flash_attention(  # noqa: E731
-                q, k, v, causal=causal, window=window, use_kernel=False)
             call_l = sdpa_call(q, k, v, causal, window)
             lib_err = float((call_l().transpose(1, 2).float()
                              - ref.float()).abs().max())
-            ms = graph_ms(call_k, iters=10, replays=10)
-            plain_ms = graph_ms(call_p, iters=10, replays=10)
-            lib_ms = graph_ms(call_l, iters=10, replays=10)
+            n = 10 if S == G_S0 else 3        # ~30 ms a call at S=4096
+            ms = graph_ms(call_k, iters=n, replays=n)
+            plain_ms = graph_ms(call_p, iters=n, replays=n)
+            lib_ms = graph_ms(call_l, iters=n, replays=n)
             bytes_ms, ops_ms = flash_bound_ms(B, S, Hq, Hkv, d, window,
                                               causal, 2)
             bound_ms = max(bytes_ms, ops_ms)
@@ -744,6 +789,42 @@ def serving_phase(dev, fa_kernel):
     return out
 
 
+def teacher_forced_logits(params, cfg, seq, s0, n_new, device):
+    """Prefill of ``seq[:, :s0]`` and decode along ``seq``: the logits of
+    each of the ``n_new`` positions, [n_new, V] on the host."""
+    import torch
+    from repro_torch.models import transformer as T
+    cache, _ = T.init_cache(cfg, 1, s0 + n_new, device=device)
+    t = torch.as_tensor(seq, device=device)
+    steps = [T.prefill(params, cfg, {"tokens": t[:, :s0]}, cache)[0]]
+    for i in range(s0, s0 + n_new - 1):
+        steps.append(T.decode_step(params, cfg, cache, t[:, i:i + 1], i)[0])
+    return torch.stack(steps)[:, 0].cpu()
+
+
+def held_greedy_tokens(gen, logits_cpu, s0, n_new, tol):
+    """The greedy tokens of the CPU and the card must be equal wherever the
+    CPU's top-2 logit margin exceeds ``tol``, up to the first near-tie that
+    went either way.  Returns (cpu tokens, card tokens, count held)."""
+    import numpy as np
+    import torch
+    new_cpu = gen["cpu"].tokens[0, s0:]
+    new_card = gen["cuda"].tokens[0, s0:]
+    checked = 0
+    for i in range(n_new):
+        if not np.array_equal(new_cpu[:i], new_card[:i]):
+            break                 # an earlier near-tie diverged: stop there
+        top2 = torch.topk(logits_cpu[i], 2).values
+        if float(top2[0] - top2[1]) <= tol:
+            continue              # a near-tie may go either way
+        if new_cpu[i] != new_card[i]:
+            raise AssertionError(f"greedy token {i}: cpu {new_cpu[i]}, card "
+                                 f"{new_card[i]} (top-2 margin "
+                                 f"{float(top2[0] - top2[1]):.3e})")
+        checked += 1
+    return new_cpu, new_card, checked
+
+
 def serving_card_vs_cpu(dev, fa_kernel):
     """Phase 11: gemma3-1b at full width cut to one pattern period, fp32,
     on the CPU and on the card from the same weights (drawn on the card,
@@ -770,35 +851,17 @@ def serving_card_vs_cpu(dev, fa_kernel):
         if fa_kernel.launches != want:
             raise AssertionError(f"{name}: flash_attention launches "
                                  f"{fa_kernel.launches}, want {want}")
-    seq = gen["cpu"].tokens
-    logits = {}
-    for name, device in devices.items():
-        p = params[name]
-        cache, _ = T.init_cache(cfg, 1, G_CMP_S0 + G_CMP_NEW, device=device)
-        t = torch.as_tensor(seq, device=device)
-        steps = [T.prefill(p, cfg, {"tokens": t[:, :G_CMP_S0]}, cache)[0]]
-        for i in range(G_CMP_S0, G_CMP_S0 + G_CMP_NEW - 1):
-            steps.append(T.decode_step(p, cfg, cache, t[:, i:i + 1], i)[0])
-        logits[name] = torch.stack(steps)[:, 0].cpu()     # [NEW, V]
+    logits = {name: teacher_forced_logits(params[name], cfg,
+                                          gen["cpu"].tokens, G_CMP_S0,
+                                          G_CMP_NEW, device)
+              for name, device in devices.items()}
     diff = float((logits["cuda"] - logits["cpu"]).abs().max())
     if not torch.allclose(logits["cuda"], logits["cpu"], atol=G_CMP_TOL,
                           rtol=G_CMP_TOL):
         raise AssertionError(f"card and CPU logits differ by {diff:.3e} "
                              f"(atol/rtol {G_CMP_TOL})")
-    new_cpu = gen["cpu"].tokens[0, G_CMP_S0:]
-    new_card = gen["cuda"].tokens[0, G_CMP_S0:]
-    checked = 0
-    for i in range(G_CMP_NEW):
-        if not np.array_equal(new_cpu[:i], new_card[:i]):
-            break                 # an earlier near-tie diverged: stop there
-        top2 = torch.topk(logits["cpu"][i], 2).values
-        if float(top2[0] - top2[1]) <= G_CMP_TOL:
-            continue              # a near-tie may go either way
-        if new_cpu[i] != new_card[i]:
-            raise AssertionError(f"greedy token {i}: cpu {new_cpu[i]}, card "
-                                 f"{new_card[i]} (top-2 margin "
-                                 f"{float(top2[0] - top2[1]):.3e})")
-        checked += 1
+    new_cpu, new_card, checked = held_greedy_tokens(
+        gen, logits["cpu"], G_CMP_S0, G_CMP_NEW, G_CMP_TOL)
     print(f"{cfg.name} cut to {G_CMP_LAYERS} layers, fp32, B=1 S0={G_CMP_S0}"
           f": prefill + {G_CMP_NEW - 1} decode logits agree, max abs diff "
           f"{diff:.3e} (atol/rtol {G_CMP_TOL}); greedy tokens cpu "
@@ -1073,35 +1136,17 @@ def rwkv_card_vs_cpu(dev, rw_kernel):
                              f"{R_CMP_TOL})")
     gen = {name: generate(params[name], cfg, prompt, R_CMP_NEW)
            for name in devices}
-    seq = gen["cpu"].tokens
-    logits = {}
-    for name, device in devices.items():
-        p = params[name]
-        cache, _ = T.init_cache(cfg, 1, R_CMP_S + R_CMP_NEW, device=device)
-        t = torch.as_tensor(seq, device=device)
-        steps = [T.prefill(p, cfg, {"tokens": t[:, :R_CMP_S]}, cache)[0]]
-        for i in range(R_CMP_S, R_CMP_S + R_CMP_NEW - 1):
-            steps.append(T.decode_step(p, cfg, cache, t[:, i:i + 1], i)[0])
-        logits[name] = torch.stack(steps)[:, 0].cpu()     # [NEW, V]
+    logits = {name: teacher_forced_logits(params[name], cfg,
+                                          gen["cpu"].tokens, R_CMP_S,
+                                          R_CMP_NEW, device)
+              for name, device in devices.items()}
     diff = float((logits["cuda"] - logits["cpu"]).abs().max())
     if not torch.allclose(logits["cuda"], logits["cpu"], atol=R_CMP_TOL,
                           rtol=R_CMP_TOL):
         raise AssertionError(f"card and CPU prefill/decode logits differ by "
                              f"{diff:.3e} (atol/rtol {R_CMP_TOL})")
-    new_cpu = gen["cpu"].tokens[0, R_CMP_S:]
-    new_card = gen["cuda"].tokens[0, R_CMP_S:]
-    checked = 0
-    for i in range(R_CMP_NEW):
-        if not np.array_equal(new_cpu[:i], new_card[:i]):
-            break                 # an earlier near-tie diverged: stop there
-        top2 = torch.topk(logits["cpu"][i], 2).values
-        if float(top2[0] - top2[1]) <= R_CMP_TOL:
-            continue              # a near-tie may go either way
-        if new_cpu[i] != new_card[i]:
-            raise AssertionError(f"greedy token {i}: cpu {new_cpu[i]}, card "
-                                 f"{new_card[i]} (top-2 margin "
-                                 f"{float(top2[0] - top2[1]):.3e})")
-        checked += 1
+    new_cpu, new_card, checked = held_greedy_tokens(
+        gen, logits["cpu"], R_CMP_S, R_CMP_NEW, R_CMP_TOL)
     print(f"{cfg.name} cut to {R_CMP_LAYERS} layers, fp32, B=1 S={R_CMP_S}: "
           f"forward logits (kernel on the card, plain on the CPU) max abs "
           f"diff {fwd_diff:.3e}; prefill + {R_CMP_NEW - 1} decode logits max "
@@ -1111,6 +1156,268 @@ def rwkv_card_vs_cpu(dev, rw_kernel):
     del params
     torch.cuda.empty_cache()
     return max(fwd_diff, diff)
+
+
+def rglru_bound_ms(B, S, R):
+    """Least time on the card for one rglru_scan call: the larger of its
+    bytes (a and b read once, h written once, fp32) over the memory rate
+    and its flops (a product and a sum an element) over the fp32 rate.
+    Returns (ms of the bytes, ms of the operations)."""
+    n = B * S * R
+    return 12 * n / HBM_BYTES_PER_S * 1e3, 2 * n / FP32_FLOPS * 1e3
+
+
+def rglru_inputs(B, S, R, rng, a_value=None):
+    """a = sigmoid(normal + 2) in (0, 1) (or the constant ``a_value``) and
+    b = 0.5 normal, fp32 on the card: the reference's test draws."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    a = (1.0 / (1.0 + np.exp(-(rng.normal(size=(B, S, R)) + 2.0)))
+         if a_value is None else np.full((B, S, R), a_value))
+    b = 0.5 * rng.normal(size=(B, S, R))
+    return (torch.as_tensor(a.astype(np.float32), device=dev),
+            torch.as_tensor(b.astype(np.float32), device=dev))
+
+
+def rglru_phase(rg_ops):
+    """Phase 15: the kernel against its plain version, bit for bit, at the
+    reference's sweep, at ragged S, at a = 1 - 1e-7 over 4,096 steps
+    and at the RG-LRU path's width.  Returns the max abs error (0)."""
+    import numpy as np
+    import torch
+    # (B, S, R, chunk, a): the reference's sweep; S=100 at chunk 64 (halved
+    # to 4); ragged tails past the kernel's 16-step tiles (S=100, a prime S
+    # with R off the block, S under one tile); slow decay; the path's B and
+    # R over 512 steps
+    cases = [(2, 64, 128, 32, None), (2, 100, 128, 128, None),
+             (2, 256, 256, 64, None), (2, 100, 128, 64, None),
+             (3, 97, 200, 128, None), (2, 7, 128, 128, None),
+             (2, 4096, 256, 128, 1.0 - 1e-7), (RG_B, 512, 4096, 128, None)]
+    rng = np.random.default_rng(0)
+    for B, S, R, chunk, a_value in cases:
+        a, b = rglru_inputs(B, S, R, rng, a_value)
+        out = rg_ops.rglru_scan(a, b, chunk=chunk)
+        ref = rg_ops.rglru_scan(a, b, use_kernel=False)
+        sync(a.device)
+        tag = (f"B={B} S={S} R={R} chunk={chunk}"
+               + (f" a={float(a.max()):.9g}" if a_value else ""))
+        if not (bool(torch.isfinite(out).all()) and torch.equal(out, ref)):
+            raise AssertionError(
+                f"rglru_scan {tag}: kernel differs from the plain version "
+                f"by {float((out - ref).abs().max()):.3e}; both round the "
+                f"product and the sum once each and must agree bit for bit")
+        print(f"rglru_scan {tag}: bit-equal to the plain version (largest "
+              f"|h| {float(ref.abs().max()):.4g})")
+        del a, b, out, ref
+    torch.cuda.empty_cache()
+    return 0.0
+
+
+def rglru_path_phase(dev, fa_kernel, rg_kernel, rg_ops):
+    """Phase 16: recurrentgemma-9b at full width on the card.  (b) the
+    kernel's own path: ``ops.rglru_scan`` on the gates of layer 0 at
+    B x S0, held bit for bit to the plain version and to the layer's
+    log-depth scan within atol/rtol 1e-4, with device times; (a) serving
+    through ``generate``."""
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import generate
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_config(RG_ARCH).replace(attention_impl="pallas")
+    print(f"{cfg.name}: {cfg.n_layers} layers ({cfg.n_groups} stacked groups "
+          f"of {cfg.layer_pattern} + {cfg.n_remainder} rem), d_model "
+          f"{cfg.d_model}, rnn {cfg.rnn_d}, conv {cfg.conv_width}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV head, d_head "
+          f"{cfg.d_head}, window {cfg.window}, d_ff {cfg.d_ff} {cfg.act}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}; n_params() "
+          f"{cfg.n_params() / 1e9:.4f} G (it leaves out w_a and w_i)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _ = T.init(cfg, prng.PRNGKey(0), device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n = sum(x.numel() for x in leaves(params))
+    nbytes = sum(x.numel() * x.element_size() for x in leaves(params))
+    init_peak = torch.cuda.max_memory_allocated()
+    print(f"keyed init: {n} params counted, {nbytes / 1e9:.3f} GB, "
+          f"{init_s:.2f} s, peak {init_peak / 1e9:.3f} GB")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (RG_B, RG_S0))
+    tokens = torch.as_tensor(prompts, device=dev)
+
+    # (b) the kernel's path on the gates of layer 0, as the block makes them
+    with torch.no_grad():
+        p = tree_map(lambda x: x[0], params["groups"]["b0"])
+        x = L.rms_norm(params["embed"][tokens].to(p["w_x"].dtype), p["ln1"],
+                       cfg.norm_eps)
+        u, _ = L.causal_conv1d(p["conv_w"], p["conv_b"], x @ p["w_x"])
+        log_a, x_in = L._rglru_gates(p, u)
+        a = torch.exp(log_a)
+        del x, u, log_a
+        rg_kernel.launches = 0
+        h = rg_ops.rglru_scan(a, x_in)
+        sync(dev)
+        launches = rg_kernel.launches
+        if launches != 1:
+            raise AssertionError(f"rglru_scan launched {launches} times on "
+                                 f"its path, want 1")
+        plain = rg_ops.rglru_scan(a, x_in, use_kernel=False)
+        model = L._linear_scan(a, x_in)         # the layer's fp32 h
+        sync(dev)
+        err = float((h - plain).abs().max())
+        model_err = float((h - model).abs().max())
+        if not torch.equal(h, plain):
+            raise AssertionError(f"rglru_scan on layer 0's gates differs "
+                                 f"from the plain version by {err:.3e}")
+        if not torch.allclose(h, model, atol=RG_LAYER_TOL, rtol=RG_LAYER_TOL):
+            raise AssertionError(f"rglru_scan differs from the layer's "
+                                 f"log-depth scan by {model_err:.3e} "
+                                 f"(atol/rtol {RG_LAYER_TOL})")
+        del plain, model
+        ms = graph_ms(lambda: rg_ops.rglru_scan(a, x_in), iters=10,
+                      replays=10)
+        plain_ms = graph_ms(lambda: rg_ops.rglru_scan(a, x_in,
+                                                      use_kernel=False),
+                            iters=1, replays=3)
+        scan_ms = graph_ms(lambda: L._linear_scan(a, x_in), iters=2,
+                           replays=5)
+        bytes_ms, ops_ms = rglru_bound_ms(*a.shape)
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        print(f"rglru_scan on layer 0's gates B={RG_B} S={RG_S0} R="
+              f"{cfg.rnn_d} (a in [{float(a.min()):.6f}, "
+              f"{float(a.max()):.6f}]): {launches} launch; bit-equal to the "
+              f"plain version; the layer's log-depth scan within "
+              f"{model_err:.3e} (atol/rtol {RG_LAYER_TOL}); kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, the layer's log-depth scan "
+              f"{scan_ms:.4f} ms (device), bound {bound_ms:.4f} ms "
+              f"({bound_by}; bytes {bytes_ms:.4f} ms, operations "
+              f"{ops_ms:.4f} ms); library: none computes this recurrence")
+        del a, x_in, h
+    torch.cuda.empty_cache()
+    kernel = {"launches": launches, "max_abs_err": err, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+              "log_depth_scan_ms": scan_ms, "model_layer_err": model_err}
+
+    # (a) serving
+    n_local = sum(1 for i in range(cfg.n_layers) if cfg.layer_pattern[
+        i % cfg.pattern_period] == "local")
+    generate(params, cfg, prompts, 2)                  # warm-up
+    sync(dev)
+    pre = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        cache, _ = T.init_cache(cfg, RG_B, RG_S0 + RG_NEW, device=dev)
+        logits, cache = T.prefill(params, cfg, {"tokens": tokens}, cache)
+        sync(dev)
+        pre.append(time.perf_counter() - t0)
+        del cache, logits
+    prefill_ms = statistics.median(pre) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    fa_kernel.launches = rg_kernel.launches = 0
+    t0 = time.perf_counter()
+    res = generate(params, cfg, prompts, RG_NEW)
+    sync(dev)
+    total_s = time.perf_counter() - t0
+    fa_launches, rg_launches = fa_kernel.launches, rg_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    if fa_launches != n_local or rg_launches:
+        raise AssertionError(
+            f"generate launched flash_attention {fa_launches} times (want "
+            f"{n_local}, one per LOCAL layer of prefill) and rglru_scan "
+            f"{rg_launches} times (want 0: the reference's model runs its "
+            f"log-depth scan)")
+    if res.tokens.shape != (RG_B, RG_S0 + RG_NEW) or not np.isfinite(
+            res.logprobs).all() or not (res.logprobs[:, :-1] <= 0).all():
+        raise AssertionError(f"generate: tokens {res.tokens.shape}, "
+                             f"logprobs {res.logprobs}")
+    if not ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
+        raise AssertionError("generate: token ids out of the vocabulary")
+    decode_ms = (total_s * 1e3 - prefill_ms) / (RG_NEW - 1)
+    tok_s = RG_B * RG_NEW / total_s
+    print(f"generate B={RG_B} S0={RG_S0} max_new={RG_NEW} greedy: "
+          f"{total_s * 1e3:.2f} ms (host clock, synced); prefill "
+          f"{prefill_ms:.2f} ms (median of 3, cache allocation included); "
+          f"decode {decode_ms:.3f} ms/token; {tok_s:.2f} generated tokens/s; "
+          f"peak memory {peak / 1e9:.3f} GB; launches: flash_attention "
+          f"{fa_launches}, rglru_scan {rg_launches}; mean logprob "
+          f"{float(res.logprobs[:, :-1].mean()):.4f}")
+    wall, busy, n_ops, top = profile_device(
+        lambda: generate(params, cfg, prompts, RG_NEW))
+    print(f"profiled one generate call: wall {wall * 1e3:.1f} ms, device "
+          f"busy {busy * 1e3:.2f} ms ({100 * busy / wall:.2f}%, idle "
+          f"{100 * (1 - busy / wall):.2f}%), {n_ops} device ops "
+          f"({n_ops / RG_NEW:.0f} a generated token); top kernels:")
+    for kname, secs, count in top:
+        print(f"  {secs * 1e3:8.3f} ms  {count:6d}x  {kname[:100]}")
+    out = {"init_s": init_s, "init_peak_gb": init_peak / 1e9,
+           "params_counted": n, "n_params": cfg.n_params(),
+           "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+           "tokens_per_s": tok_s, "generate_ms": total_s * 1e3,
+           "peak_memory_gb": peak / 1e9, "flash_launches": fa_launches,
+           "rglru_launches": rg_launches, "device_busy_share": busy / wall,
+           "device_ops": n_ops, "rglru_scan": kernel}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def rglru_card_vs_cpu(dev, fa_kernel):
+    """Phase 17: recurrentgemma-9b at full width cut to 8 layers (2 stacked
+    groups and the 2-layer remainder, the full model's layout), fp32, on
+    the CPU and on the card from the same weights (drawn on the card,
+    carried to the host through ``interop``): greedy ``generate`` on both,
+    then prefill and decode logits of both along the CPU's tokens."""
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.interop import tree_from_numpy, tree_to_numpy
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import generate
+    cfg = get_config(RG_ARCH).replace(n_layers=RG_CMP_LAYERS,
+                                      dtype="float32",
+                                      attention_impl="pallas")
+    params = {"cuda": T.init(cfg, prng.PRNGKey(1), device=dev)[0]}
+    params["cpu"] = tree_from_numpy(tree_to_numpy(params["cuda"]), "cpu")
+    devices = {"cpu": torch.device("cpu"), "cuda": dev}
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (1, RG_CMP_S0))
+    n_local = sum(1 for i in range(cfg.n_layers) if cfg.layer_pattern[
+        i % cfg.pattern_period] == "local")
+    gen = {}
+    for name, device in devices.items():
+        fa_kernel.launches = 0
+        gen[name] = generate(params[name], cfg, prompt, RG_CMP_NEW)
+        want = n_local if name == "cuda" else 0
+        if fa_kernel.launches != want:
+            raise AssertionError(f"{name}: flash_attention launches "
+                                 f"{fa_kernel.launches}, want {want}")
+    logits = {name: teacher_forced_logits(params[name], cfg,
+                                          gen["cpu"].tokens, RG_CMP_S0,
+                                          RG_CMP_NEW, device)
+              for name, device in devices.items()}
+    diff = float((logits["cuda"] - logits["cpu"]).abs().max())
+    if not torch.allclose(logits["cuda"], logits["cpu"], atol=RG_CMP_TOL,
+                          rtol=RG_CMP_TOL):
+        raise AssertionError(f"card and CPU logits differ by {diff:.3e} "
+                             f"(atol/rtol {RG_CMP_TOL})")
+    new_cpu, new_card, checked = held_greedy_tokens(
+        gen, logits["cpu"], RG_CMP_S0, RG_CMP_NEW, RG_CMP_TOL)
+    print(f"{cfg.name} cut to {RG_CMP_LAYERS} layers ({cfg.n_groups} stacked "
+          f"groups + {cfg.n_remainder} rem), fp32, B=1 S0={RG_CMP_S0}: "
+          f"prefill + {RG_CMP_NEW - 1} decode logits agree, max abs diff "
+          f"{diff:.3e} (atol/rtol {RG_CMP_TOL}); greedy tokens cpu "
+          f"{new_cpu.tolist()}, card {new_card.tolist()} ({checked} of "
+          f"{RG_CMP_NEW} held equal, the rest near-ties)")
+    del params
+    torch.cuda.empty_cache()
+    return diff
 
 
 def main() -> int:
@@ -1131,6 +1438,8 @@ def main() -> int:
     from repro_torch.kernels.fedmom_update import ref as fm_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.rwkv6_scan import kernel as rw_kernel
     from repro_torch.kernels.rwkv6_scan import ops as rw_ops
     from repro_torch.launch.train import FederatedTrainer
@@ -1374,7 +1683,21 @@ def main() -> int:
     rwkv["card_vs_cpu_max_abs_diff"] = rwkv_card_vs_cpu(dev, rw_kernel)
 
     # ------------------------------------------------------------------
-    phase("15. kernels")
+    phase("15. kernel against plain (rglru_scan)")
+    rg_err = rglru_phase(rg_ops)
+
+    # ------------------------------------------------------------------
+    phase(f"16. RG-LRU path: {RG_ARCH} at full width on cuda")
+    rglru = rglru_path_phase(dev, fa_kernel, rg_kernel, rg_ops)
+    rg_err = max(rg_err, rglru["rglru_scan"]["max_abs_err"])
+
+    # ------------------------------------------------------------------
+    phase(f"17. RG-LRU card against CPU: {RG_ARCH} cut to {RG_CMP_LAYERS} "
+          f"layers, fp32")
+    rglru["card_vs_cpu_max_abs_diff"] = rglru_card_vs_cpu(dev, fa_kernel)
+
+    # ------------------------------------------------------------------
+    phase("18. kernels")
     ms, plain_ms, bound_ms = timing[("fedmom", n_main)]
     cs_ms, cs_plain_ms, cs_bound_ms = cs_timing[cs_top]
     # flash_attention per launch at the serving path's mix: 22 LOCAL
@@ -1403,6 +1726,7 @@ def main() -> int:
         "streaming_launches": {k: v["launches"] for k, v in lanes.items()},
         "serving": serving,
         "rwkv6_7b": rwkv,
+        "recurrentgemma_9b": rglru,
         "rwkv6_scan_bound": dict(zip(("bytes_ms", "ops_ms"), rw_timing[4:])),
         "flash_attention_by_window": {
             str(w): dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
@@ -1455,6 +1779,18 @@ def main() -> int:
         "plain_ms": rw_timing[1],
         "bound_ms": rw_timing[2],
         "bound_by": rw_timing[3],
+        "library_ms": None,
+    }, {
+        "name": "rglru_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:50",
+        "launches": rglru["rglru_scan"]["launches"],
+        "max_abs_err": rg_err,
+        "ms": rglru["rglru_scan"]["ms"],
+        "plain_ms": rglru["rglru_scan"]["plain_ms"],
+        "bound_ms": rglru["rglru_scan"]["bound_ms"],
+        "bound_by": rglru["rglru_scan"]["bound_by"],
         "library_ms": None,
     }]}
     print(json.dumps(line))

@@ -1,17 +1,23 @@
 """Batched serving on the PyTorch port: prefill + cache decode of a zoo
 model.  A dense model keeps KV / ring-buffer caches, and every prefill
 attention layer of a prompt whose length is a multiple of 128 runs through
-the hand-written CUDA flash-attention kernel; rwkv6-7b keeps recurrent
-state caches, prefill runs the plain chunked recurrence and decode one
-step a token (the ``rwkv6_scan`` kernel returns no state, so it serves
-the forward loss only).  Defaults to gemma3-1b at its published widths
-(keyed random weights: the repo holds no real ones) on the card:
+the hand-written CUDA flash-attention kernel; recurrentgemma-9b keeps
+RG-LRU state and conv caches beside the ring buffers of its LOCAL layers
+(prefill runs the log-depth ``layers.rglru_scan``, decode one step a
+token, as in the reference, which wires its ``rglru_scan`` kernel into no
+model); rwkv6-7b keeps recurrent state caches, prefill runs the plain
+chunked recurrence and decode one step a token (the ``rwkv6_scan`` kernel
+returns no state, so it serves the forward loss only).  Defaults to
+gemma3-1b at its published widths (keyed random weights: the repo holds
+no real ones) on the card:
 
     PYTHONPATH=src python examples/serve_demo_torch.py
     PYTHONPATH=src python examples/serve_demo_torch.py --arch rwkv6-7b
     PYTHONPATH=src python examples/serve_demo_torch.py --device cpu --reduced
     PYTHONPATH=src python examples/serve_demo_torch.py --arch rwkv6-7b \
         --reduced --device cpu
+    PYTHONPATH=src python examples/serve_demo_torch.py \
+        --arch recurrentgemma-9b --reduced --device cpu
 
 ``--reduced`` serves the 2-period, d_model<=256 smoke variant of the
 config; on the CPU the kernels' plain PyTorch versions run in their place.
@@ -34,8 +40,8 @@ from repro_torch.serve import generate
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="gemma3-1b",
-                    help="a dense arch id (gemma3-1b, qwen3-1.7b, ...) or "
-                    "rwkv6-7b")
+                    help="a dense arch id (gemma3-1b, qwen3-1.7b, ...), "
+                    "recurrentgemma-9b or rwkv6-7b")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the reduced smoke variant of the config")
     ap.add_argument("--device", default=None,

@@ -1,21 +1,22 @@
-"""Residual blocks of the zoo's ported families (ATTN / LOCAL / RWKV) with
-the reference's ``init_block`` / ``apply_block`` / ``init_block_cache``
+"""Residual blocks of the zoo's ported families (ATTN / LOCAL / RGLRU / RWKV)
+with the reference's ``init_block`` / ``apply_block`` / ``init_block_cache``
 interface.
 
 The port's counterpart of the JAX package's ``models/blocks.py`` for global
-and sliding-window attention blocks and the RWKV6 block (time mix +
-channel mix).  ``apply_block(p, cfg, kind, x, ctx)`` returns ``(x, cache,
-aux)`` where ``ctx`` carries mode ('train' | 'prefill' | 'decode'), rope
-tables, the per-block cache and the decode position.  Caches are updated
-in place (slice assignment or ``copy_`` into the tensors
-``init_block_cache`` allocated, which may be views of a stacked cache)
-and returned, where the reference returns new arrays from
-``dynamic_update_slice`` on a donated cache.
+and sliding-window attention blocks, the RG-LRU recurrent block (conv1d +
+RG-LRU mixing) and the RWKV6 block (time mix + channel mix).
+``apply_block(p, cfg, kind, x, ctx)`` returns ``(x, cache, aux)`` where
+``ctx`` carries mode ('train' | 'prefill' | 'decode'), rope tables, the
+per-block cache and the decode position.  Caches are updated in place
+(slice assignment or ``copy_`` into the tensors ``init_block_cache``
+allocated, which may be views of a stacked cache) and returned, where the
+reference returns new arrays from ``dynamic_update_slice`` on a donated
+cache.
 
-RG-LRU blocks, cross-attention, MoE and learned positions raise
-``NotImplementedError`` naming the ROADMAP item that brings them; nothing
-falls back.  Abstract mode (``KeyGen(None)``) belongs with the dry-run
-tools (ROADMAP Queue 1 #14).
+Cross-attention, MoE and learned positions raise ``NotImplementedError``
+naming the ROADMAP item that brings them; nothing falls back.  Abstract
+mode (``KeyGen(None)``) belongs with the dry-run tools (ROADMAP Queue 1
+#14).
 """
 from __future__ import annotations
 
@@ -27,11 +28,6 @@ import torch
 from repro_torch import random as prng
 from repro_torch.models import layers as L
 from repro_torch.models.config import ATTN, LOCAL, RGLRU, RWKV, ModelConfig
-
-_LATER = {
-    RGLRU: "RG-LRU blocks come with the RG-LRU slice (ROADMAP Queue 1 #13c)",
-}
-
 
 # ---------------------------------------------------------------------------
 # declarative parameter construction: every init returns (params, axes) trees
@@ -200,11 +196,38 @@ def init_rwkv_block(kg: KeyGen, cfg: ModelConfig, dtype):
     return split_pt(sub)
 
 
+def init_rglru_block(kg: KeyGen, cfg: ModelConfig, dtype):
+    """The RG-LRU block's parameters, drawn in the reference's order: ``lam``
+    takes its key where the dict is built, between ``conv_w`` and
+    ``w_a``."""
+    D, R, W = cfg.d_model, cfg.rnn_d, cfg.conv_width
+    f32 = torch.float32
+
+    def lam_init():
+        # softplus^-1 of -log(a)/c with a ~ U(0.9, 0.999)
+        a = prng.uniform(kg(), (R,), 0.9, 0.999)
+        return torch.log(torch.expm1(-torch.log(a) / L._RGLRU_C))
+
+    sub = {
+        "ln1": _zeros((D,), ("embed",), f32, kg=kg),
+        "w_x": _dense(kg, (D, R), ("embed", "rnn"), dtype),
+        "w_y": _dense(kg, (D, R), ("embed", "rnn"), dtype),
+        "conv_w": _dense(kg, (W, R), ("conv", "rnn"), dtype,
+                         scale=1.0 / math.sqrt(W)),
+        "conv_b": _zeros((R,), ("rnn",), dtype, kg=kg),
+        "lam": _const(lam_init, (R,), ("rnn",), f32, kg=kg),
+        "w_a": _dense(kg, (R, R), (None, "rnn"), dtype),
+        "w_i": _dense(kg, (R, R), (None, "rnn"), dtype),
+        "w_o": _dense(kg, (R, D), ("rnn", "embed"), dtype),
+        "ln2": _zeros((D,), ("embed",), f32, kg=kg),
+        "mlp": init_mlp(kg, cfg, dtype),
+    }
+    return split_pt(sub)
+
+
 def init_block(kg: KeyGen, cfg: ModelConfig, kind: str, dtype, *,
                cross: bool = False):
-    if kind in _LATER:
-        raise NotImplementedError(_LATER[kind])
-    if kind not in (ATTN, LOCAL, RWKV):
+    if kind not in (ATTN, LOCAL, RGLRU, RWKV):
         raise ValueError(kind)
     if cross:
         raise NotImplementedError(
@@ -212,6 +235,8 @@ def init_block(kg: KeyGen, cfg: ModelConfig, kind: str, dtype, *,
             "(ROADMAP Queue 1 #13e)")
     if kind == RWKV:
         return init_rwkv_block(kg, cfg, dtype)
+    if kind == RGLRU:
+        return init_rglru_block(kg, cfg, dtype)
     D = cfg.d_model
     sub = {
         "ln1": _zeros((D,), ("embed",), torch.float32, kg=kg),
@@ -298,6 +323,47 @@ def _attn_mix(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     out = L.attention(q, ck.to(q.dtype), cv.to(q.dtype), causal=True,
                       q_offset=pos, window=window, k_positions=cache["pos"])
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU block
+# ---------------------------------------------------------------------------
+def _rglru_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict):
+    """Returns (out, cache): in prefill and decode the block's ``h`` and
+    ``conv`` written in place, in train mode None.  Train and prefill start
+    from a zero conv state and h = 0 and never read the cache; decode reads
+    both from it."""
+    mode = ctx["mode"]
+    cache = ctx.get("cache")
+    y_gate = torch.nn.functional.gelu(x @ p["w_y"], approximate="tanh")
+    u = x @ p["w_x"]
+    conv_state = cache["conv"] if mode == "decode" else None
+    u, conv_state = L.causal_conv1d(p["conv_w"], p["conv_b"], u, conv_state)
+    if mode == "decode":
+        h, h_last = L.rglru_step(p, u, cache["h"])
+    else:
+        h, h_last = L.rglru_scan(p, u,
+                                 scan_dtype=getattr(torch, cfg.rglru_dtype),
+                                 gate_gather=cfg.rglru_gate_gather)
+        h_last = h_last.to(torch.float32)
+    out = (h * y_gate) @ p["w_o"]
+    if mode == "train":
+        return out, None
+    cache["h"].copy_(h_last)
+    cache["conv"].copy_(conv_state)
+    return out, cache
+
+
+def _apply_rglru_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                       ctx: dict):
+    cache = ctx.get("cache") or {}
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    mix, rnn_cache = _rglru_mix(p, cfg, h, dict(ctx, cache=cache.get("rnn")))
+    x = x + mix
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    y, aux = apply_mlp(p["mlp"], cfg, h)
+    x = x + y
+    return x, (None if rnn_cache is None else {"rnn": rnn_cache}), aux
 
 
 # ---------------------------------------------------------------------------
@@ -391,10 +457,10 @@ def _apply_rwkv_block(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict):
 def apply_block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                 ctx: dict):
     """Returns (x, cache, moe_aux_loss)."""
-    if kind in _LATER:
-        raise NotImplementedError(_LATER[kind])
     if kind == RWKV:
         return _apply_rwkv_block(p, cfg, x, ctx)
+    if kind == RGLRU:
+        return _apply_rglru_block(p, cfg, x, ctx)
     if kind not in (ATTN, LOCAL):
         raise ValueError(kind)
     cache = ctx.get("cache") or {}
@@ -417,8 +483,6 @@ def apply_block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, *, cross_len: int = 0, device=None):
     """Returns (cache, axes) twin trees for one block, on ``device``."""
-    if kind in _LATER:
-        raise NotImplementedError(_LATER[kind])
     if cross_len:
         raise NotImplementedError(
             "cross-attention caches come with the enc-dec slice "
@@ -444,6 +508,16 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                             device=device),
                 "pos": _const(lambda: torch.full((W,), -1), (W,), ("seq",),
                               torch.int32, device=device),
+            }
+        }
+    elif kind == RGLRU:
+        R, W = cfg.rnn_d, cfg.conv_width
+        c = {
+            "rnn": {
+                "h": _zeros((batch, R), ("batch", "rnn"), torch.float32,
+                            device=device),
+                "conv": _zeros((batch, W - 1, R), ("batch", None, "rnn"),
+                               dtype, device=device),
             }
         }
     elif kind == RWKV:

@@ -1,14 +1,16 @@
 """Primitive layers of the zoo's ported families, over explicit tensors.
 
 The port's counterpart of the JAX package's ``models/layers.py``, for what
-the dense and RWKV6 paths use: the norms, 1-D rotary embeddings, the
-q-chunked masked attention (the plain path that ``attention_impl="xla"``
-selects, and decode at any setting), the dense MLP, and the RWKV6
-recurrence (``rwkv6_chunked`` for forward and prefill, the plain path that
-``rwkv_impl="xla"`` selects; ``rwkv6_step`` for decode).  The reference's
-``shard`` layout hints are identities on one card and are left out.
-``mrope_tables``, ``moe_apply``, ``rglru_scan`` and ``causal_conv1d``
-come with their slices (ROADMAP Queue 1 #13).
+the dense, RG-LRU and RWKV6 paths use: the norms, 1-D rotary embeddings,
+the q-chunked masked attention (the plain path that
+``attention_impl="xla"`` selects, and decode at any setting), the dense
+MLP, the RG-LRU layer (gates, the log-depth ``rglru_scan`` for forward and
+prefill, ``rglru_step`` for decode, the depthwise ``causal_conv1d``) and
+the RWKV6 recurrence (``rwkv6_chunked`` for forward and prefill, the plain
+path that ``rwkv_impl="xla"`` selects; ``rwkv6_step`` for decode).  The
+reference's ``shard`` layout hints are identities on one card and are left
+out.  ``mrope_tables`` and ``moe_apply`` come with their slices (ROADMAP
+Queue 1 #13b, #13f).
 """
 from __future__ import annotations
 
@@ -173,6 +175,92 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         raise ValueError(act)
     return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin / RecurrentGemma recurrent block mixing)
+# ---------------------------------------------------------------------------
+_RGLRU_C = 8.0
+
+
+def _rglru_gates(p: dict, u: torch.Tensor, gate_gather: bool = False):
+    """u [B,S,R] -> (log_a [B,S,R] fp32, gated_input [B,S,R] fp32).
+
+    ``gate_gather`` is the reference's sharding hint (gather u before the
+    gate matmuls); on one card it changes nothing."""
+    f32 = torch.float32
+    r_gate = torch.sigmoid((u @ p["w_a"]).to(f32))      # recurrence
+    i_gate = torch.sigmoid((u @ p["w_i"]).to(f32))      # input
+    # a = sigmoid(Lambda); a_t = a ** (c * r_t)  -> log a_t
+    log_a = -_RGLRU_C * r_gate * F.softplus(p["lam"].to(f32))
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    x_in = b * i_gate * u.to(f32)
+    return log_a, x_in
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t along axis 1, from h_{-1} = 0, in log depth.
+
+    ``lax.associative_scan``'s odd/even recursion with the reference's
+    combine ``(a_l a_r, a_r b_l + b_r)``: adjacent pairs are combined, the
+    pairs scanned, and each even position filled from the odd one before
+    it, so every h is rounded as the reference's.  Only h is formed; the
+    scanned products of a, which no h needs, are not.  a/b [B,S,R] -> h
+    [B,S,R] in their dtype."""
+    n = a.shape[1]
+    if n < 2:
+        return b
+    odd = _linear_scan(a[:, 0:-1:2] * a[:, 1::2],
+                       a[:, 1::2] * b[:, 0:-1:2] + b[:, 1::2])
+    h = torch.empty_like(b)
+    h[:, 0] = b[:, 0]
+    h[:, 1::2] = odd
+    h[:, 2::2] = a[:, 2::2] * odd[:, :(n - 1) // 2] + b[:, 2::2]
+    return h
+
+
+def rglru_scan(p: dict, u: torch.Tensor, h0: Optional[torch.Tensor] = None,
+               scan_dtype: torch.dtype = torch.float32,
+               gate_gather: bool = False):
+    """Full-sequence RG-LRU by a log-depth scan (``_linear_scan``).
+    u [B,S,R] -> (y [B,S,R] in u's dtype, h_last [B,R] in ``scan_dtype``).
+
+    The gates are fp32 either way; ``scan_dtype=torch.bfloat16`` runs the
+    scan in bf16 as the reference's option does.  ``h0`` is folded into the
+    first step's input, as in the reference."""
+    log_a, x_in = _rglru_gates(p, u, gate_gather)
+    a = torch.exp(log_a).to(scan_dtype)
+    x_in = x_in.to(scan_dtype)
+    if h0 is not None:
+        x_in[:, 0] = x_in[:, 0] + a[:, 0] * h0.to(scan_dtype)
+    h = _linear_scan(a, x_in)
+    return h.to(u.dtype), h[:, -1]
+
+
+def rglru_step(p: dict, u: torch.Tensor, h: torch.Tensor):
+    """Single decode step: u [B,1,R], h [B,R] -> (y [B,1,R], h' fp32)."""
+    log_a, x_in = _rglru_gates(p, u)
+    h_new = torch.exp(log_a[:, 0]) * h + x_in[:, 0]
+    return h_new[:, None].to(u.dtype), h_new
+
+
+def causal_conv1d(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                  state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv.  w [W, R], x [B,S,R]; state [B, W-1, R]
+    carries the tail for streaming decode.  Returns (y [B,S,R],
+    new_state [B, W-1, R]).  The taps are summed in the reference's order,
+    term 0 first, then the bias."""
+    W = w.shape[0]
+    S = x.shape[1]
+    if state is None:
+        state = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state, x], dim=1)                   # [B, S+W-1, R]
+    y = xp[:, 0:S] * w[0]
+    for i in range(1, W):
+        y = y + xp[:, i:i + S] * w[i]
+    y = y + b
+    return y.to(x.dtype), (xp[:, -(W - 1):] if W > 1 else state)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Architecture assembly of the zoo's ported families: embedding, the
-(optionally stacked) heterogeneous block stack, KV / ring-buffer and RWKV
-recurrent-state caches, the forward loss, prefill and decode.
+(optionally stacked) heterogeneous block stack, KV / ring-buffer, RG-LRU
+and RWKV recurrent-state caches, the forward loss, prefill and decode.
 
 The port's counterpart of the JAX package's ``models/transformer.py``:
 
@@ -20,10 +20,13 @@ views of the stack (the counterpart of ``lax.scan``), and caches are
 written in place.  ``init`` and ``init_cache`` run on ``cuda`` unless the
 caller passes ``device``; the other functions run where their tensors lie.
 
-Dense families (ATTN / LOCAL blocks, 1-D rope) and RWKV6 (RWKV blocks,
-no positions; ``rwkv_impl="pallas"`` sends the forward's recurrence
-through the CUDA ``rwkv6_scan`` kernel, prefill and decode keep the plain
-``rwkv6_chunked`` / ``rwkv6_step`` as in the reference).  MoE, RG-LRU,
+Dense families (ATTN / LOCAL blocks, 1-D rope), the RG-LRU hybrids
+(RGLRU and LOCAL blocks; the recurrence runs the log-depth
+``layers.rglru_scan`` as in the reference, which wires its ``rglru_scan``
+kernel into no model) and RWKV6 (RWKV blocks, no positions;
+``rwkv_impl="pallas"`` sends the forward's recurrence through the CUDA
+``rwkv6_scan`` kernel, prefill and decode keep the plain
+``rwkv6_chunked`` / ``rwkv6_step`` as in the reference).  MoE,
 encoder-decoder, learned positions and the VLM frontend raise
 ``NotImplementedError`` naming their ROADMAP items.  Abstract mode,
 ``abstract_params`` and ``logical_axes`` come with the dry-run tools
@@ -241,9 +244,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """(cache, logical_axes) twin trees for the whole stack, on ``device``
     (``cuda`` unless given): ATTN blocks a linear [B, max_len, Hkv, Dh]
     K/V cache, LOCAL blocks a [B, min(window, max_len), Hkv, Dh] ring
-    buffer with its slot positions (int32, -1 = empty), RWKV blocks the
-    fp32 recurrent state [B, H, Dh, Dh] and the two token-shift rows
-    [B, D]."""
+    buffer with its slot positions (int32, -1 = empty), RGLRU blocks the
+    fp32 recurrent state h [B, R] and the conv tail [B, conv_width - 1, R]
+    in the cache dtype, RWKV blocks the fp32 recurrent state
+    [B, H, Dh, Dh] and the two token-shift rows [B, D].  With stacked
+    groups every leaf is one [n_groups, ...] tensor, which the blocks
+    write through views."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dtype(cfg)

@@ -184,11 +184,17 @@ def _float_draw(key: torch.Tensor, shape: Sequence[int],
 def _unit_floats(bits: torch.Tensor, minval, maxval) -> torch.Tensor:
     """32-bit words -> float32 uniforms in [minval, maxval): 23 random
     mantissa bits under exponent 0, minus one, scaled, in float32
-    arithmetic as XLA does."""
+    arithmetic as XLA does.  XLA's CPU code fuses the scale and shift into
+    one multiply-add, rounded once; so is this one (the float32 product is
+    exact in float64, the sum rounded to float32 once).  Over [0, 1), and
+    for ``normal``'s range, the product is exact and nothing changes."""
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     lo = torch.full((), minval, dtype=torch.float32, device=bits.device)
     hi = torch.full((), maxval, dtype=torch.float32, device=bits.device)
-    return torch.maximum(lo, (f - 1.0) * (hi - lo) + lo)
+    f64 = torch.float64
+    scaled = ((f - 1.0).to(f64) * (hi - lo).to(f64) + lo.to(f64)).to(
+        torch.float32)
+    return torch.maximum(lo, scaled)
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval=0.0,

@@ -21,7 +21,15 @@ tolerance that a window off by one in one layer exceeds; the CUDA
 rwkv6-7b's head shape and at extreme decay; the forward of reduced
 rwkv6-7b through the kernel equal to the plain ``rwkv6_chunked`` path
 (fp32 atol 5e-4 / rtol 1e-4, the reference's; bf16 atol 0.1), a tolerance
-that one layer's kernel run without its bonus ``u`` exceeds.
+that one layer's kernel run without its bonus ``u`` exceeds; the CUDA
+``rglru_scan`` bit-equal to its plain version (both round the product and
+the sum each once, in the same order) over the reference's sweep, at a
+ragged chunk, at a = 1 - 1e-7 and at recurrentgemma-9b's width; the kernel
+on the gates of a reduced recurrentgemma-9b layer equal to the layer's
+log-depth scan (atol/rtol 1e-4, the reference's), a tolerance that the
+kernel fed ``a`` shifted one step exceeds; teacher-forced prefill + decode
+of reduced recurrentgemma-9b in the stacked layout on the card equal to
+its full forward.
 """
 import numpy as np
 import pytest
@@ -39,6 +47,9 @@ from repro_torch.kernels.client_step import ref as cs_ref  # noqa: E402
 from repro_torch.kernels.fedmom_update import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.fedmom_update import ops as tops  # noqa: E402
 from repro_torch.kernels.fedmom_update import ref as tref  # noqa: E402
+from repro_torch.kernels.rglru_scan import kernel as rg_kernel  # noqa: E402
+from repro_torch.kernels.rglru_scan import ops as rg_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan import ref as rg_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402,E501
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import kernel as rw_kernel  # noqa: E402
@@ -500,3 +511,125 @@ def test_rwkv6_forward_through_kernel_matches_plain(cuda, dtype,
     assert bool(torch.isfinite(loss_k))
     # each token's loss moves by at most twice the largest logit change
     assert abs(float(loss_k) - float(loss_p)) <= 2 * RWKV_MODEL_ATOL[dtype]
+
+
+# tests/test_kernels.py test_rglru_scan_kernel_sweep (B, S, R, chunk), a
+# ragged chunk (S=100 at chunk 64 halves to 4), a prime S (tiles of one
+# step), an R that is no multiple of the block, and recurrentgemma-9b's
+# width
+RGLRU_SHAPES = [(2, 64, 128, 32), (2, 100, 128, 128), (2, 256, 256, 64),
+                (2, 100, 128, 64), (3, 97, 200, 128), (2, 7, 128, 128),
+                (8, 512, 4096, 128)]
+
+
+def _rglru_inputs(B, S, R, device, seed, a_value=None):
+    """a = sigmoid(normal + 2) (or the constant ``a_value``), b = 0.5
+    normal, fp32 on ``device``."""
+    rng = np.random.default_rng(seed)
+    a = (1.0 / (1.0 + np.exp(-(rng.normal(size=(B, S, R)) + 2.0)))
+         if a_value is None else np.full((B, S, R), a_value))
+    b = 0.5 * rng.normal(size=(B, S, R))
+    return (torch.as_tensor(a.astype(np.float32), device=device),
+            torch.as_tensor(b.astype(np.float32), device=device))
+
+
+@pytest.mark.parametrize("B,S,R,chunk", RGLRU_SHAPES)
+def test_rglru_kernel_bit_equal_to_plain(cuda, B, S, R, chunk):
+    a, b = _rglru_inputs(B, S, R, cuda, S + R)
+    before = rg_kernel.launches
+    out = rg_ops.rglru_scan(a, b, chunk=chunk)
+    assert rg_kernel.launches == before + 1
+    ref = rg_ops.rglru_scan(a, b, use_kernel=False)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (B, S, R)
+    assert torch.equal(out, ref), float((out - ref).abs().max())
+
+
+def test_rglru_kernel_slow_decay_stays_finite(cuda):
+    """a = 1 - 1e-7 (float32 rounds it to 1 - 2**-23 or so) over 4,096
+    steps: h sums its inputs, stays finite and equals the plain version."""
+    a, b = _rglru_inputs(2, 4096, 256, cuda, 5, a_value=1.0 - 1e-7)
+    out = rg_ops.rglru_scan(a, b)
+    ref = rg_ref.rglru_sequential(a, b)
+    torch.cuda.synchronize()
+    assert float(a.max()) < 1.0
+    assert bool(torch.isfinite(out).all()) and torch.equal(out, ref)
+
+
+def test_rglru_kernel_refuses_what_it_cannot_take(cuda):
+    a, b = _rglru_inputs(1, 64, 128, cuda, 0)
+    with pytest.raises(ValueError, match="chunk 0"):
+        rg_ops.rglru_scan(a, b, chunk=0)
+    with pytest.raises(ValueError, match="takes torch.float32"):
+        rg_kernel.rglru(a.bfloat16(), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        rg_kernel.rglru(a.transpose(1, 2).contiguous().transpose(1, 2), b)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        rg_kernel.rglru(a, b.cpu())
+    with pytest.raises(ValueError, match="has shape"):
+        rg_kernel.rglru(a, b[:, :32].contiguous())
+    with pytest.raises(NotImplementedError, match="#13g"):
+        rg_ops.rglru_scan(a.requires_grad_(), b)
+
+
+def test_rglru_kernel_matches_model_layer(cuda):
+    """``tests/test_kernels.py`` test_rglru_scan_kernel_matches_model_layer
+    on the card, on the gates of layer 0 of reduced recurrentgemma-9b
+    (u = the conv of w_x of the normed embeddings, S=256): the kernel
+    against the layer's own log-depth scan (``layers._linear_scan``, its
+    fp32 h) within atol/rtol 1e-4; the kernel fed ``a`` shifted one step
+    (0.16 seen on the CPU) must exceed that tolerance."""
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = get_config("recurrentgemma-9b-reduced").replace(dtype="float32")
+    params, _ = T.init(cfg, prng.PRNGKey(0), device=cuda)
+    p = params["rem"]["l0"]
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 256)), device=cuda)
+    x = L.rms_norm(params["embed"][tokens], p["ln1"], cfg.norm_eps)
+    u, _ = L.causal_conv1d(p["conv_w"], p["conv_b"], x @ p["w_x"])
+    log_a, x_in = L._rglru_gates(p, u)
+    a = torch.exp(log_a)
+    want = L._linear_scan(a, x_in)
+    got = rg_ops.rglru_scan(a, x_in)
+    shifted = rg_ops.rglru_scan(torch.cat([a[:, :1], a[:, :-1]], 1), x_in)
+    torch.cuda.synchronize()
+    sound = float((got - want).abs().max())
+    fault = float((shifted - want).abs().max())
+    print(f"sound {sound:.3e}, planted fault {fault:.3e}")
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert not torch.allclose(shifted, want, atol=1e-4, rtol=1e-4), fault
+    y, _ = L.rglru_scan(p, u)
+    torch.testing.assert_close(y, want, atol=0, rtol=0)   # the layer's h
+
+
+def test_rglru_stacked_prefill_decode_on_card(cuda):
+    """Reduced recurrentgemma-9b in the stacked layout (8 layers: 2 groups
+    and a 2-layer remainder), fp32, on the card: prefill of 128 tokens
+    (every LOCAL layer through ``flash_attention``, the ring of 64 wraps),
+    then teacher-forced decode, equal to the full forward (atol/rtol 2e-3,
+    the zoo's tolerance); every RG-LRU cache view was written."""
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config("recurrentgemma-9b-reduced").replace(
+        dtype="float32", attention_impl="pallas", n_layers=8,
+        scan_layers=True)
+    params, _ = T.init(cfg, prng.PRNGKey(4), device=cuda)
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 136)), device=cuda)
+    full, _ = T.apply(params, cfg, {"tokens": tokens})
+    cache, _ = T.init_cache(cfg, 2, 136, device=cuda)
+    before = fa_kernel.launches
+    lg, cache = T.prefill(params, cfg, {"tokens": tokens[:, :128]}, cache)
+    assert fa_kernel.launches == before + 2      # the 2 LOCAL layers
+    torch.testing.assert_close(lg, full[:, 127], atol=2e-3, rtol=2e-3)
+    for t in range(128, 135):
+        lg, cache = T.decode_step(params, cfg, cache, tokens[:, t:t + 1], t)
+        torch.testing.assert_close(lg, full[:, t], atol=2e-3, rtol=2e-3)
+    for c in (cache["groups"]["b0"]["rnn"], cache["groups"]["b1"]["rnn"],
+              cache["rem"]["l0"]["rnn"], cache["rem"]["l1"]["rnn"]):
+        for leaf in (c["h"], c["conv"]):
+            assert bool((leaf.flatten(-2).abs().amax(-1) > 0).all())

@@ -329,12 +329,22 @@ def test_param_and_cache_trees_carry_both_ways():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("granite-moe-1b-a400m", "#13b"), ("recurrentgemma-9b", "#13c"),
-    ("whisper-medium", "#13e"), ("qwen2-vl-72b", "#13f")])
+    ("granite-moe-1b-a400m", "#13b"), ("whisper-medium", "#13e"),
+    ("qwen2-vl-72b", "#13f")])
 def test_families_of_later_slices_raise(arch, item):
     cfg = tget(arch).reduced()
     with pytest.raises(NotImplementedError, match=item):
         TT.init(cfg, prng.PRNGKey(0), device="cpu")
+
+
+def test_recurrentgemma_initialises():
+    """The RG-LRU family is ported (``tests/test_torch_rglru.py``): reduced
+    recurrentgemma-9b initialises and allocates its caches."""
+    cfg = tget("recurrentgemma-9b").reduced()
+    params, _ = TT.init(cfg, prng.PRNGKey(0), device="cpu")
+    cache, _ = TT.init_cache(cfg, 1, 8, device="cpu")
+    assert params["rem"]["l0"]["lam"].dtype == torch.float32
+    assert cache["rem"]["l0"]["rnn"]["h"].shape == (1, cfg.rnn_d)
 
 
 def test_entry_points_need_a_card_unless_given_a_device():
