@@ -46,13 +46,20 @@ Phases, each printed as it runs; any failure exits non-zero:
      paths' shapes (gemma3-1b: B=8, S=1024, 4 query heads over 1 KV head,
      d=256, bf16, window 512 and 0; recurrentgemma-9b: B=8, S=4096, 16
      query heads over 1 KV head, d=256, bf16, window 2048) and at d=64 /
-     d=128 in fp32 and bf16; device times (CUDA graphs + events) at the
-     paths' shapes of the kernel, the plain version and
+     d=128 in fp32 and bf16, the bf16 cases also through the tensor-core
+     design that carries P in one bf16 part; device times (CUDA graphs +
+     events) at the paths' shapes of the kernel, the plain version and
      ``scaled_dot_product_attention`` with the same boolean mask (timed
      only, never used by the port) beside the bound of the (query, key)
-     pairs the masks keep;
- 10. serving path: gemma3-1b at full width (keyed random weights from the
-     port's ``init``), ``generate`` of B=8 prompts of 1024 tokens, 32 new
+     pairs the masks keep, the kernel's achieved TFLOP/s, its share of the
+     bound, the share of its tile work the masks throw away, and the three
+     bf16 designs (CUDA cores, P in bf16 hi + lo parts, P in one bf16
+     part) timed in turns;
+ 10. serving path: reduced gemma3-1b's bf16 prefill logits through the
+     kernel against ``attention_impl="xla"`` and against a planted fault
+     (the first LOCAL layer's window one short), then gemma3-1b at full
+     width (keyed random weights from the port's ``init``), ``generate``
+     of B=8 prompts of 1024 tokens, 32 new
      tokens, greedy, bf16, ``attention_impl="pallas"``; prefill ms, decode
      ms/token, tokens/s, peak memory, kernel launches over exactly one
      ``generate`` call (26: one per layer), the device-busy share of one
@@ -152,6 +159,9 @@ G_CMP_TOL = 1e-3                   # card vs CPU logits (fp32, TF32 off):
                                    # cuBLAS and the CPU sum 1152- and
                                    # 6912-long products in other orders
 FA_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:143
+G_XLA_ATOL = 0.2                   # reduced gemma3-1b bf16 prefill logits,
+                                   # kernel vs xla: tests/test_torch_gpu.py
+                                   # XLA_BF16_ATOL
 # the RWKV6 path: rwkv6-7b at its published widths (configs/rwkv6_7b.py)
 R_ARCH = "rwkv6-7b"
 R_B, R_S = 8, 1024                 # loss_fn batch; generate prompts
@@ -607,6 +617,23 @@ def flash_kept_pairs(S, window, causal):
     return pairs
 
 
+def flash_tile_pairs(S, Hq, Hkv, window, causal, rows=128, keys=64):
+    """(query, key) pairs per query head that the bf16 kernel computes: its
+    128-row tiles pack 128/Gp positions x Gp heads (Gp = gcd(Hq/Hkv, 64)),
+    and each runs the 64-key tiles between the window's first key and the
+    diagonal of its positions (``csrc/flash_attention.cu``), every row of
+    the tile, past S too."""
+    P = rows // math.gcd(Hq // Hkv, 64)
+    pairs = 0
+    for p0 in range(0, S, P):
+        p_last = min(p0 + P, S) - 1
+        hi = min(S // keys, p_last // keys + 1) if causal else S // keys
+        lo = (p0 - window + 1) // keys if window > 0 and p0 - window + 1 > 0 \
+            else 0
+        pairs += max(0, hi - lo) * keys * P
+    return pairs
+
+
 def flash_bound_ms(B, S, Hq, Hkv, d, window, causal, itemsize):
     """Least time on the card for one flash_attention call: the larger of
     its bytes (q, k, v read once -- K/V at their Hkv heads -- and out
@@ -639,12 +666,19 @@ def sdpa_call(q, k, v, causal, window):
     return call
 
 
-def flash_phase(fa_ops):
+def flash_phase(fa_ops, fa_kernel, card):
     """Phase 9: the kernel against its plain version at the serving paths'
     shapes and the reference's d=64 / d=128 sweep; device times at the
     paths' shapes.  The plain version runs on slices of the batch so that
     its fp32 score matrix stays under 4 GiB (two slices of 4 rows at
-    recurrentgemma-9b's shape).  Returns (max abs err, {window: timings})."""
+    recurrentgemma-9b's shape).  At every bf16 case the other tensor-core
+    design (P in one bf16 part) is checked too, and at the bf16 path shapes
+    the three designs are timed in turns (CUDA cores, P hi + lo, P bf16,
+    P bf16, P hi + lo, CUDA cores), with the kernel's achieved TFLOP/s (4 d
+    per kept pair), its share of the bound and the share of its tile work
+    that the masks throw away.  Returns (max abs err, {window: timings}):
+    the path's kernel at gemma3-1b's windows, and at recurrentgemma-9b's
+    shape under "long"."""
     import numpy as np
     import torch
     dev = torch.device("cuda")
@@ -682,35 +716,112 @@ def flash_phase(fa_ops):
                                  f"(atol {FA_ATOL[dtype]})")
         max_err = max(max_err, err)
         line = f"flash_attention {tag}: max abs err {err:.3e}"
+        if dtype == "bfloat16":
+            one = fa_kernel.flash_attention_design(
+                q, k, v, causal=causal, window=window, design="p_bf16")
+            line += (f" (P in one bf16 part: "
+                     f"{float((one.float() - ref.float()).abs().max()):.3e})")
+            del one
         if (B, S, Hq, Hkv, d, dtype, causal, window) in path_cases:
+            def design(name):
+                return lambda: fa_kernel.flash_attention_design(
+                    q, k, v, causal=causal, window=window, design=name)
             call_k = lambda: fa_ops.flash_attention(  # noqa: E731
                 q, k, v, causal=causal, window=window)
             call_l = sdpa_call(q, k, v, causal, window)
             lib_err = float((call_l().transpose(1, 2).float()
                              - ref.float()).abs().max())
-            n = 10 if S == G_S0 else 3        # ~30 ms a call at S=4096
-            ms = graph_ms(call_k, iters=n, replays=n)
+            n = 10 if S == G_S0 else 3        # 2-30 ms a call at S=4096
+            turns = {"cuda_cores": [], "p_hi_lo": [], "p_bf16": []}
+            for name in ("cuda_cores", "p_hi_lo", "p_bf16", "p_bf16",
+                         "p_hi_lo", "cuda_cores"):
+                turns[name].append(graph_ms(design(name), iters=n,
+                                            replays=n))
+            n_k = 30 if S == G_S0 else 10
+            ms = graph_ms(call_k, iters=n_k, replays=n_k)
             plain_ms = graph_ms(call_p, iters=n, replays=n)
             lib_ms = graph_ms(call_l, iters=n, replays=n)
             bytes_ms, ops_ms = flash_bound_ms(B, S, Hq, Hkv, d, window,
                                               causal, 2)
             bound_ms = max(bytes_ms, ops_ms)
             bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-            timing[window] = (ms, plain_ms, bound_ms, bound_by, lib_ms,
-                              bytes_ms, ops_ms)
+            kept = flash_kept_pairs(S, window, causal)
+            tflops = 4 * d * B * Hq * kept / (ms * 1e-3) / 1e12
+            waste = 1 - kept / flash_tile_pairs(S, Hq, Hkv, window, causal)
+            timing[window if S == G_S0 else "long"] = (
+                ms, plain_ms, bound_ms, bound_by, lib_ms, bytes_ms, ops_ms)
             line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                      f"sdpa {lib_ms:.4f} ms (device; sdpa vs plain "
                      f"{lib_err:.2e}), bound {bound_ms:.4f} ms ({bound_by}: "
-                     f"{flash_kept_pairs(S, window, causal)} kept pairs "
-                     f"per head)")
+                     f"{kept} kept pairs per head); {tflops:.1f} TFLOP/s "
+                     f"achieved, {100 * bound_ms / ms:.1f}% of the bound, "
+                     f"{100 * waste:.2f}% of the tile work masked away; "
+                     f"in turns: " + ", ".join(
+                         f"{name} " + " / ".join(f"{t:.4f}" for t in ts)
+                         + " ms" for name, ts in turns.items())
+                     + f" [{card}]")
         print(line)
         del q, k, v, out, ref
     torch.cuda.empty_cache()
     return max_err, timing
 
 
-def serving_phase(dev, fa_kernel):
-    """Phase 10: generate at gemma3-1b's full width on the card."""
+def xla_pair(dev, fa_ops, fa_kernel):
+    """Reduced gemma3-1b (window 64), bf16, B=2 prompts of 256 tokens:
+    prefill logits through the kernel against ``attention_impl="xla"``
+    (sound), and with the first LOCAL layer's window one short (the
+    planted fault).  Returns (sound, fault)."""
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(G_ARCH + "-reduced").replace(dtype="bfloat16",
+                                                  attention_impl="pallas")
+    params, _ = T.init(cfg, prng.PRNGKey(0), device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 256)), device=dev)
+    kernel_attention = fa_ops.flash_attention
+    seen = []
+
+    def off_by_one(q, k, v, *, causal, window):
+        seen.append(window)
+        return kernel_attention(q, k, v, causal=causal,
+                                window=window - (len(seen) == 1))
+
+    def prefill(c, attention=kernel_attention):
+        fa_ops.flash_attention = attention
+        try:
+            cache, _ = T.init_cache(c, 2, 256, device=dev)
+            before = fa_kernel.launches
+            logits, _ = T.prefill(params, c, {"tokens": tokens}, cache)
+            return logits.float().cpu(), fa_kernel.launches - before
+        finally:
+            fa_ops.flash_attention = kernel_attention
+
+    got, launches = prefill(cfg)
+    want, xla_launches = prefill(cfg.replace(attention_impl="xla"))
+    faulty, _ = prefill(cfg, off_by_one)
+    if launches != cfg.n_layers or xla_launches != 0 or seen[0] != \
+            cfg.window:
+        raise AssertionError(f"reduced {G_ARCH}: launches {launches} / "
+                             f"{xla_launches}, first window {seen[:1]}")
+    return (float((got - want).abs().max()),
+            float((faulty - want).abs().max()))
+
+
+def serving_phase(dev, fa_kernel, fa_ops, card):
+    """Phase 10: generate at gemma3-1b's full width on the card, after the
+    bf16 kernel is held to the xla path at model level (reduced)."""
+    sound, fault = xla_pair(dev, fa_ops, fa_kernel)
+    if not sound <= G_XLA_ATOL < fault:
+        raise AssertionError(f"reduced {G_ARCH} bf16 prefill logits, kernel "
+                             f"against xla: sound {sound:.3e}, planted "
+                             f"fault {fault:.3e}, atol {G_XLA_ATOL}")
+    print(f"reduced {G_ARCH} bf16 prefill logits, kernel against "
+          f"attention_impl='xla': sound {sound:.3e}, planted fault (first "
+          f"LOCAL window one short) {fault:.3e}, atol {G_XLA_ATOL} "
+          f"[{card}]")
     import numpy as np
     import torch
     from repro_torch import random as prng
@@ -783,7 +894,8 @@ def serving_phase(dev, fa_kernel):
     out = {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
            "tokens_per_s": tok_s, "generate_ms": total_s * 1e3,
            "peak_memory_gb": peak / 1e9, "init_s": init_s,
-           "device_busy_share": busy / wall, "launches": launches}
+           "device_busy_share": busy / wall, "launches": launches,
+           "xla_pair": {"sound": sound, "fault": fault}}
     del params
     torch.cuda.empty_cache()
     return out
@@ -1658,11 +1770,11 @@ def main() -> int:
 
     # ------------------------------------------------------------------
     phase("9. kernel against plain (flash_attention)")
-    fa_err, fa_timing = flash_phase(fa_ops)
+    fa_err, fa_timing = flash_phase(fa_ops, fa_kernel, card)
 
     # ------------------------------------------------------------------
     phase(f"10. serving path: {G_ARCH} at full width on cuda")
-    serving = serving_phase(dev, fa_kernel)
+    serving = serving_phase(dev, fa_kernel, fa_ops, card)
 
     # ------------------------------------------------------------------
     phase(f"11. serving card against CPU: {G_ARCH} cut to {G_CMP_LAYERS} "
@@ -1731,7 +1843,10 @@ def main() -> int:
         "flash_attention_by_window": {
             str(w): dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "bytes_ms", "ops_ms"), t))
-            for w, t in fa_timing.items()}}))
+            for w, t in fa_timing.items() if w != "long"},
+        "flash_attention_long": dict(zip(
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "bytes_ms", "ops_ms"), fa_timing["long"]))}))
     line = {"kernels": [{
         "name": "fedmom_update",
         "route": "cuda",

@@ -13,9 +13,10 @@ reads them once per chunk (``launch/train.py`` ``_drain_chunk``).
   ``round_step``.  Draws are keyed by ``(seed, t, client_id)``, so the
   trajectory is the per-round plane's.
 * ``scan_rounds_bucketed``: the cohort is staged on the host grouped by
-  cache size tier, with the keyed minibatch draws staged too; either every
-  tier's rows are gathered and concatenated into one ``round_step``
-  (fused-concat form), or each tier goes through a ``client_step_fn`` hook
+  cache size tier, with the keyed minibatch draws staged too (or drawn
+  here, tier by tier, when they are not); either every tier's rows are
+  gathered and concatenated into one ``round_step`` (fused-concat form),
+  or each tier goes through a ``client_step_fn`` hook
   (``bucketed_round_step``), such as the fused ``kernels/client_step``.
 
 ``scan_rounds`` and ``scan_rounds_sampled`` (host-staged batches) belong to
@@ -30,6 +31,7 @@ import torch
 
 from repro_torch.core.round import RoundConfig, bucketed_round_step, round_step
 from repro_torch.core.server_opt import ServerOpt, ServerState
+from repro_torch.data.federated import minibatch_indices
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_map
 
@@ -90,25 +92,50 @@ def scan_rounds_ondevice(loss_fn: Callable, server_opt: ServerOpt,
     return state, _stack(per_round)
 
 
+def _tier_draws(data_key: torch.Tensor, view, t0: int, tier_cids: tuple,
+                need: int) -> tuple:
+    """Each tier's keyed minibatch draws, [R, C_i, need]: lane (r, c) is
+    ``minibatch_indices(data_key, t0 + r, cids[r, c], n_k, need)``, the
+    draw the reference makes inside its scan (one batched draw a tier on
+    the host; threefry is counter-based, so it is the per-lane draw)."""
+    counts = view.counts.cpu()
+    key = data_key.cpu()
+    out = []
+    for c in tier_cids:
+        c = torch.as_tensor(np.asarray(c), dtype=torch.int64)
+        R, C = c.shape
+        t = (int(t0) + torch.arange(R, dtype=torch.int64)).repeat_interleave(C)
+        flat = c.reshape(-1)
+        out.append(minibatch_indices(key, t, flat, counts[flat].long(),
+                                     need).reshape(R, C, need))
+    return tuple(out)
+
+
 def scan_rounds_bucketed(loss_fn: Callable, server_opt: ServerOpt,
                          state: ServerState, view, tiers_present: tuple,
                          tier_cids: tuple, tier_weights: tuple,
-                         tier_idx: tuple, t0: int, n_rounds: int,
+                         data_key: torch.Tensor, t0: int, n_rounds: int,
                          rcfg: RoundConfig, local_batch_size: int,
                          param_axes: Optional[Any] = None,
                          lrs: Optional[Sequence[float]] = None,
                          tier_masks: Optional[tuple] = None,
+                         tier_idx: Optional[tuple] = None,
                          client_step_fn: Optional[Callable] = None,
                          device=None) -> tuple:
     """Run ``n_rounds`` rounds with host-staged, tier-bucketed cohorts.
 
+    The reference's argument order, ``device`` last.
     ``tiers_present``: the tier indices with any participant in the chunk.
-    ``tier_cids`` / ``tier_weights`` / ``tier_idx`` / ``tier_masks``:
+    ``tier_cids`` / ``tier_weights`` / ``tier_masks`` / ``tier_idx``:
     tuples aligned with it of [R, C_i] client ids, [R, C_i] weights,
-    [R, C_i, H*b] staged minibatch draws and optional [R, C_i, H] H_k
-    masks, each round's per-tier cohort right-padded with a resident client
-    of the same tier at weight 0 (padding rows carry all-ones masks).  They
-    move to the device once per chunk.
+    optional [R, C_i, H] H_k masks and optional [R, C_i, H*b] staged
+    minibatch draws, each round's per-tier cohort right-padded with a
+    resident client of the same tier at weight 0 (padding rows carry
+    all-ones masks).  They move to the device once per chunk.  Without
+    ``tier_idx`` each tier draws its own: ``minibatch_indices(data_key, t,
+    cid, n_k, H*b)`` for round t = t0 + r, bit-equal to the reference's
+    draws; with it, ``data_key`` is not read (the trainer stages the same
+    draws on the host, ``launch/train.py`` ``_staged_indices``).
 
     Without ``client_step_fn`` (fused-concat form) each round gathers every
     tier's rows (``CacheView.gather_tier_rows``), concatenates them along
@@ -116,13 +143,20 @@ def scan_rounds_bucketed(loss_fn: Callable, server_opt: ServerOpt,
     update goes through the hook inside ``bucketed_round_step``:
     ``client_step_fn(view, tier, cids [C_i], idx [C_i, H*b], w_c, lr,
     mask, local_steps, batch_size) -> (final_params [C_i, ...],
-    losses [C_i])``, ``lr`` a host float.
+    losses [C_i])``, ``lr`` a host float.  The hook takes the round's draws
+    ``idx`` where the reference's takes ``(key, t)`` and draws them itself:
+    eagerly, one batched draw a chunk replaces hundreds of small device
+    launches a round.
 
     Same trajectory as ``scan_rounds_ondevice`` within fp32 reduction order
     (bit-equal with one occupied tier).  Returns ``(state, metrics)`` as
     ``scan_rounds_ondevice`` does, without ``clients``.
     """
     dev = resolve_device(device)
+    H = rcfg.local_steps
+    if tier_idx is None:
+        tier_idx = _tier_draws(data_key, view, t0, tier_cids,
+                               H * local_batch_size)
 
     def put(arrays, dtype):
         return tuple(torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -132,7 +166,6 @@ def scan_rounds_bucketed(loss_fn: Callable, server_opt: ServerOpt,
     ws = put(tier_weights, torch.float32)
     idxs = put(tier_idx, torch.int32)
     ms = None if tier_masks is None else put(tier_masks, torch.float32)
-    H = rcfg.local_steps
     per_round = []
     for r in range(n_rounds):
         lr = _lr(lrs, r, rcfg)

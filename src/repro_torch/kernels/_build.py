@@ -26,6 +26,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
               "-Xcompiler", "-fPIC")
+# per kernel: flash_attention looks up the driver's tensor-map encoder
+# with dlopen/dlsym
+LINK_FLAGS = {"flash_attention": ("-ldl",)}
 
 
 def nvcc_path() -> str:
@@ -46,8 +49,9 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     """Where ``name``'s library lives once built (content-addressed)."""
     src = CSRC / f"{name}.cu"
+    flags = NVCC_FLAGS + LINK_FLAGS.get(name, ())
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -61,7 +65,8 @@ def build(name: str) -> Path:
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+           *LINK_FLAGS.get(name, ())]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

@@ -12,8 +12,11 @@
   of ``core.round.bucketed_round_step`` would have produced.
 
 Dispatch is by where the tensors lie: CUDA tensors go to the hand-written
-kernel (``kernel.py``), CPU tensors to the plain version (``ref.py``).
-There is no fallback: a CUDA input the kernel cannot take raises.
+kernel (``kernel.py``), CPU tensors, and any call with ``use_kernel=False``,
+to the plain version (``ref.py``).  There is no fallback: a CUDA input the
+kernel cannot take raises.  The reference's ``interpret`` argument names a
+Pallas mode and has no counterpart here: where the kernel runs is decided
+by the tensors' device.
 """
 from __future__ import annotations
 
@@ -24,24 +27,26 @@ from repro_torch.kernels.client_step import ref as _ref
 
 
 def client_step(xs, ys, slots, idx, w, b, lr, local_steps: int,
-                batch_size: int, step_mask=None):
+                batch_size: int, step_mask=None, use_kernel: bool = True):
     """Fused gather + H local SGD steps over one tier's C clients.
 
     Array contract of ``ref.client_step``; ``lr`` is a host float.
+    ``use_kernel=False`` takes the plain version on any device.
     Returns ``(w_out [C, D], b_out [C], mean_loss [C])``.
     """
-    if xs.is_cuda:
+    if use_kernel and xs.is_cuda:
         return _k.client_step(xs, ys, slots, idx, w, b, lr, local_steps,
                               batch_size, step_mask)
     return _ref.client_step(xs, ys, slots, idx, w, b, lr, local_steps,
                             batch_size, step_mask)
 
 
-def linreg_tier_step():
+def linreg_tier_step(use_kernel: bool = True):
     """The ``client_step_fn`` hook of ``core.multiround.scan_rounds_bucketed``
     for the linear-regression family: dataset fields ``{'x', 'y'}``, params
     ``{'w': [D], 'b': []}``, fp32 compute and plain-SGD local steps (the
     trainer checks the last two before it wires the hook in).
+    ``use_kernel=False`` routes every call to the plain version.
 
     ``fn(view, tier, cids, idx, w_c, lr, mask, local_steps, batch_size)``:
     ``cids`` [C_i] are the tier's clients, ``idx`` [C_i, H*b] their staged
@@ -65,7 +70,8 @@ def linreg_tier_step():
         idx = torch.as_tensor(idx, dtype=torch.int32, device=view.device)
         wf, bf, losses = client_step(
             arrs["x"], arrs["y"], slots.to(torch.int32), idx, w_c["w"],
-            w_c["b"], lr, local_steps, batch_size, step_mask=mask)
+            w_c["b"], lr, local_steps, batch_size, step_mask=mask,
+            use_kernel=use_kernel)
         return {"w": wf, "b": bf}, losses
 
     return fn

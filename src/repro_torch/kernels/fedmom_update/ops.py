@@ -1,10 +1,12 @@
 """Public wrapper for the fused FedMom / FedAvgM server update.
 
 Dispatch is by where the tensors lie: CUDA tensors go to the hand-written
-kernel (``kernel.py``), CPU tensors to the plain version (``ref.py``).
-There is no fallback — a CUDA tree that the kernel cannot take raises, and
-a tree whose leaves lie on different devices raises.  Outputs follow the
-input leaves' dtypes on both paths.
+kernel (``kernel.py``), CPU tensors, and any call with ``use_kernel=False``,
+to the plain version (``ref.py``).  There is no fallback — a CUDA tree that
+the kernel cannot take raises, and a tree whose leaves lie on different
+devices raises.  Outputs follow the input leaves' dtypes on both paths.
+The reference's ``interpret`` argument names a Pallas mode and has no
+counterpart here: where the kernel runs is decided by the leaves' device.
 """
 from __future__ import annotations
 
@@ -25,19 +27,24 @@ def _as_dtypes(tree, like):
     return tree_map(lambda x, l: x.to(l.dtype), tree, like)
 
 
-def _update(ref_fn, kind, w, s, delta, eta, beta):
-    if _on_cuda(w, s, delta):
+def _update(ref_fn, kind, w, s, delta, eta, beta, use_kernel):
+    if _on_cuda(w, s, delta) and use_kernel:
         return _k.fused_update_tree(w, s, delta, eta=eta, beta=beta,
                                     kind=kind)
     w_new, s_new = ref_fn(w, s, delta, eta, beta)
     return _as_dtypes(w_new, w), _as_dtypes(s_new, s)
 
 
-def fused_update_tree(w, v, delta, *, eta: float, beta: float):
-    """FedMom (Nesterov): one fused launch over the whole parameter tree."""
-    return _update(_ref.fedmom_update, "fedmom", w, v, delta, eta, beta)
+def fused_update_tree(w, v, delta, *, eta: float, beta: float,
+                      use_kernel: bool = True):
+    """FedMom (Nesterov): one fused launch over the whole parameter tree
+    (``use_kernel=False``: the plain version on any device)."""
+    return _update(_ref.fedmom_update, "fedmom", w, v, delta, eta, beta,
+                   use_kernel)
 
 
-def fused_avgm_tree(w, m, delta, *, eta: float, beta: float):
+def fused_avgm_tree(w, m, delta, *, eta: float, beta: float,
+                    use_kernel: bool = True):
     """FedAvgM (heavy-ball): same fused stream, different update body."""
-    return _update(_ref.fedavgm_update, "fedavgm", w, m, delta, eta, beta)
+    return _update(_ref.fedavgm_update, "fedavgm", w, m, delta, eta, beta,
+                   use_kernel)

@@ -503,8 +503,8 @@ class FederatedTrainer:
             tiers_present, cids, ws, lrs, ixs, ms = staged.pop(s)
             return scan_rounds_bucketed(
                 self.loss_fn, self.server_opt, self.state, view,
-                tiers_present, cids, ws, ixs, s, e - s, self.rcfg,
-                self.local_batch, lrs=lrs, tier_masks=ms,
+                tiers_present, cids, ws, data_key, s, e - s, self.rcfg,
+                self.local_batch, lrs=lrs, tier_masks=ms, tier_idx=ixs,
                 client_step_fn=self.client_step_fn, device=self.device)
 
         return self._run_fused_chunks(spans, n_rounds, cache, prepare,

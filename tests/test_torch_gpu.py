@@ -13,9 +13,13 @@ order); a round, and a few rounds of both streaming lanes, on the card
 equal to the same on the CPU within atol 1e-5 (cuBLAS and the CPU sum in
 other orders); the CUDA ``flash_attention`` equal to its plain version at
 the reference's tolerances (fp32 atol 2e-5, bf16 atol 2e-2) over the
-reference's sweep and at d=256; prefill through the kernel equal to a
-plain path with fp32 probabilities (fp32 atol 1e-4, bf16 atol 0.1), a
-tolerance that a window off by one in one layer exceeds; the CUDA
+reference's sweep, at d=256 and at the bf16 kernel's packed, partial-tile
+and ragged-window cases, and a CUDA-graph replay of it equal to the eager
+call; prefill through the kernel equal to a plain path with fp32
+probabilities (fp32 atol 1e-4, bf16 atol 0.1) and, in bf16, to the xla
+path (bf16 probabilities), tolerances that a window off by one in one
+layer exceeds; ``use_kernel=False`` on every wrapper launching nothing;
+the CUDA
 ``rwkv6_scan`` equal to its plain version at the reference's tolerances
 (fp32 atol 2e-3, bf16 atol 5e-2, rtol 1e-2) over the reference's sweep, at
 rwkv6-7b's head shape and at extreme decay; the forward of reduced
@@ -258,25 +262,40 @@ def test_streaming_lanes_on_cuda_match_cpu(cuda, hook):
                                    out["cpu"][0].w[k], rtol=1e-5, atol=1e-5)
 
 
+# the reference's sweep (tests/test_kernels.py), gemma3's MQA d=256 shape,
+# then the bf16 kernel's cases: 16 query heads over 1 KV head packed into
+# a tile at d=256 (recurrentgemma-9b), 8 over 2, a group of 3 (no factor
+# of 64 but 1: one head a tile), and S=320 (a multiple of 64, not of 128:
+# one head a tile of 128 positions leaves a partial last tile)
 FLASH_SHAPES = [(128, 4, 4, 64), (256, 4, 2, 64), (128, 2, 1, 128),
-                (512, 2, 2, 64), (1024, 4, 1, 256)]
+                (512, 2, 2, 64), (1024, 4, 1, 256), (256, 16, 1, 256),
+                (256, 8, 2, 64), (256, 3, 1, 64), (320, 3, 1, 64),
+                (320, 2, 2, 128)]
+
+
+def _flash_inputs(S, Hq, Hkv, d, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    return tuple(torch.as_tensor(rng.normal(size=(2, S, h, d)).astype(
+        np.float32), device=device).to(dt) for h in (Hq, Hkv, Hkv))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
-                                           (False, 0), (True, 512)])
+                                           (False, 0), (True, 512),
+                                           (True, 100)])
 @pytest.mark.parametrize("S,Hq,Hkv,d", FLASH_SHAPES)
 def test_flash_attention_kernel_matches_plain(cuda, S, Hq, Hkv, d, causal,
                                               window, dtype):
-    """The reference's sweep (tests/test_kernels.py) plus gemma3's MQA
-    d=256 shape, kernel against the plain version on the same card inputs,
-    at the reference's tolerances."""
-    rng = np.random.default_rng(S + Hq + d)
+    """Kernel against the plain version on the same card inputs, at the
+    reference's tolerances, over ``FLASH_SHAPES`` and a window (100) that
+    is no multiple of any tile.  Called in the reference's sweep form
+    (``block_q=64, block_k=64``, which S=320 needs)."""
     dt = getattr(torch, dtype)
-    q, k, v = (torch.as_tensor(rng.normal(size=(2, S, h, d)).astype(
-        np.float32), device=cuda).to(dt) for h in (Hq, Hkv, Hkv))
+    q, k, v = _flash_inputs(S, Hq, Hkv, d, dtype, cuda, S + Hq + d)
     before = fa_kernel.launches
-    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                 block_q=64, block_k=64)
     assert fa_kernel.launches == before + 1
     ref = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
                                  use_kernel=False)
@@ -284,6 +303,70 @@ def test_flash_attention_kernel_matches_plain(cuda, S, Hq, Hkv, d, causal,
     assert out.dtype == dt and out.shape == q.shape
     atol = 2e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_graph_replay_matches_eager(cuda, dtype):
+    """The launch captured in a CUDA graph (its tensor maps are kernel
+    arguments built at capture) and replayed on new inputs written into
+    the captured buffers gives the eager call's output."""
+    q, k, v = _flash_inputs(512, 16, 1, 256, dtype, cuda, 3)
+    q2, k2, v2 = _flash_inputs(512, 16, 1, 256, dtype, cuda, 4)
+
+    def call():
+        return fa_ops.flash_attention(q, k, v, causal=True, window=100)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for src in ((q, k, v), (q2, k2, v2)):
+        for dst, x in zip((q, k, v), src):
+            dst.copy_(x)
+        graph.replay()
+        want = fa_ops.flash_attention(*src, causal=True, window=100)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def test_use_kernel_false_launches_nothing(cuda):
+    """Every wrapper that takes ``use_kernel`` routes ``False`` to its
+    plain version on the card: no launch counter moves."""
+    counters = (tkernel, cs_kernel, fa_kernel, rw_kernel, rg_kernel)
+    before = [m.launches for m in counters]
+    w, s, d = _tree(5, cuda)
+    tops.fused_update_tree(w, s, d, eta=2.0, beta=0.9, use_kernel=False)
+    tops.fused_avgm_tree(w, s, d, eta=2.0, beta=0.9, use_kernel=False)
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
+    xs = t(rng.normal(size=(3, 10, 6)).astype(np.float32))
+    ys = t(rng.normal(size=(3, 10)).astype(np.float32))
+    slots = t(np.array([2, 0], np.int32))
+    idx = t(rng.integers(0, 10, size=(2, 8)).astype(np.int32))
+    wv, bias = t(np.zeros(6, np.float32)), t(np.float32(0.0))
+    cs_ops.client_step(xs, ys, slots, idx, wv, bias, 0.1, 4, 2,
+                       use_kernel=False)
+
+    class View:
+        tier_arrays = ({"x": xs, "y": ys},)
+        client_slots = slots.long()
+        device = cuda
+
+    cs_ops.linreg_tier_step(use_kernel=False)(
+        View(), 0, torch.tensor([0, 1]), idx, {"w": wv, "b": bias}, 0.1,
+        None, 4, 2)
+    q, k, v = _flash_inputs(128, 4, 1, 64, "bfloat16", cuda, 0)
+    fa_ops.flash_attention(q, k, v, use_kernel=False)
+    r, kk, vv, lw, u = _rwkv_inputs(1, 64, 2, 64, 64, cuda, "float32", 0)
+    rw_ops.rwkv6(r, kk, vv, lw, u, use_kernel=False)
+    a = t(rng.uniform(0.5, 1.0, size=(1, 32, 16)).astype(np.float32))
+    rg_ops.rglru_scan(a, a, use_kernel=False)
+    torch.cuda.synchronize()
+    assert [m.launches for m in counters] == before
 
 
 def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
@@ -309,27 +392,24 @@ def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
 
 
 # max abs difference of the prefill logits of reduced gemma3-1b (|logit|
-# up to 3.3), kernel path against a plain path with the same (fp32)
-# probabilities: above the largest sound reading (bf16: 4.9e-2, three
-# bf16 ulps of such a logit), below that of one layer's window off by one
-# (0.52)
+# up to 3.3), kernel path against a plain path with fp32 probabilities
+# (the bf16 kernel carries them in two bf16 parts, ~16 bits): above the
+# largest sound reading (bf16: 4.9e-2, three bf16 ulps of such a logit),
+# below that of one layer's window off by one (0.52)
 GENERATE_ATOL = {"float32": 1e-4, "bfloat16": 0.1}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_generate_through_kernel_matches_plain_attention(cuda, dtype,
-                                                         monkeypatch):
-    """prefill and generate on reduced gemma3-1b (window 64, S0=256 so
-    every prefill layer takes the kernel), same weights.  The kernel path
-    is held to a plain path that keeps the probabilities in fp32 as the
-    kernel does: in fp32 ``attention_impl="xla"``; in bf16 the kernel's
-    plain version (``use_kernel=False``), since the xla path rounds the
-    probabilities to bf16 before P.V.  The tolerance must also catch a
-    planted fault: the first (LOCAL) layer's kernel run with window 63."""
+def _reduced_gemma_prefill(cuda, dtype, monkeypatch):
+    """Reduced gemma3-1b (window 64) with keyed weights on the card and B=2
+    prompts of 256 tokens (every prefill layer takes the kernel).  Returns
+    (cfg, params, prompts, prefill, window_off_by_one): ``prefill(cfg,
+    attention)`` gives the prefill logits with ``ops.flash_attention``
+    replaced by ``attention`` and the kernel launches it made;
+    ``window_off_by_one`` is the kernel with the first call's (a LOCAL
+    layer's) window one short, its windows kept in ``.seen``."""
     from repro_torch import random as prng
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
-    from repro_torch.serve import generate
     cfg = get_config("gemma3-1b-reduced").replace(dtype=dtype,
                                                   attention_impl="pallas")
     params, _ = T.init(cfg, prng.PRNGKey(0), device=cuda)
@@ -345,16 +425,36 @@ def test_generate_through_kernel_matches_plain_attention(cuda, dtype,
         monkeypatch.setattr(fa_ops, "flash_attention", kernel_attention)
         return logits.float().cpu(), fa_kernel.launches - before
 
+    def window_off_by_one(q, k, v, *, causal, window):
+        window_off_by_one.seen.append(window)
+        return kernel_attention(q, k, v, causal=causal, window=window - (
+            len(window_off_by_one.seen) == 1))
+
+    window_off_by_one.seen = []
+    return cfg, params, prompts, prefill, window_off_by_one
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_generate_through_kernel_matches_plain_attention(cuda, dtype,
+                                                         monkeypatch):
+    """prefill and generate on reduced gemma3-1b (window 64, S0=256 so
+    every prefill layer takes the kernel), same weights.  The kernel path
+    is held to a plain path with fp32 probabilities: in fp32
+    ``attention_impl="xla"``; in bf16 the kernel's plain version
+    (``use_kernel=False``), since the xla path rounds the probabilities to
+    bf16 before P.V where the bf16 kernel keeps them in two bf16 parts
+    (``test_bf16_prefill_through_kernel_matches_xla`` holds it to the xla
+    path).  The tolerance must also catch a planted fault: the first
+    (LOCAL) layer's kernel run with window 63."""
+    from repro_torch.serve import generate
+    cfg, params, prompts, prefill, window_off_by_one = (
+        _reduced_gemma_prefill(cuda, dtype, monkeypatch))
+    kernel_attention = fa_ops.flash_attention
+
     def plain_probs(q, k, v, *, causal, window):
         return kernel_attention(q, k, v, causal=causal, window=window,
                                 use_kernel=False)
 
-    def window_off_by_one(q, k, v, *, causal, window):
-        seen.append(window)
-        return kernel_attention(q, k, v, causal=causal, window=window - (
-            len(seen) == 1))
-
-    seen = []
     got, launches = prefill(cfg)
     assert launches == cfg.n_layers
     if dtype == "float32":
@@ -363,7 +463,7 @@ def test_generate_through_kernel_matches_plain_attention(cuda, dtype,
         want, plain_launches = prefill(cfg, plain_probs)
     assert plain_launches == 0
     faulty, _ = prefill(cfg, window_off_by_one)
-    assert seen[0] == cfg.window
+    assert window_off_by_one.seen[0] == cfg.window
     sound = float((got - want).abs().max())
     fault = float((faulty - want).abs().max())
     reading = (f"{dtype}: sound {sound:.3e}, planted fault {fault:.3e}, "
@@ -374,6 +474,35 @@ def test_generate_through_kernel_matches_plain_attention(cuda, dtype,
     res = generate(params, cfg, prompts, 4)
     assert np.isfinite(res.logprobs).all()
     assert res.tokens.shape == (2, 260)
+
+
+# max abs difference of the bf16 prefill logits of reduced gemma3-1b
+# (|logit| up to 3.3), kernel path against attention_impl="xla" (which
+# rounds the probabilities to bf16 before P.V, where the kernel keeps two
+# bf16 parts): above the sound reading on the card (5.9e-2, four bf16 ulps
+# of such a logit), below that of one layer's window off by one (0.50)
+XLA_BF16_ATOL = 0.2
+
+
+def test_bf16_prefill_through_kernel_matches_xla(cuda, monkeypatch):
+    """Reduced gemma3-1b bf16 prefill logits through the kernel against
+    ``attention_impl="xla"``, and the planted fault (the first LOCAL
+    layer's window one short) that the tolerance must catch."""
+    cfg, _, _, prefill, window_off_by_one = _reduced_gemma_prefill(
+        cuda, "bfloat16", monkeypatch)
+    got, launches = prefill(cfg)
+    assert launches == cfg.n_layers
+    want, xla_launches = prefill(cfg.replace(attention_impl="xla"))
+    assert xla_launches == 0
+    faulty, _ = prefill(cfg, window_off_by_one)
+    assert window_off_by_one.seen[0] == cfg.window
+    sound = float((got - want).abs().max())
+    fault = float((faulty - want).abs().max())
+    reading = (f"bfloat16 against xla: sound {sound:.3e}, planted fault "
+               f"{fault:.3e}, max |logit| {float(want.abs().max()):.3e}, "
+               f"atol {XLA_BF16_ATOL:.2f}")
+    print(reading)
+    assert sound <= XLA_BF16_ATOL < fault, reading
 
 
 # tests/test_kernels.py test_rwkv6_kernel_sweep, plus rwkv6-7b's heads

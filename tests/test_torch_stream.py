@@ -247,3 +247,88 @@ def test_padded_client_and_shard_match_reference():
     cache = tstream.ShardCache(tds, capacity_clients=3, device="cpu")
     cache.ensure([9, 3])
     assert cache.view().tier_arrays[0]["y"].dtype == torch.int32
+
+
+def _bucketed_cohorts(tier_of, R, rng):
+    """Per tier present, [R, C_i] client ids (each round's members of the
+    tier, right-padded with a member at weight 0) and weights."""
+    tiers = sorted({int(t) for t in tier_of})
+    cids, ws = [], []
+    for tier in tiers:
+        members = [c for c in range(len(tier_of)) if tier_of[c] == tier]
+        C = min(2, len(members))
+        c = np.stack([rng.choice(members, size=C, replace=False)
+                      for _ in range(R)]).astype(np.int32)
+        w = rng.uniform(0.1, 0.4, size=(R, C)).astype(np.float32)
+        if C > 1:
+            c[0, -1] = c[0, 0]
+            w[0, -1] = 0.0                     # a padded slot
+        cids.append(c)
+        ws.append(w)
+    return tuple(tiers), tuple(cids), tuple(ws)
+
+
+@pytest.mark.parametrize("hook", [False, True])
+@pytest.mark.parametrize("staged", [False, True])
+def test_scan_rounds_bucketed_reference_order(staged, hook):
+    """A positional call in the reference's argument order (``data_key``
+    after ``tier_weights``), against the reference's
+    ``scan_rounds_bucketed`` on the same cache: un-staged (each tier draws
+    its own keyed indices from ``data_key``) and with ``tier_idx`` staged
+    by the host replay, in the fused-concat form and through the
+    ``client_step_fn`` hook.  Multi-tier chunks sum the delta tier by tier
+    in another order: rtol 1e-4, atol 1e-6 (``test_torch_round.py``)."""
+    from repro.core import multiround as jmr
+    from repro.core import round as jround
+    from repro.core import server_opt as jso
+    from repro.kernels.client_step import ops as jcs
+    from repro_torch.core import multiround as tmr
+    from repro_torch.core import round as tround
+    from repro_torch.core import server_opt as tso
+    from repro_torch.interop import tree_from_numpy, tree_to_numpy
+    from repro_torch.kernels.client_step import ops as tcs
+
+    def jloss(p, b):
+        return jnp.mean(jnp.square(b["x"] @ p["w"] + p["b"] - b["y"])), {}
+
+    def tloss(p, b):
+        return torch.mean(torch.square(b["x"] @ p["w"] + p["b"]
+                                       - b["y"])), {}
+
+    counts = ZIPF[:12]
+    jc, tc = _caches(counts, capacity_clients=len(counts))
+    for c in (jc, tc):
+        c.ensure(range(len(counts)))
+    rng = np.random.default_rng(6)
+    R, H, b, t0 = 3, 2, 3, 5
+    tiers, cids, ws = _bucketed_cohorts(jc.layout.tier_of, R, rng)
+    assert len(tiers) > 1
+    w0 = {"w": rng.normal(size=3).astype(np.float32),
+          "b": np.float32(0.1)}
+    rc = dict(clients_per_round=8, local_steps=H, lr=0.05,
+              compute_dtype="float32")
+    jopt, topt = jso.fedmom(eta=1.5), tso.fedmom(eta=1.5)
+    js, jm = jmr.scan_rounds_bucketed(
+        jloss, jopt, jopt.init(jax.tree.map(jnp.asarray, w0)), jc.view(),
+        tiers, tuple(map(jnp.asarray, cids)), tuple(map(jnp.asarray, ws)),
+        jax.random.PRNGKey(2), jnp.int32(t0), R, jround.RoundConfig(**rc),
+        b, client_step_fn=(jcs.linreg_tier_step(use_kernel=False) if hook
+                           else None))
+    tier_idx = None
+    if staged:
+        tier_idx = tuple(ttrain._staged_indices(
+            prng.PRNGKey(2), np.repeat(np.arange(t0, t0 + R), c.shape[1]),
+            c.reshape(-1), np.asarray(counts)[c.reshape(-1)], H * b)
+            .reshape(R, c.shape[1], H * b) for c in cids)
+    ts, tm = tmr.scan_rounds_bucketed(
+        tloss, topt, topt.init(tree_from_numpy(w0, "cpu")), tc.view(),
+        tiers, cids, ws, prng.PRNGKey(2), t0, R, tround.RoundConfig(**rc),
+        b, None, None, None, tier_idx,
+        tcs.linreg_tier_step() if hook else None, device="cpu")
+    got = tree_to_numpy(ts.w)
+    for k in w0:
+        np.testing.assert_allclose(got[k], np.asarray(js.w[k]), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    assert ts.t == int(js.t) == R
+    np.testing.assert_allclose(tm["loss"].numpy(), np.asarray(jm["loss"]),
+                               rtol=1e-4, atol=1e-6)
