@@ -71,9 +71,14 @@ Phases, each printed as it runs; any failure exits non-zero:
  12. ``rwkv6_scan`` against its plain version on the card (fp32 atol 2e-3,
      bf16 atol 5e-2, rtol 1e-2, the reference's tolerances) at the
      reference's sweep shapes, at extreme decay (log w = -50 and the
-     clip's floor -exp(8)) and at the loss path's shape (B=8, S=1024, 64
-     heads of 64) in fp32 and bf16; device times (CUDA graphs + events) of
-     the kernel and the plain version at the path's shape beside the bound;
+     clip's floor -exp(8); atol 1e-3, in bf16 with rtol 1e-2) and at the
+     loss path's shape (B=8, S=1024, 64 heads of 64), in fp32 and bf16,
+     and in bf16 at the path's shape with the model's own slow decays
+     (w0 at init: S sums hundreds of tokens); every bf16 case also through
+     the CUDA-core design (the yardstick); device times (CUDA graphs +
+     events) of the kernel and the plain version at the path's shape
+     beside the bound, and the two bf16 designs (CUDA cores, tensor cores)
+     timed in turns, each with its GB/s and share of the bound;
  13. RWKV6 path: rwkv6-7b at full width (keyed random weights, 32 stacked
      layers, bf16): ``loss_fn`` of B=8 x 1024 tokens with
      ``rwkv_impl="pallas"`` (32 kernel launches over exactly one call) and
@@ -1001,25 +1006,37 @@ def rwkv6_bound_ms(B, S, H, Dk, Dv, itemsize):
 
 def rwkv6_inputs(B, S, H, Dk, Dv, dtype, rng, lw=None):
     """r, k, v (normal, in ``dtype``), log_w = -exp(normal) (or the constant
-    ``lw``) and u = 0.1 normal, both fp32: the reference's test draws."""
+    ``lw``, or with ``lw="model"`` -exp(w0) with w0 as the model initialises
+    it, linspace(-6, -0.3) over the H * Dk channels, the same in every
+    token) and u = 0.1 normal, both fp32: the reference's test draws."""
     import numpy as np
     import torch
     dev = torch.device("cuda")
     dt = getattr(torch, dtype)
 
     def t(a):
-        return torch.as_tensor(a.astype(np.float32), device=dev)
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                               device=dev)
     r, k = (t(rng.normal(size=(B, S, H, Dk))).to(dt) for _ in range(2))
     v = t(rng.normal(size=(B, S, H, Dv))).to(dt)
-    log_w = t(-np.exp(rng.normal(size=(B, S, H, Dk))) if lw is None
-              else np.full((B, S, H, Dk), lw))
-    return r, k, v, log_w, t(0.1 * rng.normal(size=(H, Dk)))
+    if lw is None:
+        log_w = -np.exp(rng.normal(size=(B, S, H, Dk)))
+    elif lw == "model":
+        log_w = np.broadcast_to(-np.exp(np.linspace(-6.0, -0.3, H * Dk)
+                                        ).reshape(H, Dk), (B, S, H, Dk))
+    else:
+        log_w = np.full((B, S, H, Dk), lw)
+    return r, k, v, t(log_w), t(0.1 * rng.normal(size=(H, Dk)))
 
 
-def rwkv6_phase(rw_ops):
+def rwkv6_phase(rw_ops, rw_kernel, card):
     """Phase 12: the kernel against its plain version at the reference's
-    sweep, at extreme decay and at the loss path's shape; device times at
-    the path's shape.  Returns (max abs err, timings)."""
+    sweep, at extreme decay and at the loss path's shape, with the
+    reference's draws of log w and with the model's own slow decays; in
+    bf16 the CUDA-core design (the yardstick) too.  At the path's shape
+    the two bf16 designs are timed in turns (CUDA cores, tensor cores,
+    tensor cores, CUDA cores), each with its achieved GB/s and share of
+    the bound.  Returns (max abs err of the path's kernel, timings)."""
     import numpy as np
     import torch
     dev = torch.device("cuda")
@@ -1030,32 +1047,57 @@ def rwkv6_phase(rw_ops):
                                     (256, 2, 64, 128, 64)):
             cases.append((2, S, H, Dk, Dv, chunk, dtype, None))
         cases.append((R_B, R_S, 64, 64, 64, 32, dtype, None))
-    for lw in (-50.0, -math.exp(8.0)):
-        cases.append((1, 64, 1, 32, 32, 32, "float32", lw))
+        for lw in (-50.0, -math.exp(8.0)):
+            cases.append((1, 64, 1, 32, 32, 32, dtype, lw))
+    cases.append((R_B, R_S, 64, 64, 64, 32, "bfloat16", "model"))
     rng = np.random.default_rng(0)
     max_err = 0.0
     timing = None
     for B, S, H, Dk, Dv, chunk, dtype, lw in cases:
         r, k, v, log_w, u = rwkv6_inputs(B, S, H, Dk, Dv, dtype, rng, lw)
-        if lw is not None:
+        extreme = isinstance(lw, float)
+        if extreme:
             u = torch.zeros_like(u)
         out = rw_ops.rwkv6(r, k, v, log_w, u, chunk=chunk)
         ref = rw_ops.rwkv6(r, k, v, log_w, u, chunk=chunk, use_kernel=False)
         sync(dev)
         err = float((out.float() - ref.float()).abs().max())
-        atol, rtol = (1e-3, 0.0) if lw is not None else (RW_ATOL[dtype],
-                                                          RW_RTOL)
-        tag = (f"B={B} S={S} H={H} Dk={Dk} Dv={Dv} chunk={chunk} {dtype}"
-               + (f" log_w={lw:.6g}" if lw is not None else ""))
-        if not (bool(torch.isfinite(out).all()) and torch.allclose(
-                out.float(), ref.float(), atol=atol, rtol=rtol)):
-            raise AssertionError(f"rwkv6_scan {tag}: kernel differs from the "
-                                 f"plain version by {err:.3e} (atol {atol}, "
-                                 f"rtol {rtol})")
+        # extreme decay: the reference's atol 1e-3; in bf16 with the bf16
+        # rtol beside it, as both sides round o to bf16
+        atol = 1e-3 if extreme else RW_ATOL[dtype]
+        rtol = (0.0 if dtype == "float32" else RW_RTOL) if extreme else RW_RTOL
+        tag = f"B={B} S={S} H={H} Dk={Dk} Dv={Dv} chunk={chunk} {dtype}"
+        if lw is not None:
+            tag += f" log_w={lw if lw == 'model' else format(lw, '.6g')}"
+
+        def held(x, name):
+            if not (bool(torch.isfinite(x).all()) and torch.allclose(
+                    x.float(), ref.float(), atol=atol, rtol=rtol)):
+                diff = float((x.float() - ref.float()).abs().max())
+                raise AssertionError(
+                    f"rwkv6_scan {tag} ({name}): differs from the plain "
+                    f"version by {diff:.3e} (atol {atol}, rtol {rtol})")
+        held(out, "path")
         max_err = max(max_err, err)
         line = (f"rwkv6_scan {tag}: max abs err {err:.3e} (largest |o| "
-                f"{float(ref.float().abs().max()):.3e})")
-        if S == R_S and dtype == "bfloat16":
+                f"{float(ref.float().abs().max()):.3e}; atol {atol}, rtol "
+                f"{rtol})")
+        if dtype == "bfloat16":
+            other = rw_kernel.rwkv6_design(r, k, v, log_w, u, chunk=chunk,
+                                           design="cuda_cores")
+            held(other, "cuda_cores")
+            line += (f"; cuda_cores design "
+                     f"{float((other.float() - ref.float()).abs().max()):.3e}")
+            del other
+        if S == R_S and dtype == "bfloat16" and lw is None:
+            def design(name):
+                return lambda: rw_kernel.rwkv6_design(
+                    r, k, v, log_w, u, chunk=chunk, design=name)
+            turns = {"cuda_cores": [], "tensor_cores": []}
+            for name in ("cuda_cores", "tensor_cores", "tensor_cores",
+                         "cuda_cores"):
+                turns[name].append(graph_ms(design(name), iters=10,
+                                            replays=10))
             ms = graph_ms(lambda: rw_ops.rwkv6(r, k, v, log_w, u,
                                                chunk=chunk),
                           iters=10, replays=10)
@@ -1065,11 +1107,20 @@ def rwkv6_phase(rw_ops):
             bytes_ms, ops_ms = rwkv6_bound_ms(B, S, H, Dk, Dv, 2)
             bound_ms = max(bytes_ms, ops_ms)
             bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-            timing = (ms, plain_ms, bound_ms, bound_by, bytes_ms, ops_ms)
-            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                     f"(device), bound {bound_ms:.4f} ms ({bound_by}; bytes "
-                     f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms); "
-                     f"library: none computes this recurrence")
+            nbytes = bytes_ms * 1e-3 * HBM_BYTES_PER_S
+            timing = (ms, plain_ms, bound_ms, bound_by, bytes_ms, ops_ms,
+                      {n: statistics.median(t) for n, t in turns.items()})
+            def rate(t_ms):
+                return (f"{nbytes / (t_ms * 1e-3) / 1e9:.1f} GB/s, "
+                        f"{100 * bound_ms / t_ms:.1f}% of the bound")
+            line += (f"; kernel {ms:.4f} ms ({rate(ms)}), plain "
+                     f"{plain_ms:.4f} ms (device), bound {bound_ms:.4f} ms "
+                     f"({bound_by}; bytes {bytes_ms:.4f} ms, operations "
+                     f"{ops_ms:.4f} ms); library: none computes this "
+                     f"recurrence; in turns: " + ", ".join(
+                         f"{name} " + " / ".join(f"{t:.4f}" for t in ts)
+                         + f" ms ({rate(statistics.median(ts))})"
+                         for name, ts in turns.items()) + f" [{card}]")
         print(line)
         del r, k, v, log_w, u, out, ref
     torch.cuda.empty_cache()
@@ -1783,7 +1834,7 @@ def main() -> int:
 
     # ------------------------------------------------------------------
     phase("12. kernel against plain (rwkv6_scan)")
-    rw_err, rw_timing = rwkv6_phase(rw_ops)
+    rw_err, rw_timing = rwkv6_phase(rw_ops, rw_kernel, card)
 
     # ------------------------------------------------------------------
     phase(f"13. RWKV6 path: {R_ARCH} at full width on cuda")
@@ -1839,7 +1890,9 @@ def main() -> int:
         "serving": serving,
         "rwkv6_7b": rwkv,
         "recurrentgemma_9b": rglru,
-        "rwkv6_scan_bound": dict(zip(("bytes_ms", "ops_ms"), rw_timing[4:])),
+        "rwkv6_scan_bound": dict(zip(("bytes_ms", "ops_ms"),
+                                     rw_timing[4:6])),
+        "rwkv6_scan_designs_ms": rw_timing[6],
         "flash_attention_by_window": {
             str(w): dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "bytes_ms", "ops_ms"), t))

@@ -26,9 +26,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
               "-Xcompiler", "-fPIC")
-# per kernel: flash_attention looks up the driver's tensor-map encoder
-# with dlopen/dlsym
-LINK_FLAGS = {"flash_attention": ("-ldl",)}
+# per kernel: flash_attention and rwkv6_scan look up the driver's
+# tensor-map encoder with dlopen/dlsym
+LINK_FLAGS = {"flash_attention": ("-ldl",), "rwkv6_scan": ("-ldl",)}
 
 
 def nvcc_path() -> str:

@@ -8,7 +8,7 @@ kernel: K/V repeated to every query head and (B, H) folded.  There is no
 fallback: a CUDA input the kernel cannot take raises.
 
 Forward only, as the reference's kernel: inputs that require grad raise
-until the kernel has a backward (ROADMAP Queue 1 #6e).
+until the kernel has a backward (ROADMAP Queue 1, training the zoo).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(x.requires_grad for x in (q, k, v)):
         raise NotImplementedError(
             "flash_attention is forward only: it has no backward yet "
-            "(ROADMAP Queue 1 #6e, the autograd.Function)")
+            "(ROADMAP Queue 1, training the zoo: the autograd.Function)")
     B, S, Hq, d = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     if use_kernel:

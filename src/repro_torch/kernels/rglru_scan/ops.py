@@ -12,8 +12,9 @@ the plain version (``ref.py``).  There is no fallback: a CUDA input the
 kernel cannot take raises.
 
 Forward only, as the reference's kernel: inputs that require grad raise
-until the zoo trains (ROADMAP Queue 1 #13g).  No model calls this wrapper,
-as in the reference: the RG-LRU block runs ``layers.rglru_scan``.
+until the zoo trains (ROADMAP Queue 1, training the zoo).  No model calls
+this wrapper, as in the reference: the RG-LRU block runs
+``layers.rglru_scan``.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, *,
     if a.requires_grad or b.requires_grad:
         raise NotImplementedError(
             "rglru_scan is forward only: it has no backward yet (ROADMAP "
-            "Queue 1 #13g, training the zoo)")
+            "Queue 1, training the zoo)")
     a, b = a.to(torch.float32), b.to(torch.float32)
     if use_kernel:
         fit_chunk(a.shape[1], chunk)

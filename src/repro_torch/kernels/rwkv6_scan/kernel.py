@@ -5,11 +5,16 @@ Hopper port of the JAX package's Pallas kernel
 (``repro/kernels/rwkv6_scan/kernel.py:81`` ``rwkv6_bhsd``).  It takes the
 model's layout, r/k/log_w [B, S, H, Dk], v [B, S, H, Dv] and u [H, Dk],
 where the TPU path folds (B, H) and broadcasts u first; one block per
-(batch, head) carries the fp32 state across the chunks itself (see the
-note in the ``.cu`` file for the bound and the design).
+(batch, head) carries the fp32 state across the chunks itself.  bf16 runs
+on the tensor cores (sub-chunks of 16 carried through the state, decays as
+running products, operands in bf16 hi + lo parts, TMA loads); fp32
+on the CUDA cores (see the note in the ``.cu`` file for the bound and the
+design).
 
 ``launches`` counts kernel launches (one per call: one per RWKV layer of
-a forward with ``rwkv_impl="pallas"``).
+a forward with ``rwkv_impl="pallas"``).  ``rwkv6_design`` runs one of the
+designs on the same contract, as a yardstick to time and check the path's
+kernel against: on no path, and not counted.
 """
 from __future__ import annotations
 
@@ -24,13 +29,16 @@ launches = 0
 HEAD_DIMS = (32, 64, 128)
 CHUNKS = (16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the C entry's design codes, and the one the path runs for each dtype
+DESIGNS = {"cuda_cores": 0, "tensor_cores": 1}
+_PATH_DESIGN = {torch.float32: "cuda_cores", torch.bfloat16: "tensor_cores"}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("rwkv6_scan")
     lib.rwkv6_scan_launch.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 7 + [ctypes.c_void_p]
+        ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int]
     lib.rwkv6_scan_launch.restype = ctypes.c_int
     return lib
 
@@ -59,6 +67,32 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v's dtype.  Raises on anything the kernel does not take: Dk or Dv not
     in (32, 64, 128), chunk not in (16, 32, 64) or not dividing S."""
     global launches
+    out = _launch(r, k, v, log_w, u, chunk, _PATH_DESIGN.get(r.dtype))
+    launches += 1
+    return out
+
+
+def rwkv6_design(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_w: torch.Tensor, u: torch.Tensor, *, chunk: int,
+                 design: str) -> torch.Tensor:
+    """One launch of ``design`` (a key of ``DESIGNS``; ``tensor_cores``
+    takes bf16 only) on the same contract, not counted in ``launches``."""
+    if design not in DESIGNS:
+        raise ValueError(f"rwkv6_scan: design {design!r}, want one of "
+                         f"{sorted(DESIGNS)}")
+    if design != "cuda_cores" and r.dtype != torch.bfloat16:
+        raise ValueError(f"rwkv6_scan: design {design!r} takes bfloat16, "
+                         f"got {r.dtype}")
+    return _launch(r, k, v, log_w, u, chunk, design)
+
+
+def _aligned(x):
+    """``x``, or a fresh copy of it when its data is not 16-byte aligned
+    (the tensor-core kernel's TMA maps take 16-byte aligned tensors)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _launch(r, k, v, log_w, u, chunk, design):
     if r.dim() != 4 or v.dim() != 4:
         raise ValueError(f"rwkv6_scan: want r [B,S,H,Dk] and v [B,S,H,Dv], "
                          f"got {tuple(r.shape)}, {tuple(v.shape)}")
@@ -81,6 +115,8 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check("v", v, r, (B, S, H, Dv), r.dtype)
     _check("log_w", log_w, r, (B, S, H, Dk), torch.float32)
     _check("u", u, r, (H, Dk), torch.float32)
+    if design == "tensor_cores":
+        r, k, v, log_w = (_aligned(x) for x in (r, k, v, log_w))
     lib = _lib()
     out = torch.empty_like(v)
     with torch.cuda.device(r.device):
@@ -88,8 +124,7 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.rwkv6_scan_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
             u.data_ptr(), out.data_ptr(), _DTYPES[r.dtype], B, S, H, Dk, Dv,
-            chunk, stream)
+            chunk, stream, DESIGNS[design])
     if err != 0:
         raise RuntimeError(f"rwkv6_scan launch failed: cudaError {err}")
-    launches += 1
     return out

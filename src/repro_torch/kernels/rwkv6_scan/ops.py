@@ -10,7 +10,7 @@ kernel cannot take raises, and with ``use_kernel=True`` a chunk that does
 not divide S raises on any device, where the reference's kernel asserts.
 
 Forward only, as the reference's kernel: inputs that require grad raise
-until the zoo trains (ROADMAP Queue 1 #13g).
+until the zoo trains (ROADMAP Queue 1, training the zoo).
 """
 from __future__ import annotations
 
@@ -30,8 +30,8 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     -> o [B,S,H,Dv] in v's dtype."""
     if any(x.requires_grad for x in (r, k, v, log_w, u)):
         raise NotImplementedError(
-            "rwkv6 is forward only: it has no backward yet (ROADMAP Queue 1 "
-            "#13g, training the zoo)")
+            "rwkv6 is forward only: it has no backward yet (ROADMAP Queue 1, "
+            "training the zoo)")
     B, S, H, Dk = r.shape
     Dv = v.shape[-1]
     if use_kernel:

@@ -15,8 +15,8 @@ cache.
 
 Cross-attention, MoE and learned positions raise ``NotImplementedError``
 naming the ROADMAP item that brings them; nothing falls back.  Abstract
-mode (``KeyGen(None)``) belongs with the dry-run tools (ROADMAP Queue 1
-#14).
+mode (``KeyGen(None)``) belongs with the dry-run tools (ROADMAP Queue 1,
+tooling and benchmarks).
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ class KeyGen:
         if key is None:
             raise NotImplementedError(
                 "abstract mode (KeyGen(None)) belongs with the dry-run tools "
-                "(ROADMAP Queue 1 #14)")
+                "(ROADMAP Queue 1, tooling and benchmarks)")
         self._key = key
 
     @property
@@ -117,7 +117,8 @@ def split_pt(pairs: dict):
 def init_mlp(kg: KeyGen, cfg: ModelConfig, dtype):
     if cfg.moe:
         raise NotImplementedError(
-            "MoE MLPs come with the MoE slice (ROADMAP Queue 1 #13b)")
+            "MoE MLPs come with the MoE slice (ROADMAP Queue 1, the rest of "
+            "the zoo: MoE)")
     D, F = cfg.d_model, cfg.d_ff
     pairs = {
         "wi_up": _dense(kg, (D, F), ("embed", "mlp"), dtype),
@@ -131,7 +132,8 @@ def init_mlp(kg: KeyGen, cfg: ModelConfig, dtype):
 def apply_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor):
     if cfg.moe:
         raise NotImplementedError(
-            "MoE MLPs come with the MoE slice (ROADMAP Queue 1 #13b)")
+            "MoE MLPs come with the MoE slice (ROADMAP Queue 1, the rest of "
+            "the zoo: MoE)")
     return L.mlp_apply(p, x, cfg.act), 0.0
 
 
@@ -232,7 +234,7 @@ def init_block(kg: KeyGen, cfg: ModelConfig, kind: str, dtype, *,
     if cross:
         raise NotImplementedError(
             "cross-attention (encoder-decoder) comes with the enc-dec slice "
-            "(ROADMAP Queue 1 #13e)")
+            "(ROADMAP Queue 1, the rest of the zoo: encoder-decoder)")
     if kind == RWKV:
         return init_rwkv_block(kg, cfg, dtype)
     if kind == RGLRU:
@@ -486,7 +488,7 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     if cross_len:
         raise NotImplementedError(
             "cross-attention caches come with the enc-dec slice "
-            "(ROADMAP Queue 1 #13e)")
+            "(ROADMAP Queue 1, the rest of the zoo: encoder-decoder)")
     Hkv, Dh = cfg.n_kv_heads, cfg.d_head
     kv_axes = ("batch", "seq", "kv_heads", "head_dim")
     if kind == ATTN:

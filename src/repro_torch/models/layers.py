@@ -10,7 +10,7 @@ the RWKV6 recurrence (``rwkv6_chunked`` for forward and prefill, the plain
 path that ``rwkv_impl="xla"`` selects; ``rwkv6_step`` for decode).  The
 reference's ``shard`` layout hints are identities on one card and are left
 out.  ``mrope_tables`` and ``moe_apply`` come with their slices (ROADMAP
-Queue 1 #13b, #13f).
+Queue 1, the rest of the zoo: MoE and VLM).
 """
 from __future__ import annotations
 

@@ -30,7 +30,7 @@ kernel into no model) and RWKV6 (RWKV blocks, no positions;
 encoder-decoder, learned positions and the VLM frontend raise
 ``NotImplementedError`` naming their ROADMAP items.  Abstract mode,
 ``abstract_params`` and ``logical_axes`` come with the dry-run tools
-(ROADMAP Queue 1 #14).
+(ROADMAP Queue 1, tooling and benchmarks).
 """
 from __future__ import annotations
 
@@ -60,15 +60,16 @@ def _check_supported(cfg: ModelConfig):
     if cfg.enc_dec:
         raise NotImplementedError(
             "encoder-decoder models come with the enc-dec slice (ROADMAP "
-            "Queue 1 #13e)")
+            "Queue 1, the rest of the zoo: encoder-decoder)")
     if cfg.pos == "learned":
         raise NotImplementedError(
-            "learned positions come with the enc-dec slice (ROADMAP Queue 1 "
-            "#13e)")
+            "learned positions come with the enc-dec slice (ROADMAP Queue 1, "
+            "the rest of the zoo: encoder-decoder)")
     if cfg.d_frontend:
         raise NotImplementedError(
             "the stubbed VLM / audio frontends come with their slices "
-            "(ROADMAP Queue 1 #13e, #13f)")
+            "(ROADMAP Queue 1, the rest of the zoo: encoder-decoder and "
+            "VLM)")
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +134,8 @@ def _make_rope(cfg: ModelConfig, positions: torch.Tensor,
         return None
     if cfg.mrope and mrope_positions is not None:
         raise NotImplementedError(
-            "M-RoPE positions come with the VLM slice (ROADMAP Queue 1 #13f)")
+            "M-RoPE positions come with the VLM slice (ROADMAP Queue 1, the "
+            "rest of the zoo: VLM)")
     return L.rope_tables(positions, cfg.d_head, cfg.rope_theta)
 
 
@@ -180,7 +182,8 @@ def _apply_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict,
 def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     if "patches" in batch:
         raise NotImplementedError(
-            "VLM patch inputs come with the VLM slice (ROADMAP Queue 1 #13f)")
+            "VLM patch inputs come with the VLM slice (ROADMAP Queue 1, the "
+            "rest of the zoo: VLM)")
     # gather, then cast: bit-equal to the reference's cast-then-gather, and
     # it does not copy the whole fp32 table on every call
     return params["embed"][batch["tokens"].long()].to(_dtype(cfg))

@@ -22,7 +22,9 @@ layer exceeds; ``use_kernel=False`` on every wrapper launching nothing;
 the CUDA
 ``rwkv6_scan`` equal to its plain version at the reference's tolerances
 (fp32 atol 2e-3, bf16 atol 5e-2, rtol 1e-2) over the reference's sweep, at
-rwkv6-7b's head shape and at extreme decay; the forward of reduced
+rwkv6-7b's head shape, at the model's slow decays over 1024 tokens and at
+extreme decay (atol 1e-3, both dtypes), and a CUDA-graph replay of it equal
+to the eager call; the forward of reduced
 rwkv6-7b through the kernel equal to the plain ``rwkv6_chunked`` path
 (fp32 atol 5e-4 / rtol 1e-4, the reference's; bf16 atol 0.1), a tolerance
 that one layer's kernel run without its bonus ``u`` exceeds; the CUDA
@@ -506,32 +508,49 @@ def test_bf16_prefill_through_kernel_matches_xla(cuda, monkeypatch):
 
 
 # tests/test_kernels.py test_rwkv6_kernel_sweep, plus rwkv6-7b's heads
-# (64 of 64) at two chunks of its 32
-RWKV_SHAPES = [(64, 2, 64, 64, 32), (128, 4, 64, 64, 32), (96, 1, 32, 32, 32),
-               (256, 2, 64, 128, 64), (64, 64, 64, 64, 32),
-               (128, 2, 128, 128, 16)]
+# (64 of 64) at two chunks of its 32, each with the reference's draws of
+# log w (-exp(normal)); and rwkv6-7b's heads over 1024 tokens with the
+# model's own slow decays (w0 at init, models/blocks.py: up to w = 0.9975,
+# so S sums hundreds of tokens), where rounding S or A to bf16 would show
+RWKV_SHAPES = [(64, 2, 64, 64, 32, "normal"), (128, 4, 64, 64, 32, "normal"),
+               (96, 1, 32, 32, 32, "normal"), (256, 2, 64, 128, 64, "normal"),
+               (64, 64, 64, 64, 32, "normal"),
+               (128, 2, 128, 128, 16, "normal"),
+               (1024, 4, 64, 64, 32, "model")]
 
 
 def _rwkv_inputs(B, S, H, Dk, Dv, device, dtype, seed, lw=None):
+    """r, k, v normal in ``dtype``; log_w -exp(normal), or -exp(w0) with
+    w0 as the model initialises it, linspace(-6, -0.3) over the H * Dk
+    channels (``lw="model"``), or the constant ``lw``; u = 0.1 normal;
+    log_w and u fp32."""
     rng = np.random.default_rng(seed)
     dt = getattr(torch, dtype)
     r, k = (torch.as_tensor(rng.normal(size=(B, S, H, Dk)).astype(
         np.float32), device=device).to(dt) for _ in range(2))
     v = torch.as_tensor(rng.normal(size=(B, S, H, Dv)).astype(np.float32),
                         device=device).to(dt)
-    log_w = (-np.exp(rng.normal(size=(B, S, H, Dk))) if lw is None
-             else np.full((B, S, H, Dk), lw))
+    if lw is None:
+        log_w = -np.exp(rng.normal(size=(B, S, H, Dk)))
+    elif lw == "model":
+        w0 = np.linspace(-6.0, -0.3, H * Dk).reshape(H, Dk)
+        log_w = np.ascontiguousarray(np.broadcast_to(-np.exp(w0),
+                                                     (B, S, H, Dk)))
+    else:
+        log_w = np.full((B, S, H, Dk), lw)
     u = 0.1 * rng.normal(size=(H, Dk))
     return (r, k, v, torch.as_tensor(log_w.astype(np.float32), device=device),
             torch.as_tensor(u.astype(np.float32), device=device))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S,H,Dk,Dv,chunk", RWKV_SHAPES)
-def test_rwkv6_kernel_matches_plain(cuda, S, H, Dk, Dv, chunk, dtype):
+@pytest.mark.parametrize("S,H,Dk,Dv,chunk,decay", RWKV_SHAPES)
+def test_rwkv6_kernel_matches_plain(cuda, S, H, Dk, Dv, chunk, decay, dtype):
     """Kernel against the plain (sequential) version on the same card
-    inputs, at the reference's tolerances."""
-    r, k, v, lw, u = _rwkv_inputs(2, S, H, Dk, Dv, cuda, dtype, S * H)
+    inputs, at the reference's tolerances; in bf16 the CUDA-core design
+    (the yardstick) too."""
+    r, k, v, lw, u = _rwkv_inputs(2, S, H, Dk, Dv, cuda, dtype, S * H,
+                                  None if decay == "normal" else decay)
     before = rw_kernel.launches
     out = rw_ops.rwkv6(r, k, v, lw, u, chunk=chunk)
     assert rw_kernel.launches == before + 1
@@ -541,21 +560,60 @@ def test_rwkv6_kernel_matches_plain(cuda, S, H, Dk, Dv, chunk, dtype):
     atol = 2e-3 if dtype == "float32" else 5e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=atol,
                                rtol=1e-2)
+    if dtype == "bfloat16":
+        other = rw_kernel.rwkv6_design(r, k, v, lw, u, chunk=chunk,
+                                       design="cuda_cores")
+        assert rw_kernel.launches == before + 1
+        torch.testing.assert_close(other.float(), ref.float(), atol=atol,
+                                   rtol=1e-2)
 
 
-def test_rwkv6_kernel_extreme_decay(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_kernel_extreme_decay(cuda, dtype):
     """``test_rwkv6_extreme_decay_no_overflow`` on the kernel: log w = -50
     stays finite and agrees (atol 1e-3); so does the clip's floor, log w =
-    -exp(8), in every token."""
+    -exp(8), in every token; in bf16 (the tensor-core kernel, which forms
+    its decays as products) and fp32.  bf16 keeps the reference's bf16
+    rtol 1e-2 beside atol 1e-3: both sides round o to bf16, whose step at
+    |o| ~ 4 is 3e-2, and a last-bit difference of the fp32 sums may round
+    the two either way."""
     for lw in (-50.0, -2980.96):
-        r, k, v, log_w, u = _rwkv_inputs(1, 64, 1, 32, 32, cuda, "float32",
-                                         9, lw=lw)
+        r, k, v, log_w, u = _rwkv_inputs(1, 64, 1, 32, 32, cuda, dtype, 9,
+                                         lw=lw)
         u = torch.zeros_like(u)
         out = rw_ops.rwkv6(r, k, v, log_w, u)
         ref = rw_ops.rwkv6(r, k, v, log_w, u, use_kernel=False)
         torch.cuda.synchronize()
         assert bool(torch.isfinite(out).all()), lw
-        torch.testing.assert_close(out, ref, atol=1e-3, rtol=0)
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-3,
+                                   rtol=0.0 if dtype == "float32" else 1e-2)
+
+
+def test_rwkv6_graph_replay_matches_eager(cuda):
+    """The bf16 launch captured in a CUDA graph and replayed on new inputs
+    written into the captured buffers gives the eager call's output."""
+    first = _rwkv_inputs(2, 256, 4, 64, 64, cuda, "bfloat16", 3)
+    second = _rwkv_inputs(2, 256, 4, 64, 64, cuda, "bfloat16", 4)
+    bufs = [x.clone() for x in first]
+
+    def call():
+        return rw_ops.rwkv6(*bufs)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for src in (first, second):
+        for dst, x in zip(bufs, src):
+            dst.copy_(x)
+        graph.replay()
+        want = rw_ops.rwkv6(*src)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
 
 
 def test_rwkv6_kernel_refuses_what_it_cannot_take(cuda):
@@ -575,7 +633,7 @@ def test_rwkv6_kernel_refuses_what_it_cannot_take(cuda):
                         v, lw, u, chunk=32)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         rw_kernel.rwkv6(r, k, v, lw, u.cpu(), chunk=32)
-    with pytest.raises(NotImplementedError, match="#13g"):
+    with pytest.raises(NotImplementedError, match="training the zoo"):
         rw_ops.rwkv6(r.requires_grad_(), k, v, lw, u)
 
 
@@ -697,7 +755,7 @@ def test_rglru_kernel_refuses_what_it_cannot_take(cuda):
         rg_kernel.rglru(a, b.cpu())
     with pytest.raises(ValueError, match="has shape"):
         rg_kernel.rglru(a, b[:, :32].contiguous())
-    with pytest.raises(NotImplementedError, match="#13g"):
+    with pytest.raises(NotImplementedError, match="training the zoo"):
         rg_ops.rglru_scan(a.requires_grad_(), b)
 
 

@@ -110,9 +110,9 @@ def test_use_kernel_false_and_input_types():
 
 def test_wrapper_and_kernel_refuse_what_they_cannot_take():
     a, b = map(torch.as_tensor, _inputs(1, 32, 64, 0))
-    with pytest.raises(NotImplementedError, match="#13g"):
+    with pytest.raises(NotImplementedError, match="training the zoo"):
         tops.rglru_scan(a.clone().requires_grad_(), b)
-    with pytest.raises(NotImplementedError, match="#13g"):
+    with pytest.raises(NotImplementedError, match="training the zoo"):
         tops.rglru_scan(a, b.clone().requires_grad_(), use_kernel=False)
     with pytest.raises(ValueError, match="chunk 0"):
         tops.rglru_scan(a, b, chunk=0)

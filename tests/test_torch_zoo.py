@@ -329,8 +329,9 @@ def test_param_and_cache_trees_carry_both_ways():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("granite-moe-1b-a400m", "#13b"), ("whisper-medium", "#13e"),
-    ("qwen2-vl-72b", "#13f")])
+    ("granite-moe-1b-a400m", "the rest of the zoo: MoE"),
+    ("whisper-medium", "the rest of the zoo: encoder-decoder"),
+    ("qwen2-vl-72b", "encoder-decoder and VLM")])
 def test_families_of_later_slices_raise(arch, item):
     cfg = tget(arch).reduced()
     with pytest.raises(NotImplementedError, match=item):
