@@ -28,7 +28,13 @@ Phases, each printed as it runs; any failure exits non-zero:
      (CUDA graphs + events) beside the memory bound;
   4. ``client_step`` against its plain version on the card (atol/rtol
      1e-5) at every tier shape of the streaming lanes, with and without
-     H_k masks, plus a ragged shape; device times beside the bound;
+     H_k masks, plus a ragged shape and a wide shape (C=512, H=4, b=16,
+     D=1024; on no path, bytes-bound, the ring holding fewer steps than
+     H); device times beside the bound and its share, the path's (staged)
+     design timed in turns with the first design (v1) at each tier's C=8
+     and at the wide shape, the staging plan's ring depth K; the launch
+     floor (a graph-replayed one-element ``add_``) in turns with
+     ``fedmom_update`` at the per-round path's size;
   5. per-round path: FedAvg then FedMom (fused kernel) on ``cuda``; losses
      finite and falling, kernel launches counted over exactly this phase;
   6. per-round card against CPU: the same FedMom rounds on ``cpu`` and
@@ -151,6 +157,13 @@ Z_PROFILE_CHUNKS = 2
 Z_CMP_ROUNDS = 16                  # streaming card-against-CPU rounds
 CS_ATOL = CS_RTOL = 1e-5           # client_step kernel vs plain: gradient
                                    # sums in another order (fp32)
+# client_step's wide shape, timed on no path: bytes, not latency, bound it,
+# and the staged design's ring holds fewer steps than H
+CS_WIDE_C, CS_WIDE_H, CS_WIDE_B = 512, 4, 16
+CS_WIDE_D, CS_WIDE_S, CS_WIDE_N = 1024, 512, 256
+CS_WIDE_LR = 1e-3                  # lr 0.05 on 1,024 unit-normal features
+                                   # diverges (w ~100x in four steps), where
+                                   # fp32 itself is off by more than CS_ATOL
 LANE_ATOL = LANE_RTOL = 1e-4       # final params, lane vs lane and card vs
                                    # CPU after Z_ROUNDS / Z_CMP_ROUNDS: the
                                    # tiers sum the delta in another order,
@@ -236,6 +249,32 @@ def graph_ms(fn, iters=100, replays=20):
     graph.replay()
     torch.cuda.synchronize()
     return _median_ms(graph.replay, replays, iters)
+
+
+def sm_clock_under(fn, seconds=1.5, iters=100):
+    """Median SM clock (MHz, as ``nvidia-smi`` samples it every 100 ms)
+    while CUDA-graph replays of ``iters`` calls of ``fn`` keep the card
+    busy for ``seconds``; and the number of samples."""
+    import torch
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                graph.replay()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    mhz = [int(v) for v in out.split() if v.strip().isdigit()]
+    return (statistics.median(mhz) if mhz else float("nan")), len(mhz)
 
 
 def profile_device(fn):
@@ -346,13 +385,14 @@ def client_step_bound_ms(C, H, B, D, masked):
     return (read + write) / HBM_BYTES_PER_S * 1e3
 
 
-def check_client_step(cs_kernel, cs_ref, xs, ys, slots, idx, w, b, mask):
+def check_client_step(cs_kernel, cs_ref, xs, ys, slots, idx, w, b, mask,
+                      lr=Z_LR, H=Z_H, B=Z_B):
     """Kernel and plain version on the same card inputs: max abs error
     over the three outputs; raises past CS_ATOL / CS_RTOL."""
     import torch
-    got = cs_kernel.client_step(xs, ys, slots, idx, w, b, Z_LR, Z_H, Z_B,
+    got = cs_kernel.client_step(xs, ys, slots, idx, w, b, lr, H, B,
                                 step_mask=mask)
-    want = cs_ref.client_step(xs, ys, slots, idx, w, b, Z_LR, Z_H, Z_B,
+    want = cs_ref.client_step(xs, ys, slots, idx, w, b, lr, H, B,
                               step_mask=mask)
     sync(xs.device)
     err = 0.0
@@ -384,13 +424,22 @@ def sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def client_step_phase(dev, z_clients, cs_kernel, cs_ref):
+def in_turns(a, b, **kw):
+    """graph_ms of ``a`` and ``b`` in turns a, b, b, a: both means."""
+    a0, b0, b1, a1 = (graph_ms(f, **kw) for f in (a, b, b, a))
+    return (a0 + a1) / 2, (b0 + b1) / 2, (a0, b0, b1, a1)
+
+
+def client_step_phase(dev, z_clients, cs_kernel, cs_ref, fm_kernel, n_fm):
     """Phase 4: the kernel against its plain version at every tier shape
     of the hook lane's cache (its own tier tensors, real slots and keyed
     draws; C = 1, 2, 4, 8; with and without H_k masks, one client all
-    masked) and at a ragged shape; device times at C = M per tier.
-    Returns (max abs err, {tier rows: (ms, plain ms, bound ms)}, the
-    largest tier's rows)."""
+    masked), at a ragged shape and at the wide shape; device times at
+    C = M per tier and at the wide shape, the staged design in turns with
+    the first (v1) and, at the path's shape, with itself without helper
+    warps; the launch floor beside ``fedmom_update`` at ``n_fm``.
+    Returns (max abs err, {tier rows: (ms, plain ms, bound ms, v1 ms, K)},
+    the largest tier's rows, {wide shape and floor readings})."""
     import numpy as np
     import torch
     from repro_torch.data.federated import minibatch_indices
@@ -428,23 +477,69 @@ def client_step_phase(dev, z_clients, cs_kernel, cs_ref):
             for m in (None, mask):
                 cs_err = max(cs_err, check_client_step(
                     cs_kernel, cs_ref, xs, ys, slots, idx, w, bias, m))
-        # device time at the tier's widest launch (C = M), host taken out
-        ms = graph_ms(lambda: cs_kernel.client_step(
-            xs, ys, slots, idx, w, bias, Z_LR, Z_H, Z_B))
+        # device time at the tier's widest launch (C = M), host taken out;
+        # the path's (staged) design in turns with the first
+        ms, v1_ms, turns = in_turns(
+            lambda: cs_kernel.client_step(xs, ys, slots, idx, w, bias, Z_LR,
+                                          Z_H, Z_B),
+            lambda: cs_kernel.client_step_design(
+                xs, ys, slots, idx, w, bias, Z_LR, Z_H, Z_B, design="v1"))
         plain_ms = graph_ms(lambda: cs_ref.client_step(
             xs, ys, slots, idx, w, bias, lr_dev, Z_H, Z_B))
         bound_ms = client_step_bound_ms(Z_M, Z_H, Z_B, Z_D, False)
-        cs_timing[n_rows] = (ms, plain_ms, bound_ms)
+        K = cs_kernel.plan_for(xs, Z_M, Z_H, Z_B)[0]
+        cs_timing[n_rows] = (ms, plain_ms, bound_ms, v1_ms, K)
         print(f"client_step N={n_rows:>5d} S={xs.shape[0]:>3d} C=1,2,4,8 "
-              f"+/- masks within atol/rtol {CS_ATOL}; C={Z_M}: kernel "
-              f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us (device), "
-              f"bound {bound_ms * 1e3:.4f} us (bytes at 3.35 TB/s)")
+              f"+/- masks within atol/rtol {CS_ATOL}; C={Z_M}, K={K}: "
+              f"staged {ms * 1e3:.3f} us, v1 {v1_ms * 1e3:.3f} us (turns "
+              f"staged, v1, v1, staged: "
+              f"{', '.join(f'{t * 1e3:.3f}' for t in turns)} us), plain "
+              f"{plain_ms * 1e3:.2f} us (device), bound "
+              f"{bound_ms * 1e3:.4f} us (bytes at 3.35 TB/s; staged "
+              f"{bound_ms / ms:.2%} of it)")
+    # a step's cost: the widest tier's launch at H = 1 against H = Z_H
+    idx1 = idx[:, :Z_B].contiguous()
+    h1_ms = graph_ms(lambda: cs_kernel.client_step(
+        xs, ys, slots, idx1, w, bias, Z_LR, 1, Z_B))
+    step_ms = (cs_timing[n_rows][0] - h1_ms) / (Z_H - 1)
+    print(f"client_step C={Z_M} at H=1: {h1_ms * 1e3:.3f} us; a step costs "
+          f"{step_ms * 1e3:.3f} us ((H={Z_H} - H=1) / {Z_H - 1})")
+    # the helper warps: the path's launch in turns with the same kernel
+    # whose one warp a client issues the burst alone
+    _, solo_ms, s_turns = in_turns(
+        lambda: cs_kernel.client_step(xs, ys, slots, idx, w, bias, Z_LR,
+                                      Z_H, Z_B),
+        lambda: cs_kernel.client_step_design(
+            xs, ys, slots, idx, w, bias, Z_LR, Z_H, Z_B,
+            design="staged_solo"))
+    print(f"client_step C={Z_M} without helper warps {solo_ms * 1e3:.3f} us "
+          f"(turns staged, solo, solo, staged: "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in s_turns)} us)")
+    mhz, n_mhz = sm_clock_under(lambda: cs_kernel.client_step(
+        xs, ys, slots, idx, w, bias, Z_LR, Z_H, Z_B))
+    print(f"SM clock while client_step C={Z_M} replays: {mhz} MHz (median "
+          f"of {n_mhz} nvidia-smi samples)")
     call_ms = cuda_ms(lambda: cs_kernel.client_step(
         xs, ys, slots, idx, w, bias, Z_LR, Z_H, Z_B), 200)
     plain_call_ms = cuda_ms(lambda: cs_ref.client_step(
         xs, ys, slots, idx, w, bias, Z_LR, Z_H, Z_B), 200)
     print(f"client_step eager call at N={layout.sizes[-1]}, C={Z_M}: kernel "
           f"{call_ms * 1e3:.2f} us, plain {plain_call_ms * 1e3:.2f} us")
+    # the launch floor: a one-element in-place add under the same timing,
+    # in turns with fedmom_update at the per-round path's size
+    one = torch.zeros(1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    fw, fs, fd = (torch.randn(n_fm, generator=gen, device=dev)
+                  for _ in range(3))
+    floor_ms, fm_ms, f_turns = in_turns(
+        lambda: one.add_(1.0),
+        lambda: fm_kernel.fused_flat(fw, fs, fd, "fedmom", ETA, BETA))
+    top_ms = cs_timing[layout.sizes[-1]][0]
+    print(f"launch floor (one-element add_, graph-replayed) "
+          f"{floor_ms * 1e3:.3f} us; fedmom_update FedMom n={n_fm} "
+          f"{fm_ms * 1e3:.3f} us ({fm_ms / floor_ms:.2f}x the floor; turns "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in f_turns)} us); client_step "
+          f"C={Z_M} {top_ms * 1e3:.3f} us ({top_ms / floor_ms:.2f}x)")
     # a ragged shape: D past a warp multiple, N not a power of two
     for C in (1, 3):
         xs = torch.as_tensor(rng.normal(size=(3, 9, 65)).astype(np.float32),
@@ -463,8 +558,86 @@ def client_step_phase(dev, z_clients, cs_kernel, cs_ref):
             cs_err = max(cs_err, check_client_step(
                 cs_kernel, cs_ref, xs, ys, slots, idx, w65, bias, m))
     print(f"client_step ragged D=65, N=9, C=1,3 +/- masks within atol/rtol "
-          f"{CS_ATOL}; max abs err over every shape {cs_err:.3e}")
-    return cs_err, cs_timing, layout.sizes[-1]
+          f"{CS_ATOL}")
+    del xs, ys, fw, fs, fd
+    wide = client_step_wide(dev, cs_kernel, cs_ref, gen)
+    cs_err = max(cs_err, wide.pop("max_abs_err"))
+    wide["launch_floor_ms"] = floor_ms
+    wide["path_h1_ms"] = h1_ms
+    wide["sm_clock_mhz"] = mhz
+    wide["fedmom_update_ms"] = fm_ms
+    print(f"client_step max abs err over every shape {cs_err:.3e}")
+    return cs_err, cs_timing, layout.sizes[-1], wide
+
+
+def client_step_wide(dev, cs_kernel, cs_ref, gen):
+    """client_step at the wide shape (on no path): checked against the
+    plain version with and without masks, timed in turns with v1 and with
+    groups of 8 rows, at the ring depth of one block an SM beside the
+    plan's; and groups of 32, 16 and 8 rows in turns at b = 32."""
+    import torch
+    C, H, B = CS_WIDE_C, CS_WIDE_H, CS_WIDE_B
+    D, S, N = CS_WIDE_D, CS_WIDE_S, CS_WIDE_N
+    xs = torch.randn((S, N, D), generator=gen, device=dev)
+    ys = torch.randn((S, N), generator=gen, device=dev)
+    slots = torch.randperm(S, generator=gen, device=dev)[:C].to(torch.int32)
+    idx = torch.randint(0, N, (C, H * B), generator=gen, device=dev,
+                        dtype=torch.int32)
+    w = torch.randn(D, generator=gen, device=dev)
+    bias = torch.randn((), generator=gen, device=dev)
+    h_k = torch.randint(0, H + 1, (C,), generator=gen, device=dev)
+    h_k[0] = 0
+    mask = (torch.arange(H, device=dev)[None] < h_k[:, None]).float()
+    err = 0.0
+    for m in (None, mask):
+        err = max(err, check_client_step(cs_kernel, cs_ref, xs, ys, slots,
+                                         idx, w, bias, m, lr=CS_WIDE_LR,
+                                         H=H, B=B))
+    K = cs_kernel.plan_for(xs, C, H, B)[0]
+    K1 = cs_kernel.plan_for(xs, C, H, B, blocks_per_sm=1)[0]
+    args = (xs, ys, slots, idx, w, bias, CS_WIDE_LR, H, B)
+    ms, v1_ms, turns = in_turns(
+        lambda: cs_kernel.client_step(*args),
+        lambda: cs_kernel.client_step_design(*args, design="v1"),
+        iters=20, replays=10)
+    G = cs_kernel.plan_for(xs, C, H, B)[1]
+    _, g8_ms, g_turns = in_turns(
+        lambda: cs_kernel.client_step(*args),
+        lambda: cs_kernel.client_step_design(*args, design="staged",
+                                             group=8),
+        iters=20, replays=10)
+    print(f"client_step wide, groups of {G} rows (the plan's) against 8: "
+          f"{g8_ms * 1e3:.3f} us at 8 (turns {G}, 8, 8, {G}: "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in g_turns)} us)")
+    # groups of 32, 16 and 8 rows at b = 32, in turns 32, 16, 8, 8, 16, 32
+    idx32 = torch.randint(0, N, (C, H * 32), generator=gen, device=dev,
+                          dtype=torch.int32)
+    a32 = (xs, ys, slots, idx32, w, bias, CS_WIDE_LR, H, 32)
+    order = (32, 16, 8, 8, 16, 32)
+    t32 = [graph_ms(lambda g=g: cs_kernel.client_step_design(
+        *a32, design="staged", group=g), iters=20, replays=10)
+        for g in order]
+    g32 = {g: sum(t for o, t in zip(order, t32) if o == g) / 2
+           for g in (32, 16, 8)}
+    print(f"client_step C={C}, H={H}, b=32, D={D}, K="
+          f"{cs_kernel.plan_for(xs, C, H, 32)[0]}: groups of 32, 16, 8 rows "
+          f"{g32[32] * 1e3:.3f}, {g32[16] * 1e3:.3f}, {g32[8] * 1e3:.3f} us "
+          f"(turns {', '.join(f'{t * 1e3:.3f}' for t in t32)} us)")
+    k1_ms = graph_ms(lambda: cs_kernel.client_step_design(
+        *args, design="staged", ring=K1), iters=20, replays=10)
+    bound_ms = client_step_bound_ms(C, H, B, D, False)
+    print(f"client_step wide C={C}, H={H}, b={B}, D={D}, S={S}, N={N} "
+          f"(tier tensors {(xs.numel() + ys.numel()) * 4 / 1e6:.1f} MB) "
+          f"+/- masks within atol/rtol {CS_ATOL} at lr {CS_WIDE_LR}; staged "
+          f"K={K} (two blocks an SM) {ms * 1e3:.3f} us, "
+          f"{bound_ms / ms:.2%} of the bound; v1 {v1_ms * 1e3:.3f} us "
+          f"({bound_ms / v1_ms:.2%}); turns "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in turns)} us; staged K={K1} "
+          f"(one block an SM) {k1_ms * 1e3:.3f} us; bound "
+          f"{bound_ms * 1e3:.3f} us (bytes at 3.35 TB/s)")
+    return {"ms": ms, "v1_ms": v1_ms, "bound_ms": bound_ms, "ring": K,
+            "one_block_ring": K1, "one_block_ms": k1_ms,
+            "max_abs_err": err}
 
 
 def streaming_lanes(dev, z_clients, fm_kernel, cs_kernel):
@@ -1700,8 +1873,8 @@ def main() -> int:
     phase("4. kernel against plain (client_step)")
     dev = torch.device("cuda")
     z_clients = zipf_clients()
-    cs_err, cs_timing, cs_top = client_step_phase(dev, z_clients, cs_kernel,
-                                                  cs_ref)
+    cs_err, cs_timing, cs_top, cs_wide = client_step_phase(
+        dev, z_clients, cs_kernel, cs_ref, fm_kernel, n_main)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
@@ -1862,7 +2035,7 @@ def main() -> int:
     # ------------------------------------------------------------------
     phase("18. kernels")
     ms, plain_ms, bound_ms = timing[("fedmom", n_main)]
-    cs_ms, cs_plain_ms, cs_bound_ms = cs_timing[cs_top]
+    cs_ms, cs_plain_ms, cs_bound_ms, cs_v1_ms, cs_ring = cs_timing[cs_top]
     # flash_attention per launch at the serving path's mix: 22 LOCAL
     # (window 512) and 4 ATTN (window 0) layers in every prefill
     from repro_torch.configs import get_config
@@ -1924,6 +2097,13 @@ def main() -> int:
         "bound_ms": cs_bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
+        "v1_ms": cs_v1_ms,
+        "staging_ring": cs_ring,
+        "launch_floor_ms": cs_wide["launch_floor_ms"],
+        "wide_ms": cs_wide["ms"],
+        "wide_bound_ms": cs_wide["bound_ms"],
+        "wide_v1_ms": cs_wide["v1_ms"],
+        "wide_ring": cs_wide["ring"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

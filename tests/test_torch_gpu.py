@@ -9,7 +9,12 @@ This file imports torch and the port only.  Held to: the CUDA
 ``fedmom_update`` bit-equal to its plain version (both round every
 operation to nearest, no FMA); the CUDA ``client_step`` equal to its plain
 version within atol/rtol 1e-5 (hand-fused gradients summed in another
-order); a round, and a few rounds of both streaming lanes, on the card
+order), also with a ring of fewer step buffers than steps and with ``xs``
+off a 16-byte boundary, bit-equal to its plain-torch model of the
+summation order (``tests/test_torch_client_step_model.py``), its first
+design (the yardstick) equal to it within 1e-5 and every ring depth bit
+for bit; a
+round, and a few rounds of both streaming lanes, on the card
 equal to the same on the CPU within atol 1e-5 (cuBLAS and the CPU sum in
 other orders); the CUDA ``flash_attention`` equal to its plain version at
 the reference's tolerances (fp32 atol 2e-5, bf16 atol 2e-2) over the
@@ -172,10 +177,12 @@ def _cs_inputs(C, H, b, D, N, device, seed=0, masked=False):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("C,H,b,D,N", [
     (8, 4, 8, 64, 8192), (1, 4, 8, 64, 4), (3, 2, 3, 65, 9),
-    (2, 1, 1, 1024, 7), (2, 2, 16, 1024, 20), (4, 3, 130, 8, 50)])
+    (2, 1, 1, 1024, 7), (2, 2, 16, 1024, 20), (4, 3, 130, 8, 50),
+    (1, 1, 64, 900, 70)])
 def test_client_step_kernel_matches_plain(cuda, C, H, b, D, N, masked):
     """The streaming lane's tier shapes, a ragged D, the largest D, a
-    block past 48 KB of shared memory and a batch wider than a block."""
+    block past 48 KB of shared memory, a batch wider than a block and a
+    step within a few hundred bytes of the card's shared memory."""
     xs, ys, slots, idx, w, bias, mask = _cs_inputs(C, H, b, D, N, cuda,
                                                    masked=masked)
     before = cs_kernel.launches
@@ -189,6 +196,122 @@ def test_client_step_kernel_matches_plain(cuda, C, H, b, D, N, masked):
         torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
     if masked:
         assert torch.equal(got[0][0], w) and float(got[2][0]) == 0.0
+
+
+# SGD at lr 0.05 on 1,024 unit-normal features diverges (w grows ~100x in
+# four steps), and there the fp32 plain version is itself 2x the tolerance
+# off the fp64 answer; 1e-3 keeps every step stable
+RING_LR = 1e-3
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("C,H,b,D,N", [(4, 4, 16, 1024, 64),
+                                       (2, 3, 48, 1024, 60)])
+def test_client_step_ring_matches_plain(cuda, C, H, b, D, N, masked):
+    """The staged design's ring: fewer step buffers than steps (K = 3 of
+    4), and one (a step of 192 KB)."""
+    xs, ys, slots, idx, w, bias, mask = _cs_inputs(C, H, b, D, N, cuda,
+                                                   masked=masked)
+    K = cs_kernel.plan_for(xs, C, H, b)[0]
+    assert K == (3 if b == 16 else 1)
+    before = cs_kernel.launches
+    got = cs_ops.client_step(xs, ys, slots, idx, w, bias, RING_LR, H, b,
+                             step_mask=mask)
+    assert cs_kernel.launches == before + 1
+    want = cs_ref.client_step(xs, ys, slots, idx, w, bias, RING_LR, H, b,
+                              step_mask=mask)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+    if masked:
+        assert torch.equal(got[0][0], w) and float(got[2][0]) == 0.0
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("C,H,b,D,N,lr", [
+    (8, 4, 8, 64, 8192, 0.05), (3, 2, 3, 65, 9, 0.05),
+    (4, 3, 130, 8, 50, 0.05), (2, 3, 20, 200, 30, 0.05),
+    (4, 4, 16, 1024, 64, RING_LR), (1, 1, 64, 900, 70, RING_LR)])
+def test_client_step_kernel_bit_equal_to_model(cuda, C, H, b, D, N, lr,
+                                               masked):
+    """The kernel sums in exactly the order of its plain-torch model
+    (``tests/test_torch_client_step_model.py``), the model the CPU tests
+    hold to the JAX package: one warp and several, whole and ragged rows
+    and groups."""
+    from test_torch_client_step_model import staged_model
+    xs, ys, slots, idx, w, bias, mask = _cs_inputs(C, H, b, D, N, cuda,
+                                                   seed=6, masked=masked)
+    got = cs_ops.client_step(xs, ys, slots, idx, w, bias, lr, H, b,
+                             step_mask=mask)
+    host = [None if a is None else a.cpu().numpy()
+            for a in (xs, ys, slots, idx, w, bias, mask)]
+    want = staged_model(*host[:6], lr, H, b, host[6],
+                        cs_kernel.plan_for(xs, C, H, b)[1])
+    for g, r in zip(got, want):
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("D,lr", [(64, 0.05), (1024, RING_LR)])
+def test_client_step_kernel_takes_unaligned_xs(cuda, D, lr):
+    """``xs`` a contiguous view 4 bytes past a 16-byte boundary: the kernel
+    copies rows 4 bytes at a time and still matches its plain version."""
+    C, H, b, N = 3, 4, 8, 12
+    xs, ys, slots, idx, w, bias, mask = _cs_inputs(C, H, b, D, N, cuda,
+                                                   seed=4, masked=True)
+    store = torch.empty(xs.numel() + 1, device=cuda)
+    view = store[1:].view(xs.shape)
+    view.copy_(xs)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    got = cs_ops.client_step(view, ys, slots, idx, w, bias, lr, H, b,
+                             step_mask=mask)
+    want = cs_ref.client_step(xs, ys, slots, idx, w, bias, lr, H, b,
+                              step_mask=mask)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("C,H,b,D,N,lr", [(8, 4, 8, 64, 8192, 0.05),
+                                          (4, 4, 16, 1024, 64, RING_LR)])
+def test_client_step_designs_agree_and_count_nothing(cuda, C, H, b, D, N,
+                                                     lr):
+    """The yardstick (v1) agrees with the path's kernel within 1e-5, the
+    staged design with and without helper warps at every ring depth that
+    fits one block bit for bit (the ring and the helpers move copies, not
+    sums); no yardstick moves ``launches``."""
+    xs, ys, slots, idx, w, bias, mask = _cs_inputs(C, H, b, D, N, cuda,
+                                                   seed=5, masked=True)
+    path = cs_ops.client_step(xs, ys, slots, idx, w, bias, lr, H, b,
+                              step_mask=mask)
+    before = cs_kernel.launches
+    v1 = cs_kernel.client_step_design(xs, ys, slots, idx, w, bias, lr, H, b,
+                                      step_mask=mask, design="v1")
+    rings = [cs_kernel.client_step_design(
+        xs, ys, slots, idx, w, bias, lr, H, b, step_mask=mask,
+        design=design, ring=ring)
+        for ring in range(1, cs_kernel.plan_for(xs, C, H, b, 1)[0] + 1)
+        for design in ("staged", "staged_solo")]
+    torch.cuda.synchronize()
+    assert cs_kernel.launches == before
+    for g, r in zip(v1, path):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+    for got in rings:
+        for g, r in zip(got, path):
+            assert torch.equal(g, r)
+    with pytest.raises(ValueError, match="design"):
+        cs_kernel.client_step_design(xs, ys, slots, idx, w, bias, 0.05, H,
+                                     b, design="v2")
+
+
+def test_client_step_of_no_clients_launches_nothing(cuda):
+    """A tier with no clients returns empty outputs and leaves the launch
+    count where it was."""
+    xs, ys, slots, idx, w, bias, _ = _cs_inputs(2, 2, 2, 8, 6, cuda)
+    before = cs_kernel.launches
+    got = cs_ops.client_step(xs, ys, slots[:0], idx[:0], w, bias, 0.1, 2, 2)
+    torch.cuda.synchronize()
+    assert cs_kernel.launches == before
+    assert [tuple(g.shape) for g in got] == [(0, 8), (0,), (0,)]
 
 
 def test_client_step_kernel_refuses_what_it_cannot_take(cuda):
