@@ -23,9 +23,22 @@ Phases, each printed as it runs; any failure exits non-zero:
   1. card and settings: ``nvidia-smi`` name and power limit; TF32 off;
   2. build: every CUDA kernel compiled from ``src/repro_torch/csrc`` (one
      ``nvcc`` per source, all started together);
-  3. ``fedmom_update`` against its plain version on the card (bit-equal),
-     at both paths' shapes and at a large ragged size, with device times
-     (CUDA graphs + events) beside the memory bound;
+  3. ``fedmom_update`` against its plain version on the card (bit-equal):
+     the flat streams at both paths' sizes and at a large ragged size, and
+     the path's tree call (``ops.fused_update_tree`` / ``fused_avgm_tree``,
+     one launch a table) on LeNet's tree, the streaming lanes' linreg tree,
+     a mixed tree (ragged, bf16, fp16, a scalar, a zero-size leaf, offset
+     views, a non-contiguous leaf) and 1,000 small ragged leaves (several
+     tables), with ``fuse_tree=False`` bit-equal to it; device times (CUDA
+     graphs + events) in turns at LeNet's tree: the tree call against the
+     packed design (pack, one flat launch, split) and against the launch
+     floor (a one-element ``add_``), FedAvgM's tree call against
+     ``torch._fused_sgd_`` (the same update over the leaf lists, timed
+     only, never used by the port; first held to the plain version within
+     2 ulps an operation); the eager calls' times, host included; the flat
+     stream at 2^26+3 elements beside its bytes bound and beside PyTorch's
+     ``copy_``, ``add`` and ``addcmul`` (1, 2 and 3 reads a write; timed
+     only) against theirs;
   4. ``client_step`` against its plain version on the card (atol/rtol
      1e-5) at every tier shape of the streaming lanes, with and without
      H_k masks, plus a ragged shape and a wide shape (C=512, H=4, b=16,
@@ -316,6 +329,168 @@ def check_kernel(kernel, ref, kind, n, gen, offset=0):
     err = max(float((wk - wr).abs().max()), float((sk - sr).abs().max()))
     bitwise = torch.equal(wk, wr) and torch.equal(sk, sr)
     return err, bitwise, (w, s, d, plain)
+
+
+def fedmom_tree_cases(dev, lenet):
+    """Phase 3's trees, each (w, state, delta) on the card: LeNet's real
+    tree (``lenet``, the per-round path's), the streaming lanes' linreg
+    tree (w [64], b []), a mixed tree and 1,000 small ragged leaves."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+
+    def t(shape, dtype=torch.float32, offset=0):
+        n = int(np.prod(shape))
+        x = torch.as_tensor(rng.normal(size=n + offset).astype(np.float32),
+                            device=dev).to(dtype)
+        return x[offset:].reshape(shape)
+
+    def trio(w):
+        return (w, {k: (v + 1).to(v.dtype) for k, v in w.items()},
+                {k: (0.01 * v).float() for k, v in w.items()})
+
+    return {
+        "lenet": trio({k: v.clone() for k, v in lenet.items()}),
+        "linreg": trio({"w": t((Z_D,)), "b": t(())}),
+        "mixed": trio({
+            "ragged": t((513, 9)), "bf16": t((37, 5), torch.bfloat16),
+            "f16": t((11, 3), torch.float16), "scalar": t(()),
+            "zero": t((0, 4)), "offset": t((1029,), offset=1),
+            "bf16_offset": t((77,), torch.bfloat16, offset=1),
+            "strided": t((17, 33)).T}),
+        "1000 leaves": trio({f"l{i:04d}": t((int(n),)) for i, n in
+                             enumerate(rng.integers(1, 200, size=1000))}),
+    }
+
+
+def within_ulps(got, want, scale, ulps=2):
+    """|got - want| within ``ulps`` float32 ulps of ``scale`` (the largest
+    magnitude among an operation's operands and result), elementwise."""
+    import torch
+    scale = scale.abs()
+    ulp = torch.nextafter(scale, torch.full_like(scale, math.inf)) - scale
+    return bool(((got - want).abs() <= ulps * ulp).all())
+
+
+def fedmom_tree_phase(dev, fm_kernel, fm_ops, fm_ref, lenet):
+    """Phase 3's tree half: every tree of ``fedmom_tree_cases`` through the
+    path's call for both kinds, bit-equal to the plain version, one launch
+    a table, ``fuse_tree=False`` bit-equal; then the timings at LeNet's
+    tree.  Returns the readings."""
+    import torch
+    from repro_torch.tree import leaves
+    cases = fedmom_tree_cases(dev, lenet)
+    for name, (w, s, d) in cases.items():
+        sizes = [x.numel() for x in leaves(w)]
+        tables = len(fm_kernel.tree_plan(sizes, [True] * len(sizes)))
+        for kind in ("fedmom", "fedavgm"):
+            fn = (fm_ops.fused_update_tree if kind == "fedmom"
+                  else fm_ops.fused_avgm_tree)
+            plain = (fm_ref.fedmom_update if kind == "fedmom"
+                     else fm_ref.fedavgm_update)
+            before = fm_kernel.launches
+            got = fn(w, s, d, eta=ETA, beta=BETA)
+            launched = fm_kernel.launches - before
+            per_leaf = fm_kernel.fused_update_tree(
+                w, s, d, eta=ETA, beta=BETA, kind=kind, fuse_tree=False)
+            want = plain(w, s, d, ETA, BETA)
+            torch.cuda.synchronize()
+            for g, p, r, like in zip(got, per_leaf, want, (w, s)):
+                for k in like:
+                    if (g[k].dtype != like[k].dtype
+                            or g[k].shape != like[k].shape
+                            or not torch.equal(g[k], r[k].to(like[k].dtype))
+                            or not torch.equal(p[k], g[k])):
+                        raise AssertionError(
+                            f"{name} {kind}: leaf {k} differs from the "
+                            f"plain version or fuse_tree=False")
+            if launched != tables:
+                raise AssertionError(f"{name} {kind}: {launched} launches, "
+                                     f"want one a table ({tables})")
+        print(f"tree {name}: {len(sizes)} leaves, {sum(sizes)} elements, "
+              f"{tables} table(s): both kinds bit-equal to the plain version "
+              f"on every leaf (fuse_tree=False too), {tables} launch(es) a "
+              f"call")
+
+    w, s, d = cases["lenet"]
+
+    def tree():
+        return fm_ops.fused_update_tree(w, s, d, eta=ETA, beta=BETA)
+
+    def packed():
+        return fm_kernel.fused_update_tree_design(w, s, d, eta=ETA,
+                                                  beta=BETA, design="packed")
+
+    def avgm():
+        return fm_ops.fused_avgm_tree(w, s, d, eta=ETA, beta=BETA)
+
+    one = torch.zeros(1, device=dev)
+    out = {}
+    out["ms"], out["packed_ms"], turns = in_turns(tree, packed)
+    print(f"LeNet tree FedMom: one launch {out['ms'] * 1e3:.3f} us, packed "
+          f"design {out['packed_ms'] * 1e3:.3f} us (turns tree, packed, "
+          f"packed, tree: {', '.join(f'{x * 1e3:.3f}' for x in turns)} us)")
+    out["launch_floor_ms"], floor_tree_ms, turns = in_turns(
+        lambda: one.add_(1.0), tree)
+    print(f"launch floor (one-element add_, graph-replayed) "
+          f"{out['launch_floor_ms'] * 1e3:.3f} us; tree call "
+          f"{floor_tree_ms * 1e3:.3f} us, "
+          f"{(floor_tree_ms - out['launch_floor_ms']) * 1e3:.3f} us above "
+          f"it (turns floor, tree, tree, floor: "
+          f"{', '.join(f'{x * 1e3:.3f}' for x in turns)} us)")
+    out["plain_ms"] = graph_ms(lambda: fm_ops.fused_update_tree(
+        w, s, d, eta=ETA, beta=BETA, use_kernel=False))
+    if hasattr(torch, "_fused_sgd_"):
+        lw, lm, ld = ([x.clone() for x in leaves(t)] for t in (w, s, d))
+
+        def library():
+            torch._fused_sgd_(lw, ld, lm, weight_decay=0.0, momentum=BETA,
+                              lr=ETA, dampening=0.0, nesterov=False,
+                              maximize=False, is_first_step=False)
+
+        library()
+        torch.cuda.synchronize()
+        # it may contract an operation pair into an FMA: each operation
+        # (m' = beta m + d, then w' = w - eta m' on its own m') is held to
+        # the plain one within 2 ulps of its largest operand or result
+        for m0, d0, w0, m1, w1 in zip(leaves(s), leaves(d), leaves(w), lm,
+                                      lw):
+            m_plain = BETA * m0 + d0
+            w_plain = w0 - ETA * m1
+            if not (within_ulps(m1, m_plain, torch.maximum(
+                    (BETA * m0).abs(), torch.maximum(d0.abs(),
+                                                     m_plain.abs())))
+                    and within_ulps(w1, w_plain, torch.maximum(
+                        w0.abs(), torch.maximum((ETA * m1).abs(),
+                                                w_plain.abs())))):
+                raise AssertionError("torch._fused_sgd_ is not FedAvgM's "
+                                     "update within 2 ulps")
+        out["fedavgm_ms"], out["fedavgm_library_ms"], turns = in_turns(
+            avgm, library)
+        print(f"LeNet tree FedAvgM: one launch {out['fedavgm_ms'] * 1e3:.3f}"
+              f" us, torch._fused_sgd_ {out['fedavgm_library_ms'] * 1e3:.3f}"
+              f" us, within 2 ulps an operation (turns tree, library, "
+              f"library, tree: {', '.join(f'{x * 1e3:.3f}' for x in turns)}"
+              f" us)")
+    else:
+        out["fedavgm_ms"] = graph_ms(avgm)
+        out["fedavgm_library_ms"] = (f"not available in torch "
+                                     f"{torch.__version__}")
+        print(f"LeNet tree FedAvgM: one launch {out['fedavgm_ms'] * 1e3:.3f}"
+              f" us; torch._fused_sgd_ {out['fedavgm_library_ms']}")
+    out["eager_ms"] = cuda_ms(tree, 500)
+    out["packed_eager_ms"] = cuda_ms(packed, 500)
+    print(f"LeNet tree FedMom eager call (host included): one launch "
+          f"{out['eager_ms'] * 1e3:.2f} us, packed design "
+          f"{out['packed_eager_ms'] * 1e3:.2f} us; plain version "
+          f"{out['plain_ms'] * 1e3:.2f} us (device)")
+    w, s, d = cases["1000 leaves"]
+    out["thousand_leaves_ms"] = graph_ms(
+        lambda: fm_ops.fused_update_tree(w, s, d, eta=ETA, beta=BETA),
+        iters=10)
+    print(f"1000-leaf tree: {out['thousand_leaves_ms'] * 1e3:.2f} us a call "
+          f"(one launch a table)")
+    return out
 
 
 def zipf_clients():
@@ -1771,6 +1946,7 @@ def main() -> int:
     from repro_torch.kernels.client_step import kernel as cs_kernel
     from repro_torch.kernels.client_step import ref as cs_ref
     from repro_torch.kernels.fedmom_update import kernel as fm_kernel
+    from repro_torch.kernels.fedmom_update import ops as fm_ops
     from repro_torch.kernels.fedmom_update import ref as fm_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1858,6 +2034,21 @@ def main() -> int:
                   f"  bound {bound_ms * 1e3:.2f} us (20 B/elem at 3.35 TB/s)"
                   f"  eager call: kernel {call_ms * 1e3:.2f} us, plain "
                   f"{plain_call_ms * 1e3:.2f} us")
+            if n >= 1 << 20 and kind == "fedmom":
+                # the card's own streaming rate by read:write mix (the
+                # kernel's is 3:2), from PyTorch's kernels: timed only
+                out = torch.empty_like(w)
+                for name, nbytes, fn in (
+                        ("copy_ (1:1)", 8, lambda: out.copy_(w)),
+                        ("add (2:1)", 12, lambda: torch.add(w, s, out=out)),
+                        ("addcmul (3:1)", 16,
+                         lambda: torch.addcmul(w, s, d, out=out))):
+                    t_ms = cuda_ms(fn, 30)
+                    t_bound = nbytes * n / HBM_BYTES_PER_S * 1e3
+                    timing[("stream", name)] = (t_ms, t_bound)
+                    print(f"  torch {name} n={n}: {t_ms * 1e3:.1f} us, "
+                          f"{t_bound / t_ms:.1%} of its bytes bound")
+                del out
             del w, s, d
         # the scalar path: streams not 16-byte aligned
         err, bitwise, _ = check_kernel(fm_kernel, fm_ref, kind, n_main - 1,
@@ -1867,6 +2058,9 @@ def main() -> int:
                                  f"the plain version (max abs {err})")
         print(f"{kind:8s} n={n_main - 1:>9d}  unaligned (scalar path) "
               f"bit-equal")
+    fm_tree = fedmom_tree_phase(
+        torch.device("cuda"), fm_kernel, fm_ops, fm_ref,
+        small.lenet_init(prng.PRNGKey(0), device=torch.device("cuda")))
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
@@ -2034,7 +2228,8 @@ def main() -> int:
 
     # ------------------------------------------------------------------
     phase("18. kernels")
-    ms, plain_ms, bound_ms = timing[("fedmom", n_main)]
+    bound_ms = timing[("fedmom", n_main)][2]
+    large_ms, _, large_bound_ms = timing[("fedmom", 2 ** 26 + 3)]
     cs_ms, cs_plain_ms, cs_bound_ms, cs_v1_ms, cs_ring = cs_timing[cs_top]
     # flash_attention per launch at the serving path's mix: 22 LOCAL
     # (window 512) and 4 ATTN (window 0) layers in every prefill
@@ -2052,6 +2247,9 @@ def main() -> int:
                    else "operations")
     print(json.dumps({
         "card": card, "main_path_ms_per_round": ms_round,
+        "fedmom_update_tree": fm_tree,
+        "torch_streaming_ms_and_bound_ms": {
+            name: t for (k, name), t in timing.items() if k == "stream"},
         "streaming_ms_per_round": {k: v["ms_per_round"]
                                    for k, v in lanes.items()},
         "streaming_hit_rate": {k: v["hit_rate"] for k, v in lanes.items()},
@@ -2080,11 +2278,20 @@ def main() -> int:
         "replaces": "src/repro/kernels/fedmom_update/kernel.py:61",
         "launches": main_launches["fedmom_update"],
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        "ms": fm_tree["ms"],
+        "plain_ms": fm_tree["plain_ms"],
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
+        "flat_ms": timing[("fedmom", n_main)][0],
+        "packed_ms": fm_tree["packed_ms"],
+        "launch_floor_ms": fm_tree["launch_floor_ms"],
+        "fedavgm_ms": fm_tree["fedavgm_ms"],
+        "fedavgm_library_ms": fm_tree["fedavgm_library_ms"],
+        "eager_ms": fm_tree["eager_ms"],
+        "packed_eager_ms": fm_tree["packed_eager_ms"],
+        "large_ms": large_ms,
+        "large_bound_ms": large_bound_ms,
     }, {
         "name": "client_step",
         "route": "cuda",

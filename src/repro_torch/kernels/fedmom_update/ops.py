@@ -12,11 +12,11 @@ from __future__ import annotations
 
 from repro_torch.kernels.fedmom_update import kernel as _k
 from repro_torch.kernels.fedmom_update import ref as _ref
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, tree_map, unflatten_like
 
 
-def _on_cuda(*trees) -> bool:
-    devices = {x.device for t in trees for x in leaves(t)}
+def _on_cuda(*leaf_lists) -> bool:
+    devices = {x.device for xs in leaf_lists for x in xs}
     if len(devices) > 1:
         raise ValueError(f"fedmom_update: leaves on several devices "
                          f"{sorted(map(str, devices))}")
@@ -28,9 +28,12 @@ def _as_dtypes(tree, like):
 
 
 def _update(ref_fn, kind, w, s, delta, eta, beta, use_kernel):
-    if _on_cuda(w, s, delta) and use_kernel:
-        return _k.fused_update_tree(w, s, delta, eta=eta, beta=beta,
-                                    kind=kind)
+    lw, ls, ld = leaves(w), leaves(s), leaves(delta)
+    if _on_cuda(lw, ls, ld) and use_kernel:
+        # the trees are flattened once, here, for the check and the launch
+        w_new, s_new = _k.update_leaves(lw, ls, ld, eta=eta, beta=beta,
+                                        kind=kind)
+        return unflatten_like(w, w_new), unflatten_like(s, s_new)
     w_new, s_new = ref_fn(w, s, delta, eta, beta)
     return _as_dtypes(w_new, w), _as_dtypes(s_new, s)
 

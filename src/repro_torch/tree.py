@@ -54,7 +54,22 @@ def flatten_with_paths(tree) -> Tuple[List[str], list]:
 
 
 def leaves(tree) -> list:
-    return flatten_with_paths(tree)[1]
+    """The leaves in ``flatten_with_paths`` order, without their paths
+    (the per-step hot path of every server update)."""
+    out: list = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        elif isinstance(node, (tuple, list)):
+            for child in node:        # a NamedTuple iterates its fields
+                walk(child)
+        elif node is not None:
+            out.append(node)
+
+    walk(tree)
+    return out
 
 
 def unflatten_like(like, new_leaves) -> Any:
@@ -62,10 +77,13 @@ def unflatten_like(like, new_leaves) -> Any:
     it = iter(new_leaves)
 
     def build(node):
-        kids = _children(node)
-        if kids is None:
-            return next(it)
-        return kids[1]([build(child) for _, child in kids[0]])
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if _is_namedtuple(node):
+            return type(node)(*[build(child) for child in node])
+        if isinstance(node, (tuple, list)):
+            return type(node)([build(child) for child in node])
+        return None if node is None else next(it)
 
     out = build(like)
     if next(it, None) is not None:

@@ -131,6 +131,192 @@ def test_cuda_ops_tree_goes_through_kernel(cuda, kind):
         assert torch.equal(tw[k], rw[k]) and torch.equal(ts[k], rs[k])
 
 
+def _tree_case(name, device, seed=0):
+    """(w, state, delta) trees of the tree launch's card tests, as in
+    ``chip_smoke.py`` phase 3: LeNet's (``small.lenet_init``'s shapes), the
+    streaming lanes' linreg tree, a mixed tree (ragged, bf16 and fp16 in
+    the vector path, bf16 off a 16-byte boundary, a scalar, a zero-size
+    leaf, an offset view, a non-contiguous leaf), 1,000 small ragged leaves
+    (several tables), and one leaf long enough to stream its stores."""
+    from repro_torch import random as prng
+    from repro_torch.models import small
+    rng = np.random.default_rng(seed)
+
+    def t(shape, dtype=torch.float32, offset=0, transpose=False):
+        n = int(np.prod(shape))
+        x = torch.as_tensor(rng.normal(size=n + offset).astype(np.float32),
+                            device=device)[offset:]
+        x = x.reshape(shape[::-1]).T if transpose else x.reshape(shape)
+        return x.to(dtype)
+
+    if name == "lenet":
+        shapes = [tuple(x.shape) for x in
+                  small.lenet_init(prng.PRNGKey(0)).values()]
+        w = {f"l{i}": t(sh) for i, sh in enumerate(shapes)}
+    elif name == "linreg":
+        w = {"w": t((64,)), "b": t(())}
+    elif name == "mixed":
+        w = {"ragged": t((513, 9)), "bf16": t((37, 5), torch.bfloat16),
+             "f16": t((11, 3), torch.float16), "scalar": t(()),
+             "zero": t((0, 4)), "offset": t((1029,), offset=1),
+             "bf16_offset": t((77,), torch.bfloat16, offset=1),
+             "strided": t((33, 17), transpose=True)}
+        w["bf16_offset"] = torch.zeros(78, dtype=torch.bfloat16,
+                                       device=device)[1:].copy_(
+                                           w["bf16_offset"])
+        assert not w["strided"].is_contiguous()
+    elif name == "1000-leaves":
+        w = {f"l{i:04d}": t((int(n),))
+             for i, n in enumerate(rng.integers(1, 200, size=1000))}
+    else:
+        w = {"big": t(((1 << 22) + 5,)), "small": t((7,))}
+    s = {k: (v + 1).to(v.dtype) for k, v in w.items()}
+    d = {k: (0.05 * v).float() for k, v in w.items()}
+    if name == "mixed":
+        s["offset"] = torch.zeros(1030, device=device)[1:].copy_(s["offset"])
+    return w, s, d
+
+
+TREES = ("lenet", "linreg", "mixed", "1000-leaves", "large")
+
+
+def _n_tables(w):
+    sizes = [x.numel() for x in w.values()]
+    return len(tkernel.tree_plan(sizes, [True] * len(sizes)))
+
+
+def _assert_tree_equal(got, want, like):
+    for k in like:
+        assert got[k].shape == like[k].shape, k
+        assert got[k].dtype == like[k].dtype, k
+        assert torch.equal(got[k], want[k].to(like[k].dtype)), k
+
+
+@pytest.mark.parametrize("tree", TREES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_tree_bit_equal_to_plain(cuda, kind, tree):
+    """The path's call (``ops``) on every tree of phase 3: bit-equal to the
+    plain version on every leaf, one launch a table."""
+    w, s, d = _tree_case(tree, cuda)
+    fn = tops.fused_update_tree if kind == "fedmom" else tops.fused_avgm_tree
+    plain = tref.fedmom_update if kind == "fedmom" else tref.fedavgm_update
+    before = tkernel.launches
+    tw, ts = fn(w, s, d, eta=30.0, beta=0.9)
+    assert tkernel.launches == before + _n_tables(w)
+    rw, rs = plain(w, s, d, 30.0, 0.9)
+    torch.cuda.synchronize()
+    _assert_tree_equal(tw, rw, w)
+    _assert_tree_equal(ts, rs, s)
+
+
+@pytest.mark.parametrize("tree", ["mixed", "1000-leaves", "lenet"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_tree_per_leaf_equals_fused(cuda, kind, tree):
+    """``fuse_tree=False`` (one launch a leaf, none for a zero-size leaf)
+    is bit-equal to the one launch a table."""
+    w, s, d = _tree_case(tree, cuda, seed=1)
+    fw, fs = tkernel.fused_update_tree(w, s, d, eta=2.0, beta=0.9,
+                                       kind=kind)
+    before = tkernel.launches
+    pw, ps = tkernel.fused_update_tree(w, s, d, eta=2.0, beta=0.9,
+                                       kind=kind, fuse_tree=False)
+    assert tkernel.launches == before + sum(x.numel() > 0
+                                            for x in w.values())
+    torch.cuda.synchronize()
+    _assert_tree_equal(pw, fw, w)
+    _assert_tree_equal(ps, fs, s)
+
+
+def test_cuda_tree_without_elements_launches_nothing(cuda):
+    z = {"a": torch.zeros(0, device=cuda), "b": torch.zeros(2, 0,
+                                                            device=cuda)}
+    before = tkernel.launches
+    tw, ts = tops.fused_update_tree(z, z, z, eta=1.0, beta=0.9)
+    assert tw["b"].shape == (2, 0) and ts["a"].is_cuda
+    assert tops.fused_avgm_tree({}, {}, {}, eta=1.0, beta=0.9) == ({}, {})
+    assert tkernel.launches == before
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_packed_design_counts_nothing(cuda, kind):
+    """The packed yardstick (pack, one flat launch, split) equals the path's
+    call bit for bit and moves no counter."""
+    w, s, d = _tree_case("lenet", cuda, seed=2)
+    tw, ts = tkernel.fused_update_tree(w, s, d, eta=30.0, beta=0.9,
+                                       kind=kind)
+    before = tkernel.launches
+    pw, ps = tkernel.fused_update_tree_design(w, s, d, eta=30.0, beta=0.9,
+                                              kind=kind, design="packed")
+    assert tkernel.launches == before
+    torch.cuda.synchronize()
+    _assert_tree_equal(pw, tw, w)
+    _assert_tree_equal(ps, ts, s)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_tree_graph_replay_equals_eager(cuda, kind):
+    """The tables travel in the kernel node: a replay on new inputs in the
+    captured buffers equals the eager call on them."""
+    w, s, d = _tree_case("lenet", cuda, seed=3)
+
+    def call():
+        return tkernel.fused_update_tree(w, s, d, eta=30.0, beta=0.9,
+                                         kind=kind)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = tkernel.launches
+    with torch.cuda.graph(graph):
+        gw, gs = call()
+    assert tkernel.launches == before + 1
+    new = _tree_case("lenet", cuda, seed=4)
+    for dst, src in zip((w, s, d), new):
+        for k in dst:
+            dst[k].copy_(src[k])
+    graph.replay()
+    ew, es = tkernel.fused_update_tree(*new, eta=30.0, beta=0.9, kind=kind)
+    torch.cuda.synchronize()
+    _assert_tree_equal(gw, ew, w)
+    _assert_tree_equal(gs, es, s)
+
+
+def test_cuda_bf16_w_with_fp32_m_keeps_dtypes(cuda):
+    """FedAvgM over a bf16 model with its fp32 momentum: outputs follow
+    the input leaves' dtypes, each rounded once from the fp32 result."""
+    w, _, d = _tree_case("lenet", cuda, seed=5)
+    w = {k: v.to(torch.bfloat16) for k, v in w.items()}
+    m = {k: torch.randn(v.shape, device=cuda) for k, v in w.items()}
+    tw, tm = tops.fused_avgm_tree(w, m, d, eta=3.0, beta=0.9)
+    rw, rm = tref.fedavgm_update(w, m, d, 3.0, 0.9)
+    torch.cuda.synchronize()
+    assert all(v.dtype == torch.bfloat16 for v in tw.values())
+    assert all(v.dtype == torch.float32 for v in tm.values())
+    _assert_tree_equal(tw, rw, w)
+    _assert_tree_equal(tm, rm, m)
+
+
+def test_cuda_tree_refuses_what_it_cannot_take(cuda):
+    w = {"a": torch.zeros(4, device=cuda), "b": torch.zeros(3, device=cuda)}
+    with pytest.raises(ValueError, match="floating leaves"):
+        tkernel.fused_update_tree(
+            w, {"a": w["a"], "b": torch.zeros(3, dtype=torch.int64,
+                                               device=cuda)},
+            w, eta=1.0, beta=0.9)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tkernel.fused_update_tree(w, {"a": w["a"], "b": torch.zeros(3)}, w,
+                                  eta=1.0, beta=0.9)
+    with pytest.raises(ValueError, match="has shape"):
+        tkernel.fused_update_tree(w, w, {"a": w["a"].reshape(2, 2),
+                                         "b": w["b"]}, eta=1.0, beta=0.9)
+    with pytest.raises(ValueError, match="several devices"):
+        tops.fused_update_tree(w, {"a": w["a"], "b": torch.zeros(3)}, w,
+                               eta=1.0, beta=0.9)
+
+
 def test_cuda_round_matches_cpu_round(cuda):
     rng = np.random.default_rng(0)
     params = {"w": rng.normal(size=(6,)).astype(np.float32),
