@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout, imports nothing of JAX, and drives the
-port's five ported paths on the card: the per-round FedAvg / FedMom LeNet
-trainer at the quickstart configuration, the streaming shard-cache plane
+port's ported paths on the card: the per-round FedAvg / FedMom LeNet
+trainer at the quickstart configuration, the same configuration on the
+scanned, device and auto planes (each chunk of rounds one CUDA-graph
+replay), the streaming shard-cache plane
 (padded, bucketed, and bucketed through the fused ``client_step`` kernel)
 at the Zipf linreg configuration of ``BENCH_6.json``
 (``benchmarks/perf_compare.py`` ``_zipf_clients`` / ``bench_bucketed``,
@@ -52,15 +54,39 @@ Phases, each printed as it runs; any failure exits non-zero:
      finite and falling, kernel launches counted over exactly this phase;
   6. per-round card against CPU: the same FedMom rounds on ``cpu`` and
      ``cuda``, the card's run under the profiler;
-  7. streaming path: the padded, bucketed and hook lanes, each a warm-up
+  7. the scanned, device and auto planes: the quickstart configuration
+     (FedMom through ``fedmom_update``, a keyed sampler) for 30 rounds in
+     chunks of 10 on ``plan="scanned"``, ``"device"``, ``"auto"`` (must
+     resolve to the device plane under the card's memory) and ``"auto"``
+     at a 1-byte budget (must resolve to the scanned plane), each chunk
+     one CUDA-graph replay; for each: warm ms/round beside the per-round
+     plane's (a warm-up run, then a timed run synced at the end), the
+     first call's s with its captures, the device-busy share and device
+     ops a round of one profiled chunk, ``fedmom_update`` launches counted
+     from the profiler's kernel names over a profiled 30-round run (the
+     Python counter counts no replay); with
+     ``torch.backends.cudnn.deterministic`` (cuDNN's default algorithms
+     are not run-to-run deterministic, so even two per-round runs differ)
+     losses and final parameters bit-equal to the per-round plane; one
+     captured chunk replayed at two round indices bit-equal to the eager
+     loop at those rounds, drawing the host replay's clients;
+  8. streaming path: the padded, bucketed and hook lanes, each a warm-up
      run then a timed run with the launch counts set to 0 just before it
      and read just after; losses finite (they rise at this configuration,
-     on the JAX package too: see phase 7), launch counts, cache
+     on the JAX package too), launch counts, cache
      hit rate, the padded lane's device draw against its host replay, the
      three lanes' final parameters against each other; the hook lane
-     profiled over two chunks;
-  8. streaming card against CPU: the hook lane on ``cpu`` and ``cuda``;
-  9. ``flash_attention`` against its plain version on the card (fp32 atol
+     profiled over two chunks; then the same fleet on the device plane
+     (its 1.09 GB corpus packed on the card, chunks as CUDA graphs):
+     ms/round beside the lanes, the device-busy share and
+     ``fedmom_update`` launches (profiler) of two profiled chunks, final
+     parameters against the hook lane's; and ``plan="auto"`` at a budget
+     of the padded lane's cache bytes, which must resolve to the
+     streaming plane with the reason the reference's rule gives
+     (recomputed here from the corpus), its parameters against the device
+     plane's after as many rounds;
+  9. streaming card against CPU: the hook lane on ``cpu`` and ``cuda``;
+ 10. ``flash_attention`` against its plain version on the card (fp32 atol
      2e-5, bf16 atol 2e-2, the reference's tolerances) at the serving
      paths' shapes (gemma3-1b: B=8, S=1024, 4 query heads over 1 KV head,
      d=256, bf16, window 512 and 0; recurrentgemma-9b: B=8, S=4096, 16
@@ -74,7 +100,7 @@ Phases, each printed as it runs; any failure exits non-zero:
      bound, the share of its tile work the masks throw away, and the three
      bf16 designs (CUDA cores, P in bf16 hi + lo parts, P in one bf16
      part) timed in turns;
- 10. serving path: reduced gemma3-1b's bf16 prefill logits through the
+ 11. serving path: reduced gemma3-1b's bf16 prefill logits through the
      kernel against ``attention_impl="xla"`` and against a planted fault
      (the first LOCAL layer's window one short), then gemma3-1b at full
      width (keyed random weights from the port's ``init``), ``generate``
@@ -83,11 +109,11 @@ Phases, each printed as it runs; any failure exits non-zero:
      ms/token, tokens/s, peak memory, kernel launches over exactly one
      ``generate`` call (26: one per layer), the device-busy share of one
      call under the profiler; logprobs finite;
- 11. serving card against CPU: gemma3-1b at full width cut to one pattern
+ 12. serving card against CPU: gemma3-1b at full width cut to one pattern
      period (6 layers), fp32, B=1, S0=256, 4 new tokens: prefill and
      decode logits within atol/rtol 1e-3, greedy tokens equal wherever the
      top-2 logit margin exceeds that tolerance;
- 12. ``rwkv6_scan`` against its plain version on the card (fp32 atol 2e-3,
+ 13. ``rwkv6_scan`` against its plain version on the card (fp32 atol 2e-3,
      bf16 atol 5e-2, rtol 1e-2, the reference's tolerances) at the
      reference's sweep shapes, at extreme decay (log w = -50 and the
      clip's floor -exp(8); atol 1e-3, in bf16 with rtol 1e-2) and at the
@@ -98,7 +124,7 @@ Phases, each printed as it runs; any failure exits non-zero:
      events) of the kernel and the plain version at the path's shape
      beside the bound, and the two bf16 designs (CUDA cores, tensor cores)
      timed in turns, each with its GB/s and share of the bound;
- 13. RWKV6 path: rwkv6-7b at full width (keyed random weights, 32 stacked
+ 14. RWKV6 path: rwkv6-7b at full width (keyed random weights, 32 stacked
      layers, bf16): ``loss_fn`` of B=8 x 1024 tokens with
      ``rwkv_impl="pallas"`` (32 kernel launches over exactly one call) and
      with ``"xla"``, the loss finite; ``generate`` of B=8 prompts of 1024
@@ -106,15 +132,15 @@ Phases, each printed as it runs; any failure exits non-zero:
      memory; no kernel launch: the reference's kernel returns no state, so
      prefill and decode keep the plain recurrence); the device-busy share
      of one profiled ``loss_fn`` and one ``generate`` call;
- 14. RWKV6 card against CPU: rwkv6-7b at full width cut to 2 layers, fp32,
+ 15. RWKV6 card against CPU: rwkv6-7b at full width cut to 2 layers, fp32,
      B=1, S=128 (4 chunks): the forward's logits through the kernel on the
      card against the plain path on the CPU, prefill + 3 decode logits on
-     each, within atol/rtol 1e-3; greedy tokens equal as in phase 11;
- 15. ``rglru_scan`` against its plain version on the card, bit for bit, at
+     each, within atol/rtol 1e-3; greedy tokens equal as in phase 12;
+ 16. ``rglru_scan`` against its plain version on the card, bit for bit, at
      the reference's sweep, at ragged S past the kernel's 16-step tiles
      (S=100, a prime S, S=7), at a = 1 - 1e-7 over 4,096 steps and at the
      path's B and R;
- 16. RG-LRU path: recurrentgemma-9b at full width (keyed random weights,
+ 17. RG-LRU path: recurrentgemma-9b at full width (keyed random weights,
      12 stacked groups of (RGLRU, RGLRU, LOCAL) + 2 RGLRU, bf16,
      ``attention_impl="pallas"``): (b) ``ops.rglru_scan`` on the gates of
      layer 0 at B=8 x 4096 (u as the block makes it), one launch, bit-equal
@@ -125,12 +151,12 @@ Phases, each printed as it runs; any failure exits non-zero:
      tokens/s, peak memory; 12 ``flash_attention`` and no ``rglru_scan``
      launch over exactly one call: the reference's model runs its
      log-depth scan), the device-busy share of one profiled call;
- 17. RG-LRU card against CPU: recurrentgemma-9b at full width cut to 8
+ 18. RG-LRU card against CPU: recurrentgemma-9b at full width cut to 8
      layers (2 stacked groups + the 2-layer remainder), fp32, B=1, S0=256,
      4 new tokens, weights drawn on the card and carried to the host
      through ``interop``: prefill and decode logits within atol/rtol 1e-3;
-     greedy tokens equal as in phase 11;
- 18. one JSON line of kernels, then the result line.
+     greedy tokens equal as in phase 12;
+ 19. one JSON line of kernels, then the result line.
 
 Without a card, or outside a checkout of the repo, it exits non-zero and
 prints no result.
@@ -167,6 +193,9 @@ Z_ETA, Z_BETA = 2.0, 0.9           # FedMom, through fedmom_update
 Z_CR, Z_ROUNDS = 8, 100            # chunk_rounds; timed rounds per lane
 Z_BYTES = Z_M * Z_CR * Z_NTOP * (Z_D * 4 + 4)   # one chunk's padded set
 Z_PROFILE_CHUNKS = 2
+G_CR = 10                          # chunk_rounds of the graphed planes
+FM_KERNEL_NAME = "tree_update_kernel"   # fedmom_update.cu's kernel, as the
+                                        # profiler names its launches
 Z_CMP_ROUNDS = 16                  # streaming card-against-CPU rounds
 CS_ATOL = CS_RTOL = 1e-5           # client_step kernel vs plain: gradient
                                    # sums in another order (fp32)
@@ -290,28 +319,46 @@ def sm_clock_under(fn, seconds=1.5, iters=100):
     return (statistics.median(mhz) if mhz else float("nan")), len(mhz)
 
 
-def profile_device(fn):
-    """Run ``fn`` under the profiler; returns (wall s, device-busy s,
-    device ops per call of fn, top kernels [(name, s, count)])."""
+def profile_rows(fn):
+    """Run ``fn`` under the profiler; returns (wall s, every device kernel
+    as (name, s, count), most time first).  The window opens 0.1 s before
+    ``fn`` and closes 0.1 s after its work ends: the profiler drops device
+    events whose converted timestamps fall outside it, and a window that
+    opens just as the first kernels run lost some of them on the card."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.1)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(0.1)
     by_name = {}
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
         s, c = by_name.get(evt.name, (0.0, 0))
         by_name[evt.name] = (s + evt.time_range.elapsed_us() / 1e6, c + 1)
-    rows = sorted(((k, s, c) for k, (s, c) in by_name.items()),
-                  key=lambda r: -r[1])
+    return wall, sorted(((k, s, c) for k, (s, c) in by_name.items()),
+                        key=lambda r: -r[1])
+
+
+def profile_device(fn):
+    """Run ``fn`` under the profiler; returns (wall s, device-busy s,
+    device ops per call of fn, top kernels [(name, s, count)])."""
+    wall, rows = profile_rows(fn)
     return wall, sum(r[1] for r in rows), sum(r[2] for r in rows), rows[:8]
+
+
+def kernel_launches(rows, name):
+    """Launches of the kernels whose profiler name holds ``name``: a
+    CUDA-graph replay's launches are counted here, where no Python
+    counter sees them."""
+    return sum(c for k, _, c in rows if name in k)
 
 
 def check_kernel(kernel, ref, kind, n, gen, offset=0):
@@ -877,6 +924,7 @@ def streaming_lanes(dev, z_clients, fm_kernel, cs_kernel):
         hit_rate = hits / max(hits + misses, 1)
         ms = secs / Z_ROUNDS * 1e3
         lanes[name] = {"trainer": tr, "plan": plan, "ms_per_round": ms,
+                       "final_w": [x.clone() for x in leaves(tr.state.w)],
                        "hit_rate": hit_rate,
                        "misses_per_round": misses / Z_ROUNDS,
                        "launches": launched}
@@ -955,6 +1003,274 @@ def streaming_card_vs_cpu(z_clients, cs_kernel, plan, devices):
     print(f"params agree: max abs diff {worst:.3e} (atol {LANE_ATOL}, rtol "
           f"{LANE_RTOL}); losses differ by at most {loss_diff:.3e}; "
           f"client_step launches on the card {card_launches}")
+
+
+def graph_planes_phase(dev, clients, w0):
+    """Phase 7: the quickstart configuration on the per-round, scanned,
+    device and auto planes; returns {run: measurements}."""
+    import torch
+    from repro_torch.core import DeviceUniformSampler, RoundConfig, fedmom
+    from repro_torch.core.multiround import scan_rounds_ondevice
+    from repro_torch.data import FederatedDataset
+    from repro_torch.launch.plan import ExecutionPlan
+    from repro_torch.launch.train import FederatedTrainer
+    from repro_torch.models import small
+    from repro_torch.tree import leaves, tree_map
+    ds = FederatedDataset(clients, seed=1)
+    pop = ds.population()
+    rcfg = RoundConfig(clients_per_round=M, local_steps=H, lr=LR,
+                       placement="mesh", compute_dtype="float32")
+    opt = fedmom(eta=ETA, beta=BETA, use_fused_kernel=True)
+
+    def trainer():
+        return FederatedTrainer(
+            loss_fn=small.lenet_loss, server_opt=opt, rcfg=rcfg, dataset=ds,
+            sampler=DeviceUniformSampler(pop, M, seed=2),
+            state=opt.init(w0), local_batch=B, device=dev)
+
+    plans = {
+        "per_round": "per_round",
+        "scanned": ExecutionPlan(plane="scanned", chunk_rounds=G_CR),
+        "device": ExecutionPlan(plane="device", chunk_rounds=G_CR),
+        "auto": ExecutionPlan(plane="auto", chunk_rounds=G_CR),
+        "auto_1B": ExecutionPlan(plane="auto", chunk_rounds=G_CR,
+                                 memory_budget_bytes=1)}
+    resolves_to = {"per_round": "per_round", "scanned": "scanned",
+                   "device": "device", "auto": "device",
+                   "auto_1B": "scanned"}
+    print(f"LeNet, K={K} M={M} H={H} b={B} FedMom eta={ETA} beta={BETA} "
+          f"through fedmom_update, DeviceUniformSampler; {ROUNDS} rounds in "
+          f"chunks of {G_CR}; warm-up run, then a timed run")
+    out = {}
+    for name, plan in plans.items():
+        tr = trainer()
+        t0 = time.perf_counter()
+        tr.run(ROUNDS, plan=plan, verbose=False)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        capture_s = sum(g.capture_s for g in tr.session.graphs.values())
+        rec = tr.session.plan_log[-1]
+        if rec["plane"] != resolves_to[name]:
+            raise AssertionError(f"{name}: resolved to {rec['plane']}, want "
+                                 f"{resolves_to[name]} ({rec['reason']})")
+        if name == "auto_1B" and not rec["reason"].startswith(
+                "host prefetch-queue fallback: even one chunk's participant "
+                "working set ("):
+            raise AssertionError(f"auto_1B: reason {rec['reason']!r}")
+        tr.state, tr.history = opt.init(w0), []
+        t0 = time.perf_counter()
+        hist = [r for r in tr.run(ROUNDS, plan=plan, verbose=False)
+                if "event" not in r]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / ROUNDS * 1e3
+        losses = [r["loss"] for r in hist]
+        if len(losses) != ROUNDS or not all(math.isfinite(x)
+                                            for x in losses):
+            raise AssertionError(f"{name}: losses {losses}")
+        tr.state, tr.history = opt.init(w0), []
+        wall, rows = profile_rows(
+            lambda: tr.run(G_CR, plan=plan, verbose=False))
+        busy = sum(r[1] for r in rows)
+        n_ops = sum(r[2] for r in rows)
+        # the profiler slows the host; the device's share of an unprofiled
+        # round is its device time a round over the timed ms/round
+        busy_ms = busy / G_CR * 1e3
+        tr.state, tr.history = opt.init(w0), []
+        _, rows30 = profile_rows(
+            lambda: tr.run(ROUNDS, plan=plan, verbose=False))
+        fm = kernel_launches(rows30, FM_KERNEL_NAME)
+        if fm != ROUNDS:
+            raise AssertionError(
+                f"{name}: the profiler counts {fm} fedmom_update launches "
+                f"in {ROUNDS} rounds, want one a round")
+        out[name] = {"plane": rec["plane"], "ms_per_round": ms,
+                     "first_call_s": first_s, "capture_s": capture_s,
+                     "busy_share": busy / wall,
+                     "device_ms_per_round": busy_ms,
+                     "ops_per_round": n_ops / G_CR,
+                     "fedmom_update_launches": fm,
+                     "reason": rec["reason"]}
+        print(f"{name:9s} -> {rec['plane']:9s} {ms:8.3f} ms/round (host "
+              f"clock, synced at the end); first call {first_s:.3f} s, "
+              f"captures {capture_s:.3f} s; one profiled chunk: wall "
+              f"{wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms "
+              f"({100 * busy / wall:.2f}%), {n_ops / G_CR:.0f} device "
+              f"ops/round, {busy_ms:.3f} ms of device time a round "
+              f"({100 * busy_ms / ms:.1f}% of the unprofiled ms/round); "
+              f"fedmom_update launches (profiler) {fm} in {ROUNDS} rounds")
+        print(f"          reason: {rec['reason']}")
+        del tr
+    for name in ("scanned", "device", "auto"):
+        print(f"{name:9s} {out['per_round']['ms_per_round'] / out[name]['ms_per_round']:.2f}x "
+              f"the per-round plane's ms/round")
+
+    # the trajectory, with cuDNN's deterministic algorithms: by default
+    # cuDNN's convolutions are not run-to-run deterministic on the card, so
+    # even two per-round runs differ in the last bits (within CMP_ATOL)
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for name in ("per_round", "per_round_again", "scanned", "device",
+                     "auto", "auto_1B"):
+            tr = trainer()
+            hist = tr.run(ROUNDS, plan=plans.get(name, "per_round"),
+                          verbose=False)
+            runs[name] = ([r["loss"] for r in hist if "event" not in r],
+                          tr.state)
+        ref_losses, ref_state = runs["per_round"]
+        for name, (losses, state) in runs.items():
+            same = losses == ref_losses and all(
+                torch.equal(a, b) for a, b in zip(leaves(state.w),
+                                                  leaves(ref_state.w)))
+            if not same:
+                worst = max(float((a - b).abs().max()) for a, b in zip(
+                    leaves(state.w), leaves(ref_state.w)))
+                raise AssertionError(
+                    f"{name}: not bit-equal to the per-round plane (max "
+                    f"param diff {worst:.3e})")
+        print(f"with cudnn.deterministic: scanned, device, auto and auto_1B "
+              f"losses and final parameters bit-equal to the per-round "
+              f"plane over {ROUNDS} rounds")
+
+        # one captured chunk replayed at two round indices against the
+        # eager loop at those rounds (a round index baked in at capture
+        # would replay round t0's draws)
+        tr = trainer()
+        dds = tr.device_dataset()
+        graph = tr._device_chunk_graph(G_CR, False, dds)
+        skey, dkey = tr.sampler.base_key().to(dev), dds.base_key()
+        lrs = torch.full((G_CR,), LR, dtype=torch.float32, device=dev)
+        state = tr.state
+        for t0 in (0, 2 * G_CR):
+            start = tree_map(lambda x: x.clone()
+                             if isinstance(x, torch.Tensor) else x,
+                             state._replace(t=t0))
+            state, got = graph.run(state, t0, {"lrs": lrs.cpu().numpy()})
+            want_state, want = scan_rounds_ondevice(
+                small.lenet_loss, opt, start, dds, tr.sampler, dkey, skey,
+                t0, G_CR, rcfg, B, lrs=lrs, device=dev)
+            drawn = got["clients"].cpu().numpy().tolist()
+            replay = [tr.sampler.sample(t)[0].tolist()
+                      for t in range(t0, t0 + G_CR)]
+            if drawn != replay or not torch.equal(got["clients"],
+                                                  want["clients"]):
+                raise AssertionError(
+                    f"t0={t0}: the replay drew {drawn}, the host replay "
+                    f"names {replay}")
+            if not (torch.equal(got["loss"], want["loss"]) and all(
+                    torch.equal(a, b) for a, b in zip(
+                        leaves(state.w), leaves(want_state.w)))):
+                raise AssertionError(
+                    f"t0={t0}: the replayed chunk differs from the eager "
+                    f"loop at the same rounds")
+        print(f"one captured chunk replayed at t0 = 0 and {2 * G_CR}: "
+              f"clients, losses and parameters bit-equal to the eager loop "
+              f"at those rounds")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def zipf_device_plane(dev, z_clients, lanes):
+    """Phase 8's device plane and auto plan on BENCH_6's fleet."""
+    import torch
+    from repro_torch.launch.plan import ExecutionPlan
+    from repro_torch.tree import leaves
+    tr = zipf_trainer(z_clients, dev, False)
+    t0 = time.perf_counter()
+    dds = tr.device_dataset()
+    sync(dev)
+    pack_s = time.perf_counter() - t0
+    plan = ExecutionPlan(plane="device", chunk_rounds=Z_CR)
+
+    def fresh():
+        return tr.server_opt.init({"w": torch.zeros(Z_D, device=dev),
+                                   "b": torch.zeros((), device=dev)})
+
+    tr.run(Z_ROUNDS, plan=plan, verbose=False)               # warm-up
+    sync(dev)
+    tr.state, tr.history = fresh(), []
+    t0 = time.perf_counter()
+    hist = tr.run(Z_ROUNDS, plan=plan, verbose=False)
+    sync(dev)
+    ms = (time.perf_counter() - t0) / Z_ROUNDS * 1e3
+    losses = [r["loss"] for r in hist]
+    if len(losses) != Z_ROUNDS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"device plane: losses {losses}")
+    worst = 0.0
+    for a, b in zip(lanes["hook"]["final_w"], leaves(tr.state.w)):
+        worst = max(worst, float((a - b).abs().max()))
+        if not torch.allclose(a, b, atol=LANE_ATOL, rtol=LANE_RTOL):
+            raise AssertionError(
+                f"device plane and hook lane final params differ by "
+                f"{worst:.3e} (atol {LANE_ATOL}, rtol {LANE_RTOL})")
+    n_prof = Z_PROFILE_CHUNKS * Z_CR
+    tr.state, tr.history = fresh(), []
+    wall, rows = profile_rows(
+        lambda: tr.run(n_prof, plan=plan, verbose=False))
+    busy = sum(r[1] for r in rows)
+    fm = kernel_launches(rows, FM_KERNEL_NAME)
+    if fm != n_prof:
+        raise AssertionError(f"device plane: {fm} fedmom_update launches "
+                             f"in {n_prof} rounds (profiler), want {n_prof}")
+    print(f"device   packed corpus {dds.nbytes} B in {pack_s:.2f} s; "
+          f"{ms:.3f} ms/round (host clock, synced at the end; padded "
+          f"{lanes['padded']['ms_per_round']:.3f}, bucketed "
+          f"{lanes['bucketed']['ms_per_round']:.3f}, hook "
+          f"{lanes['hook']['ms_per_round']:.3f}); {n_prof} profiled rounds: "
+          f"device busy {100 * busy / wall:.2f}%, "
+          f"{sum(r[2] for r in rows) / n_prof:.0f} device ops/round, "
+          f"fedmom_update launches (profiler) {fm}; final params agree "
+          f"with the hook lane: max abs diff {worst:.3e}")
+    device = {"ms_per_round": ms, "pack_s": pack_s, "nbytes": dds.nbytes,
+              "busy_share": busy / wall, "fedmom_update_launches": fm}
+
+    # the auto rule at the padded lane's cache bytes, recomputed here:
+    # one chunk's working set of Z_M * Z_CR clients in power-of-two tiers
+    counts = [len(c["y"]) for c in z_clients]
+    n_max, row = max(counts), (Z_D + 1) * 4
+    packed = len(counts) * n_max * row
+    tier_counts = {}
+    for n in counts:
+        size = min(1 << (n - 1).bit_length(), n_max)
+        tier_counts[size] = tier_counts.get(size, 0) + 1
+    cap = min(Z_M * Z_CR, len(counts))
+    ws = sum(min(k, cap) * size * row for size, k in tier_counts.items())
+    want = (f"packed corpus ({packed} B) exceeds the budget ({Z_BYTES} B) "
+            f"but one chunk's participant working set ({cap} clients over "
+            f"{len(tier_counts)} size tier(s), {ws} B tiered) fits the "
+            f"budget ({Z_BYTES} B)")
+    if not ws <= Z_BYTES < packed:
+        raise AssertionError(f"working set {ws}, budget {Z_BYTES}, packed "
+                             f"{packed}: the case does not test the rule")
+    auto = zipf_trainer(z_clients, dev, False)
+    auto_plan = ExecutionPlan(plane="auto", chunk_rounds=Z_CR,
+                              memory_budget_bytes=Z_BYTES)
+    t0 = time.perf_counter()
+    auto.run(Z_CMP_ROUNDS, plan=auto_plan, verbose=False)
+    sync(dev)
+    auto_ms = (time.perf_counter() - t0) / Z_CMP_ROUNDS * 1e3
+    rec = auto.session.plan_log[-1]
+    if rec["plane"] != "streaming" or rec["reason"] != want:
+        raise AssertionError(f"auto at {Z_BYTES} B: {rec}, want the "
+                             f"streaming plane because {want!r}")
+    tr.state, tr.history = fresh(), []
+    tr.run(Z_CMP_ROUNDS, plan=plan, verbose=False)
+    worst = 0.0
+    for a, b in zip(leaves(tr.state.w), leaves(auto.state.w)):
+        worst = max(worst, float((a - b).abs().max()))
+        if not torch.allclose(a, b, atol=LANE_ATOL, rtol=LANE_RTOL):
+            raise AssertionError(
+                f"auto (streaming) and device final params differ by "
+                f"{worst:.3e} after {Z_CMP_ROUNDS} rounds")
+    print(f"auto     at {Z_BYTES} B -> {rec['plane']} ({rec['reason']}); "
+          f"{auto_ms:.3f} ms/round over {Z_CMP_ROUNDS} rounds (first run); "
+          f"final params within {worst:.3e} of the device plane's")
+    device["auto_plane"] = rec["plane"]
+    device["auto_ms_per_round"] = auto_ms
+    del tr, auto, dds
+    torch.cuda.empty_cache()
+    return device
 
 
 def flash_kept_pairs(S, window, causal):
@@ -2177,57 +2493,64 @@ def main() -> int:
           f"{CMP_RTOL}); losses cpu {out['cpu'][1]} cuda {out['cuda'][1]}")
 
     # ------------------------------------------------------------------
-    phase("7. streaming path: padded, bucketed and hook lanes on cuda")
-    lanes = streaming_lanes(dev, z_clients, fm_kernel, cs_kernel)
+    phase("7. scanned, device and auto planes: chunks as CUDA graphs")
+    graph_planes = graph_planes_phase(dev, clients, w0)
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
-    phase(f"8. streaming card against CPU: {Z_CMP_ROUNDS} rounds of the "
+    phase("8. streaming path: padded, bucketed and hook lanes, and the "
+          "device plane, on cuda")
+    lanes = streaming_lanes(dev, z_clients, fm_kernel, cs_kernel)
+    zipf_device = zipf_device_plane(dev, z_clients, lanes)
+
+    # ------------------------------------------------------------------
+    phase(f"9. streaming card against CPU: {Z_CMP_ROUNDS} rounds of the "
           f"hook lane")
     streaming_card_vs_cpu(z_clients, cs_kernel, lanes["hook"]["plan"],
                           (torch.device("cpu"), dev))
 
     # ------------------------------------------------------------------
-    phase("9. kernel against plain (flash_attention)")
+    phase("10. kernel against plain (flash_attention)")
     fa_err, fa_timing = flash_phase(fa_ops, fa_kernel, card)
 
     # ------------------------------------------------------------------
-    phase(f"10. serving path: {G_ARCH} at full width on cuda")
+    phase(f"11. serving path: {G_ARCH} at full width on cuda")
     serving = serving_phase(dev, fa_kernel, fa_ops, card)
 
     # ------------------------------------------------------------------
-    phase(f"11. serving card against CPU: {G_ARCH} cut to {G_CMP_LAYERS} "
+    phase(f"12. serving card against CPU: {G_ARCH} cut to {G_CMP_LAYERS} "
           f"layers, fp32")
     serving["card_vs_cpu_max_abs_diff"] = serving_card_vs_cpu(dev, fa_kernel)
 
     # ------------------------------------------------------------------
-    phase("12. kernel against plain (rwkv6_scan)")
+    phase("13. kernel against plain (rwkv6_scan)")
     rw_err, rw_timing = rwkv6_phase(rw_ops, rw_kernel, card)
 
     # ------------------------------------------------------------------
-    phase(f"13. RWKV6 path: {R_ARCH} at full width on cuda")
+    phase(f"14. RWKV6 path: {R_ARCH} at full width on cuda")
     rwkv = rwkv_path_phase(dev, rw_kernel)
 
     # ------------------------------------------------------------------
-    phase(f"14. RWKV6 card against CPU: {R_ARCH} cut to {R_CMP_LAYERS} "
+    phase(f"15. RWKV6 card against CPU: {R_ARCH} cut to {R_CMP_LAYERS} "
           f"layers, fp32")
     rwkv["card_vs_cpu_max_abs_diff"] = rwkv_card_vs_cpu(dev, rw_kernel)
 
     # ------------------------------------------------------------------
-    phase("15. kernel against plain (rglru_scan)")
+    phase("16. kernel against plain (rglru_scan)")
     rg_err = rglru_phase(rg_ops)
 
     # ------------------------------------------------------------------
-    phase(f"16. RG-LRU path: {RG_ARCH} at full width on cuda")
+    phase(f"17. RG-LRU path: {RG_ARCH} at full width on cuda")
     rglru = rglru_path_phase(dev, fa_kernel, rg_kernel, rg_ops)
     rg_err = max(rg_err, rglru["rglru_scan"]["max_abs_err"])
 
     # ------------------------------------------------------------------
-    phase(f"17. RG-LRU card against CPU: {RG_ARCH} cut to {RG_CMP_LAYERS} "
+    phase(f"18. RG-LRU card against CPU: {RG_ARCH} cut to {RG_CMP_LAYERS} "
           f"layers, fp32")
     rglru["card_vs_cpu_max_abs_diff"] = rglru_card_vs_cpu(dev, fa_kernel)
 
     # ------------------------------------------------------------------
-    phase("18. kernels")
+    phase("19. kernels")
     bound_ms = timing[("fedmom", n_main)][2]
     large_ms, _, large_bound_ms = timing[("fedmom", 2 ** 26 + 3)]
     cs_ms, cs_plain_ms, cs_bound_ms, cs_v1_ms, cs_ring = cs_timing[cs_top]
@@ -2258,6 +2581,8 @@ def main() -> int:
         "streaming_device_busy_share": {k: v["busy_share"]
                                         for k, v in lanes.items()},
         "streaming_launches": {k: v["launches"] for k, v in lanes.items()},
+        "graph_planes": graph_planes,
+        "zipf_device_plane": zipf_device,
         "serving": serving,
         "rwkv6_7b": rwkv,
         "recurrentgemma_9b": rglru,

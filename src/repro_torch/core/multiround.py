@@ -1,17 +1,29 @@
 """Chunks of federated rounds run back to back on the device.
 
-The JAX package traces a chunk of rounds into one ``lax.scan``.  PyTorch
-runs eagerly, so a chunk here is a Python loop over its rounds that
+The JAX package traces a chunk of rounds into one jitted ``lax.scan``.
+Here the body of one round is written once per plane, as a function of
+the round's device inputs (the round index ``t``, the stepsize ``lr`` and
+the optional [C, H] step mask), and a chunk is a Python loop over it that
 enqueues every round's work without reading anything back: the per-round
-metrics stay device tensors, are stacked over the chunk, and the trainer
-reads them once per chunk (``launch/train.py`` ``_drain_chunk``).
+metrics stay device tensors, stacked over the chunk.  On the CPU that loop
+runs eagerly.  On the card the scanned and device planes capture it as one
+CUDA graph per chunk shape and replay it for every chunk
+(``launch/graph.py`` ``ChunkGraph``), with ``t0``, the ``lrs`` and the
+masks (and the scanned plane's batches) in static device tensors: ``t``
+is then ``t0 + r``, an int64 device tensor, so each replay draws the
+clients and minibatches of its own rounds.
 
-* ``scan_rounds_ondevice``: each round samples S_t with the keyed draw
-  (``sampler.sample_device``) on the device, gathers its
-  ``[C, H, b, ...]`` minibatches from a dataset honouring the
-  ``gather_round_batch`` contract (a streaming ``CacheView``) and runs
-  ``round_step``.  Draws are keyed by ``(seed, t, client_id)``, so the
-  trajectory is the per-round plane's.
+* ``scan_rounds``: host-staged ``[R, C, H, ...]`` batches and ``[R, C]``
+  weights (the scanned plane; the trainer's producer thread assembles
+  them ahead);
+* ``scan_rounds_sampled``: the same host-staged batches, with each round's
+  weights drawn by ``sampler.sample_device(key, t)`` on the device;
+* ``scan_rounds_ondevice``: each round samples S_t with the keyed draw on
+  the device, gathers its ``[C, H, b, ...]`` minibatches from a dataset
+  honouring the ``gather_round_batch`` contract (the packed
+  ``DeviceFederatedDataset`` of the device plane, or a streaming
+  ``CacheView``) and runs ``round_step``.  Draws are keyed by
+  ``(seed, t, client_id)``, so the trajectory is the per-round plane's.
 * ``scan_rounds_bucketed``: the cohort is staged on the host grouped by
   cache size tier, with the keyed minibatch draws staged too (or drawn
   here, tier by tier, when they are not); either every tier's rows are
@@ -19,8 +31,12 @@ reads them once per chunk (``launch/train.py`` ``_drain_chunk``).
   or each tier goes through a ``client_step_fn`` hook
   (``bucketed_round_step``), such as the fused ``kernels/client_step``.
 
-``scan_rounds`` and ``scan_rounds_sampled`` (host-staged batches) belong to
-the scanned plane, a later slice of the port.
+Every function takes the reference's arguments in its order, with
+``device`` last; ``lrs`` / ``step_masks`` may be host values or device
+tensors, ``t0`` an int or an int64 device tensor.  The returned metrics
+are [R] ``loss`` / ``delta_norm`` / ``completed`` device tensors and
+``round``: host ints while the server state's ``t`` is a host int, an [R]
+device tensor when it is a device tensor (inside a captured chunk).
 """
 from __future__ import annotations
 
@@ -33,63 +49,136 @@ from repro_torch.core.round import RoundConfig, bucketed_round_step, round_step
 from repro_torch.core.server_opt import ServerOpt, ServerState
 from repro_torch.data.federated import minibatch_indices
 from repro_torch.device import resolve_device
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map
 
 _STACKED = ("loss", "delta_norm", "completed")
 
 
 def _stack(per_round: list) -> dict:
-    """[R] device tensors per metric (``round`` as host ints); a
-    ``clients`` stream, when the rounds carry one, as [R, C]."""
+    """[R] device tensors per metric; ``round`` as host ints (or one [R]
+    tensor when the rounds carried a device counter); a ``clients``
+    stream, when the rounds carry one, as [R, C]."""
     out = {k: torch.stack([m[k] for m in per_round]) for k in _STACKED}
-    out["round"] = [int(m["round"]) for m in per_round]
+    rounds = [m["round"] for m in per_round]
+    out["round"] = (torch.stack(rounds)
+                    if isinstance(rounds[0], torch.Tensor)
+                    else [int(t) for t in rounds])
     if "clients" in per_round[0]:
         out["clients"] = torch.stack([m["clients"] for m in per_round])
     return out
 
 
-def _lr(lrs: Optional[Sequence[float]], r: int, rcfg: RoundConfig) -> float:
-    return rcfg.lr if lrs is None else float(lrs[r])
+def _lr(lrs, r: int, rcfg: RoundConfig):
+    """Round r's stepsize: ``rcfg.lr``, a host float, or a 0-d view of a
+    device tensor (no copy)."""
+    if lrs is None:
+        return rcfg.lr
+    return lrs[r] if isinstance(lrs, torch.Tensor) else float(lrs[r])
+
+
+def _round_of(t0, r: int):
+    return t0 + r if isinstance(t0, torch.Tensor) else int(t0) + r
+
+
+def _rounds(state: ServerState, n_rounds: int, rcfg: RoundConfig, lrs,
+            step_masks, one_round: Callable) -> tuple:
+    """The chunk loop every plane shares: ``one_round(state, r, lr, mask)
+    -> (state, metrics)`` for r in [0, n_rounds), nothing read back."""
+    per_round = []
+    for r in range(n_rounds):
+        state, metrics = one_round(
+            state, r, _lr(lrs, r, rcfg),
+            None if step_masks is None else step_masks[r])
+        metrics.pop("losses", None)
+        per_round.append(metrics)
+    return state, _stack(per_round)
+
+
+def scan_rounds(loss_fn: Callable, server_opt: ServerOpt, state: ServerState,
+                batches: Any, weights, rcfg: RoundConfig,
+                param_axes: Optional[Any] = None, lrs=None,
+                step_masks=None, device=None) -> tuple:
+    """Run ``R = weights.shape[0]`` rounds on host-staged inputs.
+
+    ``batches`` leaves: [R, C, H, ...]; ``weights``: [R, C]; ``lrs``:
+    optional [R] gamma_t; ``step_masks``: optional [R, C, H].  Host arrays
+    or device tensors; round r's slices go to ``round_step`` as they are
+    (host arrays are moved to ``device`` there).  Returns ``(state,
+    metrics)`` with [R] ``loss`` / ``delta_norm`` / ``completed``; the
+    per-client ``losses`` are dropped, as in the reference.
+    """
+    dev = resolve_device(device)
+
+    def one_round(st, r, lr, mask):
+        return round_step(loss_fn, server_opt, st,
+                          tree_map(lambda x: x[r], batches), weights[r],
+                          rcfg, param_axes=param_axes, lr=lr,
+                          step_mask=mask, device=dev)
+
+    return _rounds(state, int(weights.shape[0]), rcfg, lrs, step_masks,
+                   one_round)
+
+
+def scan_rounds_sampled(loss_fn: Callable, server_opt: ServerOpt,
+                        state: ServerState, batches: Any, sampler,
+                        key: torch.Tensor, t0, rcfg: RoundConfig,
+                        param_axes: Optional[Any] = None, lrs=None,
+                        step_masks=None, device=None) -> tuple:
+    """Like ``scan_rounds`` but round ``t0 + r`` takes the weights that
+    ``sampler.sample_device(key, t0 + r)`` draws on the device.
+
+    ``batches`` must have been assembled on the host for the same client
+    ids the keyed draw picks: ``DeviceUniformSampler.sample`` is the replay
+    that guarantees it.
+    """
+    dev = resolve_device(device)
+    key = key.to(dev)
+
+    def one_round(st, r, lr, mask):
+        _, w = sampler.sample_device(key, _round_of(t0, r))
+        return round_step(loss_fn, server_opt, st,
+                          tree_map(lambda x: x[r], batches), w, rcfg,
+                          param_axes=param_axes, lr=lr, step_mask=mask,
+                          device=dev)
+
+    n_rounds = int(leaves(batches)[0].shape[0])
+    return _rounds(state, n_rounds, rcfg, lrs, step_masks, one_round)
 
 
 def scan_rounds_ondevice(loss_fn: Callable, server_opt: ServerOpt,
                          state: ServerState, dataset, sampler,
                          data_key: torch.Tensor, sample_key: torch.Tensor,
-                         t0: int, n_rounds: int, rcfg: RoundConfig,
+                         t0, n_rounds: int, rcfg: RoundConfig,
                          local_batch_size: int,
-                         param_axes: Optional[Any] = None,
-                         lrs: Optional[Sequence[float]] = None,
-                         step_masks: Optional[np.ndarray] = None,
-                         device=None) -> tuple:
+                         param_axes: Optional[Any] = None, lrs=None,
+                         step_masks=None, device=None) -> tuple:
     """Run rounds ``t0 .. t0 + n_rounds - 1`` with sampling and data gather
     on the device.
 
     Round ``t``: ``sampler.sample_device(sample_key, t)`` draws S_t, the
     dataset gathers its ``[C, H, b, ...]`` minibatches keyed by
     ``(data_key, t, client_id)`` and ``round_step`` consumes them.  ``lrs``:
-    optional [n_rounds] host floats; ``step_masks``: optional
-    [n_rounds, C, H].  Returns ``(state, metrics)`` with [n_rounds]
-    ``loss`` / ``delta_norm`` / ``completed`` device tensors, ``round``
-    host ints, and ``clients`` [n_rounds, C]: the ids the device draw
-    picked, which the trainer holds against its host replay.
+    optional [n_rounds]; ``step_masks``: optional [n_rounds, C, H].
+    Returns ``(state, metrics)`` with [n_rounds] ``loss`` / ``delta_norm``
+    / ``completed``, ``round``, and ``clients`` [n_rounds, C]: the ids the
+    device draw picked, which the streaming plane holds against its host
+    replay.
     """
     dev = resolve_device(device)
-    per_round = []
-    for r in range(n_rounds):
-        t = int(t0) + r
+
+    def one_round(st, r, lr, mask):
+        t = _round_of(t0, r)
         idx, w = sampler.sample_device(sample_key, t)
         batches = dataset.gather_round_batch(data_key, t, idx,
                                              rcfg.local_steps,
                                              local_batch_size)
-        state, metrics = round_step(
-            loss_fn, server_opt, state, batches, w, rcfg,
-            param_axes=param_axes, lr=_lr(lrs, r, rcfg),
-            step_mask=None if step_masks is None else step_masks[r],
-            device=dev)
-        del metrics["losses"]
+        st, metrics = round_step(loss_fn, server_opt, st, batches, w, rcfg,
+                                 param_axes=param_axes, lr=lr,
+                                 step_mask=mask, device=dev)
         metrics["clients"] = idx
-        per_round.append(metrics)
-    return state, _stack(per_round)
+        return st, metrics
+
+    return _rounds(state, n_rounds, rcfg, lrs, step_masks, one_round)
 
 
 def _tier_draws(data_key: torch.Tensor, view, t0: int, tier_cids: tuple,

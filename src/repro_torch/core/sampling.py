@@ -58,13 +58,20 @@ def diurnal_m_host(t: int, m_min: int, m_max: int, period: int) -> int:
     return int(round(m_min + frac * (m_max - m_min)))
 
 
-def diurnal_m_device(t, m_min: int, m_max: int, period: int) -> int:
+def diurnal_m_device(t, m_min: int, m_max: int, period: int):
     """M(t) in float32, as the keyed draw of the reference computes it
     (it can differ from ``diurnal_m_host`` by one client at a rounding
-    boundary, which is why the engine treats M(t) as a weight mask)."""
-    tt = torch.tensor(float(t), dtype=torch.float32)
+    boundary, which is why the engine treats M(t) as a weight mask).
+
+    For an int ``t`` the host int; for a tensor ``t`` a 0-d int64 tensor
+    computed on ``t``'s device, so that a captured CUDA graph follows the
+    round index it is replayed at."""
+    on_device = isinstance(t, torch.Tensor)
+    tt = (t.to(torch.float32) if on_device
+          else torch.tensor(float(t), dtype=torch.float32))
     frac = 0.5 * (1.0 + torch.sin(2.0 * math.pi * tt / period))
-    return int(torch.round(m_min + frac * (m_max - m_min)))
+    m_t = torch.round(m_min + frac * (m_max - m_min))
+    return m_t.to(torch.int64) if on_device else int(m_t)
 
 
 @dataclass
@@ -82,6 +89,17 @@ class ClientPopulation:
         return self.counts / self.counts.sum()
 
 
+def _weight_table(sampler, device) -> torch.Tensor:
+    """The [K] float32 n_k/n table on ``device``, copied there once per
+    device and kept: a keyed draw inside a captured CUDA graph may not copy
+    from the host (the first draw, eager, fills the cache)."""
+    tab = sampler._weights.get(device)
+    if tab is None:
+        tab = sampler._weights[device] = torch.as_tensor(
+            sampler.population.weights.astype(np.float32), device=device)
+    return tab
+
+
 @dataclass
 class UniformSampler:
     """S_t = a uniformly random set of M clients (paper §3.1)."""
@@ -89,6 +107,8 @@ class UniformSampler:
     m: int
     seed: int = 0
     _rng: np.random.Generator = field(init=False, repr=False, default=None)
+    _weights: dict = field(init=False, repr=False, compare=False,
+                           default_factory=dict)
 
     def __post_init__(self):
         self._rng = np.random.default_rng(self.seed)
@@ -105,12 +125,11 @@ class UniformSampler:
 
     def sample_device(self, key, t):
         """Keyed S_t draw: fold the round index into ``key`` and take the
-        first M entries of a permutation of [0, K)."""
+        first M entries of a permutation of [0, K).  ``t`` is an int or an
+        int64 tensor on the key's device (inside a captured chunk)."""
         kt = prng.fold_in(key, t)
         idx = prng.permutation(kt, self.population.n_clients)[: self.m]
-        w = torch.as_tensor(self.population.weights.astype(np.float32),
-                            device=idx.device)[idx.long()]
-        return idx, w
+        return idx, _weight_table(self, idx.device)[idx.long()]
 
 
 class _DeviceReplayMixin:
@@ -141,6 +160,8 @@ class DiurnalSampler:
     period: int = 1000
     seed: int = 0
     _rng: np.random.Generator = field(init=False, repr=False, default=None)
+    _weights: dict = field(init=False, repr=False, compare=False,
+                           default_factory=dict)
 
     def __post_init__(self):
         self._rng = np.random.default_rng(self.seed)
@@ -168,8 +189,7 @@ class DiurnalSampler:
         kt = prng.fold_in(key, t)
         idx = prng.permutation(kt, self.population.n_clients)[: self.m_max]
         m_t = diurnal_m_device(t, self.m_min, self.m_max, self.period)
-        w = torch.as_tensor(self.population.weights.astype(np.float32),
-                            device=idx.device)[idx.long()]
+        w = _weight_table(self, idx.device)[idx.long()]
         w = torch.where(torch.arange(self.m_max, device=idx.device) < m_t,
                         w, torch.zeros_like(w))
         return idx, w

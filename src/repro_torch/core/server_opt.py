@@ -27,7 +27,8 @@ from repro_torch.tree import leaves, tree_map, unflatten_like
 class ServerState(NamedTuple):
     w: Any                 # master params, fp32
     extra: Any             # optimizer-specific state (tree or ())
-    t: int                 # round counter
+    t: Any                 # round counter: a host int; inside a captured
+                           # chunk of rounds a 0-d int64 device tensor
 
 
 def _f32(x):
@@ -54,7 +55,9 @@ class ServerOpt:
     def update(self, state: ServerState, delta) -> ServerState:
         delta = tree_map(_f32, delta)
         w, extra = self.apply(state.w, state.extra, delta, state.t)
-        return ServerState(w=w, extra=extra, t=int(state.t) + 1)
+        t = (state.t + 1 if isinstance(state.t, torch.Tensor)
+             else int(state.t) + 1)
+        return ServerState(w=w, extra=extra, t=t)
 
 
 # ---------------------------------------------------------------------------
@@ -190,7 +193,9 @@ def dp(inner: ServerOpt, clip: float = 1.0,
     ``fold_in(PRNGKey(seed), t)``, folded once more per tree leaf — drawn
     with the port's threefry, so it is the JAX package's noise up to the
     ``erfinv`` tolerance of ``repro_torch.random.normal`` (a few float32
-    ulps of each standard normal).
+    ulps of each standard normal).  The key is made and folded on the
+    aggregate's device, and ``t`` may be a device tensor: inside a captured
+    chunk of rounds every replay draws the noise of its own rounds.
     """
     if clip <= 0:
         raise ValueError(f"dp clip must be > 0, got {clip!r}")
@@ -205,13 +210,12 @@ def dp(inner: ServerOpt, clip: float = 1.0,
         clipped = tree_map(lambda d: factor * _f32(d), delta)
         if noise_multiplier > 0:
             flat = leaves(clipped)
-            dev = flat[0].device
-            key_t = prng.fold_in(prng.PRNGKey(seed), int(t))
+            t = t if isinstance(t, torch.Tensor) else int(t)
+            key_t = prng.fold_in(prng.PRNGKey(seed, device=flat[0].device),
+                                 t)
             sigma = clip * noise_multiplier
-            noisy = [
-                l + sigma * prng.normal(
-                    prng.fold_in(key_t, i).to(dev), l.shape)
-                for i, l in enumerate(flat)]
+            noisy = [l + sigma * prng.normal(prng.fold_in(key_t, i), l.shape)
+                     for i, l in enumerate(flat)]
             clipped = unflatten_like(clipped, noisy)
         return inner.apply(w, extra, clipped, t)
 

@@ -1,3 +1,4 @@
+from repro_torch.data.device import DeviceFederatedDataset  # noqa: F401
 from repro_torch.data.federated import (  # noqa: F401
     CorpusSchemaError,
     FederatedDataset,

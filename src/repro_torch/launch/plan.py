@@ -1,38 +1,54 @@
 """Declarative execution plans for ``FederatedTrainer.run`` (the driver API).
 
-The JAX package runs one algorithm on four execution planes
-(``"per_round" | "scanned" | "device" | "streaming"``) plus ``"auto"``.
-This port runs two of them:
+One algorithm, one trajectory, four execution planes, as in the JAX
+package:
 
 * ``"per_round"``: one ``round_step`` per round, host Python between
   rounds;
+* ``"scanned"``: chunks of ``chunk_rounds`` rounds on host-staged batches
+  that a producer thread assembles ahead (``core.multiround.scan_rounds``);
+* ``"device"``: the corpus packed once on the device
+  (``DeviceFederatedDataset``) and each chunk sampling and gathering there
+  (``scan_rounds_ondevice``);
 * ``"streaming"``: the corpus stays on the host as per-client shards and a
   bounded device-side ``ShardCache`` (``cache=CacheSpec(...)``) holds the
-  shards of upcoming participants in n_k-tiered slots; chunks of
-  ``chunk_rounds`` rounds run back to back, and ``CacheSpec(bucketed=True)``
-  makes the compute n_k-shaped too (one sized launch per occupied tier).
+  shards of upcoming participants in n_k-tiered slots;
+  ``CacheSpec(bucketed=True)`` makes the compute n_k-shaped too.
 
-Explicit planes are capability-checked (``check_plane``: the streaming
-plane needs a ``KeyedReplayable`` sampler).  The planes and fields that
-belong to layers not yet ported (``"auto"``, ``"scanned"``, ``"device"``,
-``chunk_rounds="auto"``, ``memory_budget_bytes``, ``scenario``, ``secure``,
-``mesh``) raise a structured ``PlanError`` with ``nearest`` set — a plan is
-never silently run as something else.
+On the card each chunk of the scanned and device planes is one CUDA graph
+replay (``launch/graph.py``), the counterpart of the reference's jitted
+``lax.scan``.
 
-A ``TrainSession`` holds what outlives one ``run()`` call: the host
-streaming dataset, the persistent ``ShardCache`` (a second run re-uploads
-nothing for resident clients) and the ``plan_log`` of every resolution.
+``plane="auto"`` (the default, as in the reference) resolves to a concrete
+plane by the reference's rule: the packed corpus (``packed_nbytes``) fits
+the memory budget -> **device**; otherwise one chunk's tiered participant
+working set fits -> **streaming**; otherwise, or when the sampler lacks
+the capability, -> **scanned**.  ``chunk_rounds="auto"`` sizes chunks from
+the measured dispatch overhead.  Every resolution returns a
+``PlanDecision`` that the trainer logs into ``TrainSession.plan_log`` (and,
+for auto runs, into the history and the metrics jsonl).  Explicit planes
+are capability-checked (``check_plane``): the device plane needs a
+``DeviceSampleable`` sampler, the streaming plane a ``KeyedReplayable``
+one.  The fields that belong to layers not yet ported (``scenario``,
+``secure``, ``mesh``) raise a structured ``PlanError`` with ``nearest``
+set; a plan is never silently run as something else.
+
+A ``TrainSession`` holds what outlives one ``run()`` call: the packed and
+the streaming datasets, the persistent ``ShardCache`` (a second run
+re-uploads nothing for resident clients), the chunk graphs, the measured
+dispatch overhead and the ``plan_log`` of every resolution.
 
 This module imports the rest of the package lazily: ``core.round`` imports
 ``PlanError`` from here.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Optional, Union
 
 PLANES = ("per_round", "scanned", "device", "streaming")
-PORTED_PLANES = ("per_round", "streaming")
+PORTED_PLANES = PLANES + ("auto",)
 _PLANE_ALIASES = {"per-round": "per_round", "python-loop": "per_round"}
 
 
@@ -40,8 +56,9 @@ class PlanError(ValueError):
     """A plan that cannot run as declared.
 
     ``plane`` is the requested plane, ``missing`` names an absent sampler
-    capability (``"KeyedReplayable"``, or ``None`` for plain validation
-    errors) and ``nearest`` names the closest plane that would run.
+    capability (``"DeviceSampleable"`` / ``"KeyedReplayable"``, or ``None``
+    for plain validation errors) and ``nearest`` names the closest plane
+    that would run.
     """
 
     def __init__(self, message: str, plane: Optional[str] = None,
@@ -78,8 +95,8 @@ class CacheSpec:
 
 @dataclass(frozen=True)
 class EvalSpec:
-    """Eval cadence in rounds.  The streaming plane splits its chunks at
-    eval rounds, so it evals at the same rounds as the per-round plane."""
+    """Eval cadence in rounds.  The chunked planes split their chunks at
+    eval rounds, so they eval at the same rounds as the per-round plane."""
     cadence: int = 50
 
 
@@ -94,33 +111,40 @@ class CkptSpec:
 
 
 def _not_ported(what: str, plane: str) -> PlanError:
-    nearest = plane if plane in PORTED_PLANES else "per_round"
+    nearest = "per_round" if plane == "auto" else plane
     return PlanError(
         f"{what} is not yet ported to repro_torch (this port runs the "
-        f"planes {PORTED_PLANES} with an int chunk_rounds); nearest viable "
-        f"plane: {nearest!r}", plane=plane, nearest=nearest)
+        f"planes {PLANES} and 'auto' without scenarios, secure aggregation "
+        f"or a mesh); nearest viable plane: {nearest!r}", plane=plane,
+        nearest=nearest)
 
 
-# read only by the auto rule and layers not yet ported
-_UNPORTED_FIELDS = ("memory_budget_bytes", "scenario", "secure", "mesh")
+# the layers these fields drive (scenarios, secure aggregation, the
+# device mesh) are not ported yet
+_UNPORTED_FIELDS = ("scenario", "secure", "mesh")
 
 
 @dataclass(frozen=True)
 class ExecutionPlan:
-    """What to run.  ``chunk_rounds``, ``prefetch`` and ``cache`` take the
-    reference's defaults and checks; ``prefetch`` is truthiness on the
-    streaming plane (upload chunk i+1 right after chunk i is enqueued, or
-    only after chunk i's metrics are read).  ``local_batch`` overrides the
-    trainer's ``local_batch`` field when set.  Unlike the reference, whose
-    default plane is ``"auto"``, the port defaults to ``"per_round"``: the
-    auto rule is not ported."""
-    plane: str = "per_round"
+    """What to run and under which budget; the engine picks the rest.
+
+    ``plane="auto"`` resolves against ``memory_budget_bytes`` (default: the
+    card's total memory, unbounded on the CPU; pass an explicit budget to
+    constrain a CPU run).  ``prefetch`` is the depth of the host queue of
+    assembled chunks on the scanned plane and a switch on the streaming
+    plane (upload chunk i+1 right after chunk i is enqueued, or only after
+    chunk i's metrics are read).  ``local_batch`` overrides the trainer's
+    ``local_batch`` field when set.  ``chunk_rounds="auto"`` sizes chunks
+    from the measured dispatch overhead (``auto_chunk_rounds``); the size
+    chosen is audited on the ``PlanDecision``.  Defaults and checks are the
+    reference's."""
+    plane: str = "auto"
     chunk_rounds: Union[int, str] = 25
     prefetch: int = 2
     cache: CacheSpec = CacheSpec()
     eval: EvalSpec = EvalSpec()
     ckpt: Optional[CkptSpec] = None
-    memory_budget_bytes: Optional[Any] = None
+    memory_budget_bytes: Optional[int] = None
     local_batch: Optional[int] = None
     scenario: Optional[Any] = None
     secure: Optional[Any] = None
@@ -129,7 +153,7 @@ class ExecutionPlan:
     def __post_init__(self):
         plane = _PLANE_ALIASES.get(self.plane, self.plane)
         object.__setattr__(self, "plane", plane)
-        if plane not in PLANES + ("auto",):
+        if plane not in PORTED_PLANES:
             raise PlanError(
                 f"unknown plane {self.plane!r}: want 'auto' or one of "
                 f"{PLANES}", plane=self.plane)
@@ -150,6 +174,7 @@ class ExecutionPlan:
         for name, v in (("cache.clients", self.cache.clients),
                         ("cache.bytes", self.cache.bytes),
                         ("cache.tiers", self.cache.tiers),
+                        ("memory_budget_bytes", self.memory_budget_bytes),
                         ("local_batch", self.local_batch)):
             if v is not None and (not isinstance(v, int) or v < 1):
                 raise PlanError(f"{name} must be a positive int, got {v!r}",
@@ -172,20 +197,15 @@ class ExecutionPlan:
             raise PlanError(
                 f"ckpt.every must be >= 0, got {self.ckpt.every}",
                 plane=plane)
-        if plane not in PORTED_PLANES:
-            raise _not_ported(f"plane {plane!r}", plane)
-        if self.chunk_rounds == "auto":
-            raise _not_ported("chunk_rounds='auto' (sizing chunks from the "
-                              "measured dispatch overhead)", plane)
         for name in _UNPORTED_FIELDS:
             if getattr(self, name) is not None:
                 raise _not_ported(f"ExecutionPlan.{name}", plane)
 
 
 def as_plan(plan: Union[None, str, ExecutionPlan]) -> ExecutionPlan:
-    """Normalize ``run(plan=...)`` input: ``None`` is the per-round plane,
-    a string names a plane, an ``ExecutionPlan`` passes through (already
-    validated)."""
+    """Normalize ``run(plan=...)`` input: ``None`` keeps the per-round
+    plane, a string names a plane (or ``"auto"``), an ``ExecutionPlan``
+    passes through (already validated)."""
     if plan is None:
         return ExecutionPlan(plane="per_round")
     if isinstance(plan, str):
@@ -205,80 +225,181 @@ def as_plan(plan: Union[None, str, ExecutionPlan]) -> ExecutionPlan:
 @dataclass
 class PlanDecision:
     """The audited outcome of resolving a plan (``record()`` is the
-    jsonl-able form logged to ``TrainSession.plan_log``; no ``"round"``
-    key, so resume's ``prune_metrics`` never drops it)."""
+    jsonl-able form logged to ``TrainSession.plan_log`` and, for auto runs,
+    to the history and the metrics log; no ``"round"`` key, so resume's
+    ``prune_metrics`` never drops it)."""
     plane: str
     auto: bool
     reason: str
+    packed_nbytes: Optional[int] = None
+    budget_bytes: Optional[int] = None
+    working_set_nbytes: Optional[int] = None
     chunk_rounds: Optional[int] = None        # the size run() uses
+    dispatch_overhead_s: Optional[float] = None   # set when measured
     bucketed: bool = False
 
     def record(self) -> dict:
         rec = {"event": "plan", "plane": self.plane, "auto": self.auto,
                "reason": self.reason}
-        if self.chunk_rounds is not None:
-            rec["chunk_rounds"] = int(self.chunk_rounds)
+        for k in ("packed_nbytes", "budget_bytes", "working_set_nbytes",
+                  "chunk_rounds"):
+            v = getattr(self, k)
+            if v is not None:
+                rec[k] = int(v)
+        if self.dispatch_overhead_s is not None:
+            rec["dispatch_overhead_s"] = round(
+                float(self.dispatch_overhead_s), 9)
         if self.bucketed:
             rec["bucketed"] = True
         return rec
 
 
-_CAP_DETAIL = ("a keyed sample_device(key, t) plus base_key(), with the host "
-               "sample(t) a stateless replay of the (seed, t)-keyed draw")
+def device_memory_budget(device=None) -> Optional[int]:
+    """The card's total memory in bytes (``torch.cuda.mem_get_info``) when
+    ``device`` is a CUDA device; ``None`` on the CPU, where the auto rule
+    treats memory as unbounded unless the plan carries an explicit
+    ``memory_budget_bytes``."""
+    import torch
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    return int(torch.cuda.mem_get_info(torch.device(device))[1])
+
+
+# chunk_rounds="auto": amortize the measured per-chunk dispatch overhead
+# down to ~25us/round, the reference's constants
+_AUTO_CHUNK_TARGET_S = 25e-6
+_AUTO_CHUNK_MIN = 8         # never chunk so small that captures multiply
+_AUTO_CHUNK_MAX = 256       # bound staging memory + ragged-tail captures
+
+
+def measure_dispatch_overhead(device=None, n: int = 50) -> float:
+    """Seconds of the fixed host cost every chunk pays whatever its size:
+    on a card one replay of an already-captured trivial CUDA graph (the
+    form a chunk takes there), on the CPU one eager op.  Times ``n``
+    dispatches in a row after one untimed, then waits for them."""
+    import torch
+    dev = torch.device("cpu" if device is None else device)
+    x = torch.zeros(8, device=dev)
+    if dev.type == "cuda":
+        x.add_(1.0)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            x.add_(1.0)
+        dispatch = graph.replay
+    else:
+        def dispatch():
+            x.add_(1.0)
+    dispatch()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        dispatch()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) / n
+
+
+def auto_chunk_rounds(overhead_s: float, n_rounds: int) -> int:
+    """Chunk size that amortizes ``overhead_s`` to ``_AUTO_CHUNK_TARGET_S``
+    per round, clamped to [_AUTO_CHUNK_MIN, _AUTO_CHUNK_MAX] and to the run
+    length (a chunk longer than the run just captures a ragged shape)."""
+    want = -(-float(overhead_s) // _AUTO_CHUNK_TARGET_S)   # ceil
+    chunk = int(max(_AUTO_CHUNK_MIN, min(_AUTO_CHUNK_MAX, want)))
+    return max(1, min(chunk, int(n_rounds)))
+
+
+def _caps():
+    from repro_torch.core.sampling import DeviceSampleable, KeyedReplayable
+    return {"per_round": None, "scanned": None,
+            "device": ("DeviceSampleable", DeviceSampleable),
+            "streaming": ("KeyedReplayable", KeyedReplayable)}
+
+
+_CAP_DETAIL = {
+    "DeviceSampleable": "a traceable sample_device(key, t) drawn inside the "
+                        "compiled scan",
+    "KeyedReplayable": "a traceable sample_device(key, t) plus base_key(), "
+                       "with the host sample(t) a stateless replay of the "
+                       "(seed, t)-keyed device draw",
+}
+
+
+def nearest_viable_plane(sampler, dataset) -> str:
+    """Most capable plane this sampler/dataset pair can actually run."""
+    caps = _caps()
+    for plane in ("streaming", "device", "scanned", "per_round"):
+        name_cap = caps[plane]
+        if name_cap is not None and not isinstance(sampler, name_cap[1]):
+            continue
+        if _dataset_supports(plane, dataset):
+            return plane
+    return "per_round"
 
 
 def _dataset_supports(plane: str, dataset) -> bool:
-    """Which planes a dataset can feed: a ``StreamingFederatedDataset`` pins
-    the streaming plane; a host ``FederatedDataset`` (or a compatible
-    custom dataset: keyed ``round_batches`` for the per-round plane,
-    per-client ``data`` shards and the draw-keying ``seed`` for the
-    streaming one) feeds either."""
+    """Which planes a dataset can feed.  A ``DeviceFederatedDataset`` pins
+    the device plane and a ``StreamingFederatedDataset`` the streaming one;
+    a host ``FederatedDataset`` (or a compatible custom dataset: keyed
+    ``round_batches`` for the host-assembly planes, per-client ``data``
+    shards and the draw-keying ``seed`` for the packable/streamable ones)
+    feeds any plane."""
+    from repro_torch.data.device import DeviceFederatedDataset
     from repro_torch.data.stream import StreamingFederatedDataset
+    if isinstance(dataset, DeviceFederatedDataset):
+        return plane == "device"
     if isinstance(dataset, StreamingFederatedDataset):
         return plane == "streaming"
-    if plane == "per_round":
+    if plane in ("per_round", "scanned"):
         return hasattr(dataset, "round_batches")
     return hasattr(dataset, "data") and hasattr(dataset, "seed")
 
 
-def nearest_viable_plane(sampler, dataset) -> str:
-    """Most capable ported plane this sampler/dataset pair can run."""
-    from repro_torch.core.sampling import KeyedReplayable
-    if isinstance(sampler, KeyedReplayable) \
-            and _dataset_supports("streaming", dataset):
-        return "streaming"
-    return "per_round"
-
-
 def check_plane(plane: str, sampler, dataset) -> None:
     """Raise a structured ``PlanError`` when ``plane`` cannot run with this
-    sampler/dataset (missing capability or unsupported dataset)."""
-    from repro_torch.core.sampling import KeyedReplayable
-    if plane == "streaming" and not isinstance(sampler, KeyedReplayable):
+    sampler/dataset (missing capability Protocol or unsupported dataset)."""
+    name_cap = _caps()[plane]
+    if name_cap is not None and not isinstance(sampler, name_cap[1]):
+        name, _ = name_cap
         nearest = nearest_viable_plane(sampler, dataset)
         raise PlanError(
-            f"plane 'streaming' needs sampler capability KeyedReplayable "
-            f"({_CAP_DETAIL}) but {type(sampler).__name__} does not provide "
-            f"it; nearest viable plane: {nearest!r}",
-            plane=plane, missing="KeyedReplayable", nearest=nearest)
+            f"plane {plane!r} needs sampler capability {name} "
+            f"({_CAP_DETAIL[name]}) but {type(sampler).__name__} does not "
+            f"provide it; nearest viable plane: {nearest!r}",
+            plane=plane, missing=name, nearest=nearest)
     if not _dataset_supports(plane, dataset):
         nearest = nearest_viable_plane(sampler, dataset)
         raise PlanError(
             f"plane {plane!r} cannot use a {type(dataset).__name__} "
-            f"(per_round needs host round_batches; streaming needs "
-            f"per-client host data or a StreamingFederatedDataset); nearest "
-            f"viable plane: {nearest!r}", plane=plane, nearest=nearest)
+            f"(per_round/scanned need host round_batches; device/streaming "
+            f"need packable per-client host data or an already-matching "
+            f"dataset); nearest viable plane: {nearest!r}",
+            plane=plane, nearest=nearest)
 
 
 def resolve(plan: ExecutionPlan, trainer, n_rounds: int) -> PlanDecision:
-    """Resolve an explicit-plane ``plan`` for ``trainer``: capability-check
-    the plane, take the plan's chunk size, and refuse a ``cache.bucketed``
-    plan that could not run bucketed (wrong plane or ``placement``) rather
-    than train it un-bucketed.  Builds nothing and uploads nothing."""
-    check_plane(plan.plane, trainer.sampler, trainer.dataset)
-    decision = PlanDecision(plan.plane, False,
-                            f"explicit plane {plan.plane!r}",
-                            chunk_rounds=int(plan.chunk_rounds))
+    """Resolve ``plan`` to a concrete plane + chunk size for ``trainer``
+    (the reference's rule).  Explicit planes are capability-checked;
+    ``"auto"`` compares the packed corpus and the chunk working set with
+    the memory budget.  ``chunk_rounds="auto"`` is resolved from the
+    measured dispatch overhead (cached on the session: one measurement per
+    workload, not per run).  A ``cache.bucketed`` plan must land on the
+    streaming plane with ``placement="mesh"``; anything else raises rather
+    than training un-bucketed.  Builds at most the host-side streaming
+    metadata, never uploads data."""
+    if plan.chunk_rounds == "auto":
+        overhead = trainer.session.dispatch_overhead(trainer.device)
+        chunk = auto_chunk_rounds(overhead, n_rounds)
+    else:
+        overhead, chunk = None, int(plan.chunk_rounds)
+    decision = _resolve_plane(plan, trainer, chunk)
+    decision.chunk_rounds = chunk
+    if overhead is not None:
+        decision.dispatch_overhead_s = overhead
+        decision.reason += (
+            f"; chunk_rounds auto -> {chunk} (measured "
+            f"dispatch overhead {overhead * 1e6:.0f}us/chunk amortized to "
+            f"<={_AUTO_CHUNK_TARGET_S * 1e6:.0f}us/round)")
     if plan.cache.bucketed:
         if decision.plane != "streaming":
             raise PlanError(
@@ -296,21 +417,183 @@ def resolve(plan: ExecutionPlan, trainer, n_rounds: int) -> PlanDecision:
     return decision
 
 
+def _resolve_plane(plan: ExecutionPlan, trainer,
+                   chunk_rounds: int) -> PlanDecision:
+    """The plane half of ``resolve``: the reference's ``_resolve_plane``
+    on one device (no mesh).  The streaming working set is priced at
+    ``chunk_rounds``, the resolved size (the reference multiplies the
+    literal ``"auto"`` there)."""
+    from repro_torch.core.sampling import DeviceSampleable, KeyedReplayable
+    from repro_torch.data.device import DeviceFederatedDataset
+    from repro_torch.data.stream import StreamingFederatedDataset
+    sampler, dataset = trainer.sampler, trainer.dataset
+    if plan.plane != "auto":
+        check_plane(plan.plane, sampler, dataset)
+        return PlanDecision(plan.plane, False,
+                            f"explicit plane {plan.plane!r}")
+    if isinstance(dataset, StreamingFederatedDataset):
+        check_plane("streaming", sampler, dataset)
+        return PlanDecision(
+            "streaming", True,
+            "dataset is a host-resident StreamingFederatedDataset")
+    if isinstance(dataset, DeviceFederatedDataset):
+        check_plane("device", sampler, dataset)
+        return PlanDecision(
+            "device", True, "dataset is already device-resident")
+    if not _dataset_supports("device", dataset):
+        # a host-assembly-only dataset (keyed round_batches but no
+        # per-client shards to pack or stream): the fused planes are out
+        # before any budget math
+        check_plane("scanned", sampler, dataset)
+        return PlanDecision(
+            "scanned", True,
+            f"dataset {type(dataset).__name__} supports only host assembly "
+            f"(no per-client data shards to pack or stream)")
+    budget = (plan.memory_budget_bytes if plan.memory_budget_bytes is not None
+              else device_memory_budget(trainer.device))
+    sds = trainer.session.streaming_dataset(dataset)   # host metadata only
+    packed = sds.packed_nbytes
+    if isinstance(sampler, DeviceSampleable) and (budget is None
+                                                  or packed <= budget):
+        return PlanDecision(
+            "device", True,
+            f"packed corpus ({packed} B) fits the device memory "
+            f"budget ({'unbounded' if budget is None else f'{budget} B'})",
+            packed_nbytes=packed, budget_bytes=budget)
+    # the streaming working set: the tiered cache footprint the declared
+    # CacheSpec would allocate, not a uniform slot_nbytes multiple
+    layout = sds.tier_layout(plan.cache.tiers)
+    if plan.cache.clients is None and plan.cache.bytes is None:
+        cap = min(trainer.rcfg.clients_per_round * chunk_rounds,
+                  sds.n_clients)
+    else:
+        # mirror ShardCache exactly (tighter declaration wins); None when
+        # the declared byte budget is below one slot per occupied tier
+        cap = sds.n_clients
+        if plan.cache.clients is not None:
+            cap = min(cap, plan.cache.clients)
+        if plan.cache.bytes is not None:
+            by_bytes = layout.capacity_for_bytes(plan.cache.bytes)
+            cap = None if by_bytes is None else min(cap, by_bytes)
+    working_set = None if cap is None else layout.bytes_for_capacity(cap)
+    if (cap is not None and isinstance(sampler, KeyedReplayable)
+            and (budget is None or working_set <= budget)):
+        # say what ruled the device plane out: the budget only when there
+        # IS one and the corpus exceeds it, the missing capability otherwise
+        if not isinstance(sampler, DeviceSampleable):
+            blocked = (f"the device plane is out (sampler "
+                       f"{type(sampler).__name__} lacks DeviceSampleable)")
+        else:
+            blocked = (f"packed corpus ({packed} B) exceeds the budget "
+                       f"({budget} B)")
+        fits = ("the unbounded budget" if budget is None
+                else f"the budget ({budget} B)")
+        return PlanDecision(
+            "streaming", True,
+            f"{blocked} but one chunk's participant working set ({cap} "
+            f"clients over {layout.n_tiers} size tier(s), {working_set} B "
+            f"tiered) fits {fits}",
+            packed_nbytes=packed, budget_bytes=budget,
+            working_set_nbytes=working_set)
+    if not isinstance(sampler, DeviceSampleable):
+        why = (f"sampler {type(sampler).__name__} lacks DeviceSampleable "
+               f"(no traceable sample_device), so the fused on-device "
+               f"planes are out")
+    elif not isinstance(sampler, KeyedReplayable):
+        why = (f"corpus exceeds the budget and sampler "
+               f"{type(sampler).__name__} lacks KeyedReplayable (host "
+               f"sample does not replay the keyed draw), so streaming is "
+               f"out")
+    elif cap is None:
+        why = (f"the declared cache budget ({plan.cache.bytes} B) is below "
+               f"the minimum viable tiered cache ({layout.min_viable_bytes} "
+               f"B: one slot in each of {layout.n_tiers} occupied size "
+               f"tier(s)), so streaming is out")
+    else:
+        why = (f"even one chunk's participant working set ({working_set} B "
+               f"tiered) exceeds the budget ({budget} B)")
+    check_plane("scanned", sampler, dataset)   # structured error, never a
+    return PlanDecision(                       # raw crash downstream
+        "scanned", True, f"host prefetch-queue fallback: {why}",
+        packed_nbytes=packed, budget_bytes=budget,
+        working_set_nbytes=working_set)
+
+
+class _IdKey:
+    """Identity-keyed cache-key component.  Holds a strong reference, so
+    the wrapped object's ``id`` can never be recycled while a cache entry
+    keyed on it is alive (the hazard of keying on bare ``id(obj)``)."""
+    __slots__ = ("obj",)
+
+    def __init__(self, obj):
+        self.obj = obj
+
+    def __hash__(self):
+        return id(self.obj)
+
+    def __eq__(self, other):
+        return isinstance(other, _IdKey) and other.obj is self.obj
+
+    def __repr__(self):
+        return f"_IdKey({type(self.obj).__name__}@{id(self.obj):#x})"
+
+
 @dataclass
 class TrainSession:
     """Warm execution resources that outlive a single ``run()`` call.
 
-    Owns the host streaming dataset (built once) and the persistent
-    ``ShardCache``: resident shards survive across ``run()`` calls, so a
-    second run, an eval loop or a resumed run re-uploads nothing for
-    already-cached clients.  ``plan_log`` is the in-memory audit trail of
-    every plan resolution.  Pass one session to several trainers to share
-    them."""
+    Owns the packed and the host streaming datasets (built once), the
+    persistent ``ShardCache`` (resident shards survive across ``run()``
+    calls, so a second run, an eval loop or a resumed run re-uploads
+    nothing for already-cached clients), the chunk graphs (keyed by config
+    identity, so a fresh trainer sharing the session, e.g. rebuilt for a
+    resume, replays the graphs already captured) and the measured dispatch
+    overhead.  ``plan_log`` is the in-memory audit trail of every plan
+    resolution."""
+    device_ds: Any = None
     stream_ds: Any = None
     shard_cache: Any = None
+    graphs: dict = field(default_factory=dict)
     plan_log: list = field(default_factory=list)
+    _device_key: Any = None
     _stream_src: Any = None
     _cache_key: Any = None
+    _dispatch_overhead_s: Optional[float] = None
+
+    def dispatch_overhead(self, device=None) -> float:
+        """The measured per-chunk dispatch overhead (seconds), measured
+        once per session and reused by every ``chunk_rounds="auto"``
+        resolution: it is a property of the host and the runtime, not of
+        any one plan."""
+        if self._dispatch_overhead_s is None:
+            self._dispatch_overhead_s = measure_dispatch_overhead(device)
+        return self._dispatch_overhead_s
+
+    def chunk_graph(self, key, build):
+        """The chunk graph cached under ``key`` (``build()`` makes it on a
+        miss): the counterpart of the reference's ``jit_fn``."""
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = build()
+        return graph
+
+    def device_dataset(self, dataset, shard_clients: bool = True,
+                       mesh=None, device=None):
+        """The packed corpus of ``dataset`` on ``device``, built once per
+        (dataset, device); a ``DeviceFederatedDataset`` is taken as it
+        is.  A mesh is refused: the mesh layer is not ported yet."""
+        from repro_torch.data.device import DeviceFederatedDataset
+        if mesh is not None:
+            raise _not_ported("a mesh-sharded device corpus", "device")
+        key = (dataset, str(device))
+        if self.device_ds is None or not _same_key(self._device_key, key):
+            if isinstance(dataset, DeviceFederatedDataset):
+                self.device_ds = dataset
+            else:
+                self.device_ds = DeviceFederatedDataset.from_federated(
+                    dataset, shard_clients=shard_clients, device=device)
+            self._device_key = key
+        return self.device_ds
 
     def streaming_dataset(self, dataset):
         from repro_torch.data.stream import StreamingFederatedDataset

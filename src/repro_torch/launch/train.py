@@ -2,28 +2,45 @@
 
 Couples the host-side scheduler (client sampling, round-batch assembly,
 checkpointing, logging) with the round engine, on the trainer's ``device``
-(``cuda`` unless the caller asks for another).  Two of the JAX package's
-execution planes are ported, and both train the reference's trajectory
-within fp32 tolerance, because sampling and minibatch draws are the same
-keyed threefry draws:
+(``cuda`` unless the caller asks for another).  The JAX package's four
+execution planes and its ``"auto"`` rule are ported; every plane trains the
+reference's trajectory within fp32 tolerance, because sampling and
+minibatch draws are the same keyed threefry draws:
 
-* ``plan="per_round"`` (the default): one ``round_step`` per round, host
-  Python between rounds;
+* ``plan="per_round"`` (the default when ``plan`` is omitted): one
+  ``round_step`` per round, host Python between rounds;
+* ``plan="scanned"``: chunks of ``chunk_rounds`` rounds on host-staged
+  ``[R, C, H, b, ...]`` batches (``core.multiround.scan_rounds``), which a
+  producer thread assembles ``prefetch`` chunks ahead;
+* ``plan="device"``: the corpus is packed once on the device
+  (``DeviceFederatedDataset``) and each chunk samples S_t and gathers its
+  minibatches there (``scan_rounds_ondevice``): nothing crosses from the
+  host but the chunk's first round, its stepsizes and its H_k masks.
+  Needs a ``DeviceSampleable`` sampler;
 * ``plan=ExecutionPlan(plane="streaming", chunk_rounds=..., cache=
   CacheSpec(...))``: the corpus stays on the host as per-client shards, a
   bounded device-side ``ShardCache`` holds the shards of each chunk's
-  participants in n_k-tiered slots, and each chunk of rounds runs back to
-  back on the device (``core.multiround.scan_rounds_ondevice``: keyed
-  sampling and gather on the device).  ``CacheSpec(bucketed=True)`` stages
-  each chunk's cohort on the host grouped by size tier and runs sized
-  per-tier work (``scan_rounds_bucketed``), optionally through the fused
-  ``kernels/client_step`` kernel via ``client_step_fn``.  Needs a
-  ``KeyedReplayable`` sampler: the host replay names each chunk's
-  participants before its compute is enqueued.
+  participants in n_k-tiered slots, and each chunk runs back to back on
+  the device (``scan_rounds_ondevice``).  ``CacheSpec(bucketed=True)``
+  stages each chunk's cohort on the host grouped by size tier and runs
+  sized per-tier work (``scan_rounds_bucketed``), optionally through the
+  fused ``kernels/client_step`` kernel via ``client_step_fn``.  Needs a
+  ``KeyedReplayable`` sampler;
+* ``plan="auto"``: the plane is resolved from the memory budget against
+  ``packed_nbytes`` and the chunk working set (``launch/plan.py``
+  ``resolve``); the decision is logged into ``session.plan_log``, the
+  history and the metrics jsonl, and the resolved run equals requesting
+  that plane directly.
+
+On the card each chunk of the scanned and device planes is one CUDA graph
+replay (``launch/graph.py`` ``ChunkGraph``, cached on the session per chunk
+shape; a ragged last chunk gets its own).  The streaming planes run their
+chunks eagerly.
 
 A ``TrainSession`` (created per trainer, shareable via ``session=``) owns
-the streaming dataset and the persistent ``ShardCache`` across ``run()``
-calls: a second run re-uploads nothing for already-resident clients.
+the packed and streaming datasets, the persistent ``ShardCache`` and the
+chunk graphs across ``run()`` calls: a second run re-uploads nothing for
+already-resident clients and captures nothing again.
 
 Every run takes ``resume=True``: ``checkpoint.latest_round`` +
 ``restore_state`` pick the trajectory up at the round after the last
@@ -32,15 +49,19 @@ the resumed run equal to an uninterrupted one.  Heterogeneous local work:
 ``hetero_steps_fn(t) -> [C] H_k`` runs each client's first H_k of the H
 staged local steps.  Time-varying participation (``DeviceDiurnalSampler``)
 works through the padded-C convention (``rcfg.clients_per_round`` must
-equal ``sampler.lowered_clients``).
+equal ``sampler.lowered_clients``).  The deprecated ``run_scanned`` /
+``run_device`` / ``run_streaming`` shims stay equal to the plan API.
 
-The scanned, device and auto planes and ``param_axes`` belong to later
-slices of the port and raise ``PlanError``.
+``param_axes`` belongs to a later slice of the port and raises
+``PlanError``.
 """
 from __future__ import annotations
 
 import contextlib
+import queue
+import threading
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Union
 
@@ -50,17 +71,20 @@ import torch
 from repro_torch.checkpoint import (AsyncCheckpointWriter, append_metrics,
                                     latest_round, prune_metrics,
                                     restore_state)
-from repro_torch.core.multiround import (scan_rounds_bucketed,
+from repro_torch import random as prng
+from repro_torch.core.multiround import (scan_rounds, scan_rounds_bucketed,
                                          scan_rounds_ondevice)
 from repro_torch.core.round import DTYPES, RoundConfig, round_step
 from repro_torch.core.sampling import (KeyedReplayable, UniformSampler,
                                        participants_in_span)
 from repro_torch.core.server_opt import ServerOpt, ServerState
+from repro_torch.data.device import DeviceFederatedDataset
 from repro_torch.data.federated import FederatedDataset, minibatch_indices
 from repro_torch.data.stream import ShardCache, StreamingFederatedDataset
 from repro_torch.device import resolve_device
-from repro_torch.launch.plan import (ExecutionPlan, PlanError, TrainSession,
-                                     as_plan, resolve)
+from repro_torch.launch.graph import ChunkGraph, detach_state, pin_inputs
+from repro_torch.launch.plan import (CacheSpec, ExecutionPlan, PlanError,
+                                     TrainSession, _IdKey, as_plan, resolve)
 from repro_torch.tree import tree_map
 
 
@@ -121,6 +145,14 @@ def _staged_indices(data_key: torch.Tensor, t, cids, n_k,
     as64 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64)
     return minibatch_indices(data_key, as64(t), as64(cids), as64(n_k),
                              need).numpy()
+
+
+def _warn_shim(old: str, plane: str):
+    warnings.warn(
+        f"FederatedTrainer.{old}(...) is deprecated: use "
+        f"run(n_rounds, plan=ExecutionPlan(plane={plane!r}, ...)); the shim "
+        f"trains the same trajectory until it is removed",
+        DeprecationWarning, stacklevel=3)
 
 
 @dataclass
@@ -211,11 +243,30 @@ class FederatedTrainer:
         return batches, np.asarray(weights, np.float32), lr_t, mask
 
     def _chunk_knobs(self, t_lo: int, t_hi: int):
-        """[R] lrs + optional [R, C, H] masks for a chunk of rounds."""
+        """[R] float32 lrs + optional [R, C, H] masks for a chunk of
+        rounds."""
         knobs = [self._round_knobs(t) for t in range(t_lo, t_hi)]
         masks = None if knobs[0][1] is None else np.stack(
             [m for _, m in knobs])
-        return [lr for lr, _ in knobs], masks
+        return np.asarray([lr for lr, _ in knobs], np.float32), masks
+
+    def _assemble_chunk(self, t_lo: int, t_hi: int) -> dict:
+        """Rounds [t_lo, t_hi) stacked into the scanned plane's chunk
+        inputs: ``batches`` [R, C, H, b, ...], ``weights`` [R, C], ``lrs``
+        [R] and, with ``hetero_steps_fn``, ``masks`` [R, C, H]."""
+        rounds = [self._round_inputs(t) for t in range(t_lo, t_hi)]
+        first = rounds[0][0]
+        out = {"batches": {k: np.stack([r[0][k] for r in rounds])
+                           for k in first},
+               "weights": np.stack([r[1] for r in rounds]),
+               "lrs": np.asarray([r[2] for r in rounds], np.float32)}
+        if rounds[0][3] is not None:
+            out["masks"] = np.stack([r[3] for r in rounds])
+        return out
+
+    def _sig(self):
+        return (_IdKey(self.loss_fn), _IdKey(self.server_opt), self.rcfg,
+                str(self.device))
 
     def _resume_round(self, resume: bool) -> int:
         """First round this run should execute: 0 normally; with
@@ -269,15 +320,17 @@ class FederatedTrainer:
             resume: bool = False):
         """Train ``n_rounds`` federated rounds under ``plan``.
 
-        ``plan``: ``None`` or ``"per_round"`` (the per-round plane),
-        ``"streaming"`` or an ``ExecutionPlan``; the planes not yet ported
-        raise ``PlanError``.  A plan's ``local_batch`` / ``ckpt`` overrides
+        ``plan``: ``None`` (the per-round plane), a plane name (``"auto" |
+        "per_round" | "scanned" | "device" | "streaming"``) or an
+        ``ExecutionPlan``.  A plan's ``local_batch`` / ``ckpt`` overrides
         are scoped to this call.  ``log_every`` overrides
         ``plan.eval.cadence``; ``eval_fn(state) -> dict`` runs at every
-        cadence round and the last (the streaming plane splits its chunks
+        cadence round and the last (the chunked planes split their chunks
         there).  ``resume=True`` continues from the latest durable
-        checkpoint.  Every resolution is appended to ``session.plan_log``.
-        Returns the history (one record per round).
+        checkpoint.  Every resolution is appended to ``session.plan_log``;
+        an auto resolution also to the history and the metrics jsonl as a
+        ``{"event": "plan", ...}`` record.  Returns the history (one record
+        per round, after any such record).
         """
         plan = as_plan(plan)
         saved = (self.local_batch, self.ckpt_path, self.ckpt_every)
@@ -292,16 +345,40 @@ class FederatedTrainer:
             self._check_client_extent()
             decision = resolve(plan, self, n_rounds)
             self.session.plan_log.append(decision.record())
+            if decision.auto:
+                rec = decision.record()
+                self.history.append(rec)
+                if self.metrics_path:
+                    append_metrics(self.metrics_path, [rec])
+                if verbose:
+                    print(f"  plan: auto -> {decision.plane} "
+                          f"({decision.reason})")
             cadence = (log_every if log_every is not None
                        else plan.eval.cadence)
             if decision.plane == "per_round":
                 return self._run_per_round(n_rounds, cadence, eval_fn,
                                            verbose, resume)
-            return self._run_streaming(
-                n_rounds, decision.chunk_rounds, plan.cache.clients,
-                plan.cache.bytes, plan.cache.tiers, decision.bucketed,
-                bool(plan.prefetch), eval_fn,
-                cadence if eval_fn is not None else None, verbose, resume)
+            # chunked planes take the resolved chunk size
+            chunk_rounds = decision.chunk_rounds
+            eval_every = cadence if eval_fn is not None else None
+            if decision.plane == "streaming":
+                return self._run_streaming(
+                    n_rounds, chunk_rounds, plan.cache.clients,
+                    plan.cache.bytes, plan.cache.tiers, decision.bucketed,
+                    bool(plan.prefetch), eval_fn, eval_every, verbose,
+                    resume)
+            try:
+                if decision.plane == "scanned":
+                    return self._run_scanned(n_rounds, chunk_rounds,
+                                             int(plan.prefetch), eval_fn,
+                                             eval_every, verbose, resume)
+                return self._run_device(n_rounds, chunk_rounds, eval_fn,
+                                        eval_every, verbose, resume)
+            finally:
+                if self.device.type == "cuda":
+                    # the state must not alias a graph's static tensors
+                    # past this run: a later replay overwrites them
+                    self.state = detach_state(self.state)
         finally:
             self.local_batch, self.ckpt_path, self.ckpt_every = saved
 
@@ -336,6 +413,138 @@ class FederatedTrainer:
                         and t % self.ckpt_every == 0 and t > 0):
                     writer.submit(self.ckpt_path, self.state, {"round": t})
         return self.history
+
+    # ------------------------------------------------------------------
+    # the chunk graphs (cached on the session, like the reference's jit
+    # caches; a graph is fixed in shape, so R and the batch shapes key it)
+    # ------------------------------------------------------------------
+    def _scan_chunk_graph(self, n_rounds: int, masked: bool,
+                          batch_sig: tuple) -> ChunkGraph:
+        loss_fn, opt, rcfg, dev = (self.loss_fn, self.server_opt, self.rcfg,
+                                   self.device)
+
+        def body(state, inp):
+            return scan_rounds(loss_fn, opt, state, inp["batches"],
+                               inp["weights"], rcfg, lrs=inp["lrs"],
+                               step_masks=inp.get("masks"), device=dev)
+
+        key = ("scan_chunk", n_rounds, masked, batch_sig) + self._sig()
+        return self.session.chunk_graph(
+            key, lambda: ChunkGraph(body, n_rounds, dev))
+
+    def _device_chunk_graph(self, n_rounds: int, masked: bool,
+                            dds: DeviceFederatedDataset) -> ChunkGraph:
+        """The device plane's chunk graph, cached per (R, masked, b,
+        sampler, packed corpus): the graph reads the corpus and the two
+        draw keys where they lie, so they key it too."""
+        loss_fn, opt, rcfg, dev = (self.loss_fn, self.server_opt, self.rcfg,
+                                   self.device)
+        sampler, b = self.sampler, self.local_batch
+
+        def build():
+            sample_key, data_key = self._sample_key().to(dev), dds.base_key()
+
+            def body(state, inp):
+                return scan_rounds_ondevice(
+                    loss_fn, opt, state, dds, sampler, data_key, sample_key,
+                    inp["t0"], n_rounds, rcfg, b, lrs=inp["lrs"],
+                    step_masks=inp.get("masks"), device=dev)
+
+            return ChunkGraph(body, n_rounds, dev)
+
+        key = (("ondevice_chunk", n_rounds, masked, b, _IdKey(sampler),
+                _IdKey(dds)) + self._sig())
+        return self.session.chunk_graph(key, build)
+
+    # ------------------------------------------------------------------
+    # plane: scanned — host-staged chunks, a producer thread ahead
+    # ------------------------------------------------------------------
+    def _run_scanned(self, n_rounds: int, chunk_rounds: int, prefetch: int,
+                     eval_fn, eval_every: Optional[int], verbose: bool,
+                     resume: bool):
+        """Chunks of host-assembled rounds: a producer thread keeps up to
+        ``prefetch`` chunks assembled (and, for the card, pinned) ahead of
+        the chunk loop, which copies each into its graph's inputs and
+        replays it.  A producer failure surfaces in the loop; the producer
+        is stopped and joined whatever happens."""
+        t0 = self._resume_round(resume)
+        spans = _eval_spans(t0, n_rounds, chunk_rounds, eval_every)
+        q: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
+        failure: list = []
+        stop = threading.Event()
+
+        def produce():
+            try:
+                for s, e in spans:
+                    item = pin_inputs(self._assemble_chunk(s, e),
+                                      self.device)
+                    while not stop.is_set():     # never block past a dead
+                        try:                     # consumer
+                            q.put(item, timeout=0.2)
+                            break
+                        except queue.Full:
+                            pass
+                    if stop.is_set():
+                        return
+            except BaseException as exc:   # surface in the consumer
+                failure.append(exc)
+                stop.set()
+
+        def dispatch(s, e, view):
+            while True:
+                if failure:
+                    raise failure[0]
+                try:
+                    item = q.get(timeout=0.2)
+                    break
+                except queue.Empty:
+                    pass
+            batch_sig = tuple((k, tuple(v.shape), str(v.dtype))
+                              for k, v in sorted(item["batches"].items()))
+            graph = self._scan_chunk_graph(e - s, "masks" in item, batch_sig)
+            return graph.run(self.state, s, item)
+
+        producer = threading.Thread(target=produce, daemon=True)
+        producer.start()
+        try:
+            return self._run_fused_chunks(spans, n_rounds, None, None,
+                                          dispatch, False, eval_fn, verbose)
+        finally:
+            stop.set()                   # unblock + retire the producer
+            producer.join()
+
+    # ------------------------------------------------------------------
+    # plane: device — the corpus packed on the device
+    # ------------------------------------------------------------------
+    def device_dataset(self, shard_clients: bool = True
+                       ) -> DeviceFederatedDataset:
+        """The packed corpus on the trainer's device (built once, owned by
+        the session; see data/device.py for the K * n_max ceiling)."""
+        return self.session.device_dataset(self.dataset,
+                                           shard_clients=shard_clients,
+                                           device=self.device)
+
+    def _sample_key(self) -> torch.Tensor:
+        return (self.sampler.base_key()
+                if isinstance(self.sampler, KeyedReplayable)
+                else prng.PRNGKey(self.sampler.seed))
+
+    def _run_device(self, n_rounds: int, chunk_rounds: int, eval_fn,
+                    eval_every: Optional[int], verbose: bool, resume: bool):
+        t0 = self._resume_round(resume)
+        dds = self.device_dataset()
+        spans = _eval_spans(t0, n_rounds, chunk_rounds, eval_every)
+
+        def dispatch(s, e, view):
+            lrs, masks = self._chunk_knobs(s, e)
+            values = {"lrs": lrs}
+            if masks is not None:
+                values["masks"] = masks
+            graph = self._device_chunk_graph(e - s, masks is not None, dds)
+            return graph.run(self.state, s, values)
+
+        return self._run_fused_chunks(spans, n_rounds, None, None, dispatch,
+                                      True, eval_fn, verbose)
 
     # ------------------------------------------------------------------
     # plane: streaming — shard-cached data (corpus larger than the card)
@@ -511,17 +720,20 @@ class FederatedTrainer:
                                       dispatch, prefetch, eval_fn, verbose)
 
     # ------------------------------------------------------------------
-    # the chunk loop of the streaming plane
+    # the chunk loop shared by the chunked planes
     # ------------------------------------------------------------------
     def _run_fused_chunks(self, spans, n_rounds, cache, prepare, dispatch,
                           prefetch, eval_fn, verbose, check_draws=False):
         """Per-chunk staging, one dispatch, shared bookkeeping.
 
+        ``dispatch(s, e, view) -> (state, metrics)`` enqueues the chunk's
+        rounds.  The streaming planes pass their ``cache`` and ``prepare``:
         ``prepare(i)`` does the host lookahead for span i and returns its
         raw participant sequence; it runs before span i-1 is dispatched.
         ``cache.ensure`` makes span i's shards resident and ``cache.view()``
-        snapshots them; ``dispatch(s, e, view) -> (state, metrics)``
-        enqueues the chunk's rounds.  With ``prefetch``, span i+1's uploads
+        snapshots them as the ``view`` of span i.  The scanned and device
+        planes pass ``cache=None`` and ``prepare=None`` (their ``view`` is
+        ``None``).  With ``prefetch``, span i+1's uploads
         are issued right after chunk i is enqueued.  Cache writes are in
         place and on the current stream, behind chunk i's reads, and a
         copy from pageable host memory waits for that stream, so prefetch
@@ -535,9 +747,11 @@ class FederatedTrainer:
         device-drawn client ids against the host replay that named its
         uploads (a mismatch would train on another client's rows)."""
         def stage(i):
-            return prepare(i) if i < len(spans) else None
+            return prepare(i) if prepare and i < len(spans) else None
 
         def upload(parts):
+            if cache is None:
+                return None
             cache.ensure(parts)
             return cache.view()
 
@@ -636,3 +850,62 @@ class FederatedTrainer:
         if writer and chunk.snap is not None:
             writer.submit(self.ckpt_path, chunk.snap, {"round": chunk.e - 1},
                           copy=False)
+
+    # ------------------------------------------------------------------
+    # deprecated shims over run(plan=...), equal to the plan API
+    # ------------------------------------------------------------------
+    def run_scanned(self, n_rounds: int, chunk_rounds: int = 25,
+                    prefetch: int = 2, eval_fn: Optional[Callable] = None,
+                    verbose: bool = True, resume: bool = False):
+        """Deprecated: ``run(n, plan=ExecutionPlan(plane="scanned", ...))``."""
+        _warn_shim("run_scanned", "scanned")
+        return self.run(n_rounds,
+                        plan=ExecutionPlan(plane="scanned",
+                                           chunk_rounds=chunk_rounds,
+                                           prefetch=prefetch),
+                        eval_fn=eval_fn, verbose=verbose, resume=resume)
+
+    def run_device(self, n_rounds: int, chunk_rounds: int = 25,
+                   eval_fn: Optional[Callable] = None, verbose: bool = True,
+                   resume: bool = False):
+        """Deprecated: ``run(n, plan=ExecutionPlan(plane="device", ...))``."""
+        _warn_shim("run_device", "device")
+        return self.run(n_rounds,
+                        plan=ExecutionPlan(plane="device",
+                                           chunk_rounds=chunk_rounds),
+                        eval_fn=eval_fn, verbose=verbose, resume=resume)
+
+    def run_streaming(self, n_rounds: int, chunk_rounds: int = 25,
+                      cache_clients: Optional[int] = None,
+                      cache_bytes: Optional[int] = None,
+                      prefetch: bool = True,
+                      eval_fn: Optional[Callable] = None,
+                      verbose: bool = True, resume: bool = False):
+        """Deprecated: ``run(n, plan=ExecutionPlan(plane="streaming",
+        cache=CacheSpec(...)))``."""
+        _warn_shim("run_streaming", "streaming")
+        return self.run(n_rounds,
+                        plan=ExecutionPlan(plane="streaming",
+                                           chunk_rounds=chunk_rounds,
+                                           cache=CacheSpec(
+                                               clients=cache_clients,
+                                               bytes=cache_bytes),
+                                           prefetch=int(bool(prefetch))),
+                        eval_fn=eval_fn, verbose=verbose, resume=resume)
+
+    def local_batch_size(self) -> int:
+        """Deprecated accessor for the ``local_batch`` field."""
+        warnings.warn(
+            "local_batch_size() is deprecated: read the local_batch field",
+            DeprecationWarning, stacklevel=2)
+        return self.local_batch
+
+    def set_local_batch(self, b: int):
+        """Deprecated: pass ``local_batch=b`` to the constructor (or set it
+        on an ``ExecutionPlan``)."""
+        warnings.warn(
+            "set_local_batch is deprecated: pass local_batch= to "
+            "FederatedTrainer (or ExecutionPlan(local_batch=...))",
+            DeprecationWarning, stacklevel=2)
+        self.local_batch = int(b)
+        return self

@@ -69,10 +69,11 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> LocalOpt:
         v = tree_map(lambda vi, gi: b2 * vi + (1 - b2) * torch.square(
             _f32(gi)), s["v"], g)
         tf = t.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                         device=tf.device), tf)
-        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                         device=tf.device), tf)
+        # the bases are filled on the device: no host copy inside a graph
+        bc1 = 1 - torch.pow(torch.full((), b1, dtype=torch.float32,
+                                       device=tf.device), tf)
+        bc2 = 1 - torch.pow(torch.full((), b2, dtype=torch.float32,
+                                       device=tf.device), tf)
         upd = tree_map(
             lambda mi, vi, pi: (-lr * (mi / bc1)
                                 / (torch.sqrt(vi / bc2) + eps)).to(pi.dtype),

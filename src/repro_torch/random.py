@@ -68,11 +68,16 @@ def threefry2x32(k0, k1, x0, x1):
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` with 64-bit mode off: the seed is taken
-    as a 32-bit integer, giving the key words ``(0, seed mod 2**32)``."""
+    as a 32-bit integer, giving the key words ``(0, seed mod 2**32)``.
+
+    The words are filled in on ``device`` (no copy from the host), so a key
+    can be made inside a captured CUDA graph."""
     seed = int(seed)
     if not -2 ** 31 <= seed < 2 ** 31:
         raise ValueError(f"seed must fit in 32 bits, got {seed}")
-    return torch.tensor([0, seed & _M32], dtype=torch.int64, device=device)
+    key = torch.zeros(2, dtype=torch.int64, device=device)
+    key[1].fill_(seed & _M32)
+    return key
 
 
 def _words(key: torch.Tensor):

@@ -25,7 +25,8 @@ LOSS_RTOL, W_RTOL, W_ATOL = 1e-4, 1e-4, 1e-5
 
 _PLANE_OF = {"per-round": "per_round", "streaming": "streaming",
              "streaming-uniform": "streaming",
-             "streaming-bucketed": "streaming"}
+             "streaming-bucketed": "streaming", "scanned": "scanned",
+             "device": "device", "auto": "auto"}
 
 
 def linreg_loss(params, batch):
@@ -70,6 +71,9 @@ def make_trainer(opt, rc, clients, sampler_fn=None, hetero_fn=None,
 
 
 def plan_for(lane, chunk_rounds=8, **kw):
+    """The ``ExecutionPlan`` of a lane; ``cache_clients`` / ``cache_bytes``
+    / ``cache_tiers`` go to its ``CacheSpec``, the rest (such as
+    ``memory_budget_bytes``) to the plan."""
     cache = CacheSpec(clients=kw.pop("cache_clients", None),
                       bytes=kw.pop("cache_bytes", None),
                       tiers=kw.pop("cache_tiers",
@@ -94,13 +98,19 @@ def run_torch(lane, opt, rc, clients, n_rounds, *, sampler_fn=None,
     plan = plan_for(lane, chunk_rounds, **plan_kw)
     if resume_at is None:
         tr = mk()
-        return tr.run(n_rounds, plan=plan, verbose=False), tr.state
+        return strip_events(tr.run(n_rounds, plan=plan, verbose=False)), \
+            tr.state
     ck = os.path.join(str(tmp_path), f"torch-{lane}-resume.npz")
     first = mk(ckpt_path=ck, ckpt_every=1)
     h1 = first.run(resume_at, plan=plan, verbose=False)
     second = mk(ckpt_path=ck, ckpt_every=1)
     h2 = second.run(n_rounds, plan=plan, verbose=False, resume=True)
-    return list(h1) + list(h2), second.state
+    return strip_events(list(h1) + list(h2)), second.state
+
+
+def strip_events(hist):
+    """Trajectory records only (an auto run's plan record dropped)."""
+    return [r for r in hist if "event" not in r]
 
 
 def torch_flat_w(state):
@@ -112,7 +122,7 @@ def assert_matches_jax(got, want):
     """A torch (history, state) against a JAX one: equal round ids, losses
     within LOSS_RTOL, final parameters within W_RTOL / W_ATOL."""
     (t_hist, t_state), (j_hist, j_state) = got, want
-    j_hist = [r for r in j_hist if "event" not in r]
+    t_hist, j_hist = strip_events(t_hist), strip_events(j_hist)
     assert [r["round"] for r in t_hist] == [r["round"] for r in j_hist]
     np.testing.assert_allclose([r["loss"] for r in t_hist],
                                [r["loss"] for r in j_hist], rtol=LOSS_RTOL)

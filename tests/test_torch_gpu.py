@@ -40,7 +40,12 @@ on the gates of a reduced recurrentgemma-9b layer equal to the layer's
 log-depth scan (atol/rtol 1e-4, the reference's), a tolerance that the
 kernel fed ``a`` shifted one step exceeds; teacher-forced prefill + decode
 of reduced recurrentgemma-9b in the stacked layout on the card equal to
-its full forward.
+its full forward; the scanned and device planes' CUDA-graph replays
+bit-equal to the eager loop over the same chunks (two and a ragged one)
+and to the per-round plane (linreg, so no cuDNN; with H_k, a diurnal
+M(t) and DP noise keyed by the device round index), a capture refusing a
+pageable copy, a chunk's metrics outliving the next replay, ``plan=None``
+staying per-round on the card.
 """
 import numpy as np
 import pytest
@@ -1129,3 +1134,151 @@ def test_rglru_stacked_prefill_decode_on_card(cuda):
               cache["rem"]["l0"]["rnn"], cache["rem"]["l1"]["rnn"]):
         for leaf in (c["h"], c["conv"]):
             assert bool((leaf.flatten(-2).abs().amax(-1) > 0).all())
+
+
+# ---------------------------------------------------------------------------
+# the scanned and device planes: each chunk one CUDA-graph replay
+# ---------------------------------------------------------------------------
+def _plane_fleet():
+    rng = np.random.default_rng(3)
+    out = []
+    for n in (7, 30, 12, 21, 5, 40, 16, 9):
+        x = rng.normal(size=(n, 5)).astype(np.float32)
+        out.append({"x": x, "y": (x @ np.arange(1, 6) / 5).astype(
+            np.float32)})
+    return out
+
+
+def _plane_trainer(device, opt=None, sampler=None, C=3, hetero_fn=None):
+    ds = FederatedDataset([dict(c) for c in _plane_fleet()], seed=1)
+    opt = opt or tso.fedmom(eta=1.0, beta=0.9, use_fused_kernel=True)
+    return FederatedTrainer(
+        loss_fn=_linreg_loss, server_opt=opt,
+        rcfg=tround.RoundConfig(C, 4, 0.05, compute_dtype="float32"),
+        dataset=ds,
+        sampler=sampler(ds.population()) if sampler
+        else DeviceUniformSampler(ds.population(), C, seed=2),
+        state=opt.init({"w": torch.zeros(5), "b": torch.zeros(())}),
+        hetero_steps_fn=hetero_fn, local_batch=4, device=device)
+
+
+def _same_run(a, b):
+    assert [r["loss"] for r in a.history if "event" not in r] == [
+        r["loss"] for r in b.history if "event" not in r]
+    for k in ("w", "b"):
+        assert torch.equal(a.state.w[k], b.state.w[k]), k
+
+
+@pytest.mark.parametrize("plane", ["scanned", "device"])
+def test_graph_replay_bit_equal_to_eager_loop(cuda, plane):
+    """Two chunks and a ragged last one (4 + 4 + 3 rounds), replayed from
+    captured graphs, against the same chunks run eagerly on the card."""
+    from repro_torch.core import multiround as tmr
+    tr = _plane_trainer(cuda)
+    tr.run(11, plan=ExecutionPlan(plane=plane, chunk_rounds=4),
+           verbose=False)
+    assert len(tr.session.graphs) == 2              # R = 4 and R = 3
+    assert all(g.graph is not None for g in tr.session.graphs.values())
+    ref = _plane_trainer(cuda)
+    state, losses = ref.state, []
+    dds = ref.device_dataset()
+    for s, e in ((0, 4), (4, 8), (8, 11)):
+        if plane == "device":
+            lrs, _ = ref._chunk_knobs(s, e)
+            state, m = tmr.scan_rounds_ondevice(
+                _linreg_loss, ref.server_opt, state, dds, ref.sampler,
+                dds.base_key(), ref.sampler.base_key().to(cuda), s, e - s,
+                ref.rcfg, 4, lrs=lrs, device=cuda)
+        else:
+            item = ref._assemble_chunk(s, e)
+            state, m = tmr.scan_rounds(
+                _linreg_loss, ref.server_opt, state, item["batches"],
+                item["weights"], ref.rcfg, lrs=item["lrs"], device=cuda)
+        losses += m["loss"].cpu().tolist()
+    assert [r["loss"] for r in tr.history] == losses
+    for k in ("w", "b"):
+        assert torch.equal(tr.state.w[k], state.w[k]), k
+    assert tr.state.t == state.t == 11
+
+
+@pytest.mark.parametrize("case", ["plain", "hetero", "diurnal", "dp"])
+@pytest.mark.parametrize("plane", ["scanned", "device"])
+def test_graphed_planes_bit_equal_to_per_round_on_card(cuda, plane, case):
+    """On the card the graphed chunks train the per-round trajectory bit
+    for bit (linreg: no cuDNN); with DP noise, keyed by the device round
+    index inside the graph, and with a diurnal M(t) computed there."""
+    from repro_torch.core import DeviceDiurnalSampler
+    kw = {}
+    if case == "hetero":
+        kw["hetero_fn"] = lambda t: np.random.default_rng(t).integers(
+            0, 5, size=3)
+    if case == "diurnal":
+        kw.update(C=5, sampler=lambda pop: DeviceDiurnalSampler(
+            pop, m_min=2, m_max=5, period=7, seed=3))
+    if case == "dp":
+        kw["opt"] = tso.dp_fedmom(clip=0.5, noise_multiplier=0.3, dp_seed=7,
+                                  use_fused_kernel=True)
+    ref = _plane_trainer(cuda, **kw)
+    ref.run(11, plan="per_round", verbose=False)
+    tr = _plane_trainer(cuda, **kw)
+    tr.run(11, plan=ExecutionPlan(plane=plane, chunk_rounds=4),
+           verbose=False)
+    _same_run(tr, ref)
+
+
+def test_capture_refuses_a_pageable_copy(cuda):
+    """A body that copies from pageable host memory cannot be captured,
+    and the chunk raises rather than run it eagerly: so every chunk the
+    planes capture holds no such copy."""
+    from repro_torch.core.server_opt import ServerState
+    from repro_torch.launch.graph import ChunkGraph
+
+    def body(state, inp):
+        bump = torch.tensor([1.0], device=cuda)        # pageable H2D copy
+        return (ServerState({"w": state.w["w"] + bump}, (), state.t),
+                {"loss": state.w["w"].sum()})
+
+    chunk = ChunkGraph(body, 1, cuda)
+    with pytest.raises(RuntimeError):
+        chunk.run(ServerState({"w": torch.zeros(1, device=cuda)}, (), 0),
+                  0, {})
+    torch.cuda.synchronize()
+
+
+def test_chunk_metrics_survive_the_next_replay(cuda):
+    """The graph's metric outputs are overwritten by every replay; the
+    chunk hands out clones, so chunk i's read after chunk i+1 is
+    enqueued (the trainer's order) still holds chunk i's values."""
+    tr = _plane_trainer(cuda)
+    dds = tr.device_dataset()
+    graph = tr._device_chunk_graph(4, False, dds)
+    lrs = np.full(4, 0.05, np.float32)
+    state, first = graph.run(tr.state, 0, {"lrs": lrs})
+    want = first["loss"].cpu().clone()
+    clients = first["clients"].cpu().clone()
+    state, second = graph.run(state, 4, {"lrs": lrs})
+    assert torch.equal(first["loss"].cpu(), want)
+    assert not torch.equal(second["clients"].cpu(), clients)
+    assert clients.tolist() == [tr.sampler.sample(t)[0].tolist()
+                                for t in range(4)]
+
+
+def test_plan_none_on_cuda_stays_per_round(cuda):
+    tr = _plane_trainer(cuda)
+    tr.run(3, verbose=False)
+    assert tr.session.plan_log[-1]["plane"] == "per_round"
+    assert tr.session.graphs == {}
+
+
+def test_graphed_run_leaves_no_alias_to_the_graph(cuda):
+    """After a graphed run the trainer's state is its own: a later run
+    through the same graph does not move a state taken before it."""
+    tr = _plane_trainer(cuda)
+    plan = ExecutionPlan(plane="device", chunk_rounds=4)
+    tr.run(4, plan=plan, verbose=False)
+    kept = tr.state
+    snapshot = kept.w["w"].clone()
+    tr.state = tr.server_opt.init({"w": torch.zeros(5, device=cuda),
+                                   "b": torch.zeros((), device=cuda)})
+    tr.run(4, plan=plan, verbose=False)
+    assert torch.equal(kept.w["w"], snapshot)

@@ -224,10 +224,21 @@ def test_eval_cadence_and_plan_overrides(world, tmp_path):
 
 @pytest.mark.parametrize("plan", ["scanned", "device", "auto"])
 def test_unported_planes_raise_plan_error(world, plan):
+    """The planes this test once found unported now run (the name is
+    kept): each trains LeNet and logs its decision, an auto one (the
+    stateful sampler has a keyed draw, the corpus fits the CPU's unbounded
+    budget: the device plane) into the history too."""
     tr = _torch_trainer(world, "fedavg-uniform")
-    with pytest.raises(PlanError, match="not yet ported") as err:
-        tr.run(1, plan=plan, verbose=False)
-    assert err.value.nearest == "per_round"
+    hist = tr.run(2, plan=ExecutionPlan(plane=plan, chunk_rounds=2),
+                  verbose=False)
+    rec = tr.session.plan_log[-1]
+    assert rec["plane"] == ("device" if plan == "auto" else plan)
+    assert rec["auto"] == (plan == "auto") and rec["chunk_rounds"] == 2
+    events = [r for r in hist if "event" in r]
+    assert events == ([rec] if plan == "auto" else [])
+    losses = [r["loss"] for r in hist if "event" not in r]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert tr.state.t == 2
 
 
 def test_streaming_plane_trains_the_per_round_trajectory(world, jax_runs):
@@ -249,12 +260,45 @@ def test_streaming_plane_trains_the_per_round_trajectory(world, jax_runs):
     assert tr.session.plan_log[-1]["plane"] == "streaming"
 
 
+@pytest.mark.parametrize("plane", ["scanned", "device"])
+def test_chunked_planes_train_the_per_round_trajectory(world, jax_runs,
+                                                       plane):
+    """LeNet on the scanned and device planes: the same round_step on the
+    same rows as the per-round plane (host-staged, or gathered from the
+    packed corpus), so the planes are bit-equal, and both match the
+    reference's per-round run."""
+    cfg = "fedmom-keyed-hetero"
+    ref = _torch_trainer(world, cfg)
+    ref_hist = ref.run(ROUNDS, plan="per_round", verbose=False)
+    tr = _torch_trainer(world, cfg)
+    hist = tr.run(ROUNDS, plan=ExecutionPlan(plane=plane, chunk_rounds=2),
+                  verbose=False)
+    assert [r["loss"] for r in hist] == [r["loss"] for r in ref_hist]
+    for k in ref.state.w:
+        assert torch.equal(tr.state.w[k], ref.state.w[k]), k
+    _, _, j_hist, j_state = jax_runs[cfg]
+    _assert_same(hist, tr.state, j_hist, j_state)
+    assert tr.session.plan_log[-1]["plane"] == plane
+
+
 @pytest.mark.parametrize("field,value", [
-    ("chunk_rounds", "auto"), ("memory_budget_bytes", object()),
+    ("chunk_rounds", "auto"), ("memory_budget_bytes", 1 << 20),
     ("scenario", object()), ("secure", object()), ("mesh", object())],
     ids=["chunk_rounds", "memory_budget_bytes", "scenario", "secure",
          "mesh"])
 def test_unported_plan_fields_raise_plan_error(field, value):
+    """``scenario``, ``secure`` and ``mesh`` still raise; ``chunk_rounds=
+    "auto"`` and ``memory_budget_bytes`` are live fields now (the name is
+    kept): accepted on every plane, and a budget that is not a positive
+    int is refused with the reference's message."""
+    if field in ("chunk_rounds", "memory_budget_bytes"):
+        for plane in ("per_round", "streaming", "auto"):
+            assert getattr(ExecutionPlan(plane=plane, **{field: value}),
+                           field) == value
+        if field == "memory_budget_bytes":
+            with pytest.raises(PlanError, match="positive int"):
+                ExecutionPlan(memory_budget_bytes=0)
+        return
     with pytest.raises(PlanError, match="not yet ported") as err:
         ExecutionPlan(plane="per_round", **{field: value})
     assert err.value.nearest == "per_round"
