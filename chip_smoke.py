@@ -11,7 +11,9 @@ replay), the streaming shard-cache plane
 (padded, bucketed, and bucketed through the fused ``client_step`` kernel)
 at the Zipf linreg configuration of ``BENCH_6.json``
 (``benchmarks/perf_compare.py`` ``_zipf_clients`` / ``bench_bucketed``,
-rebuilt here), serving gemma3-1b at full width (``serve.generate``, every
+rebuilt here) and, under dropout and straggler scenarios, at
+``BENCH_7.json``'s million-client configuration, serving gemma3-1b at
+full width (``serve.generate``, every
 prefill attention layer through the ``flash_attention`` kernel), and
 rwkv6-7b at full width: its forward loss with every layer's recurrence
 through the ``rwkv6_scan`` kernel, and ``serve.generate`` over its
@@ -156,7 +158,35 @@ Phases, each printed as it runs; any failure exits non-zero:
      4 new tokens, weights drawn on the card and carried to the host
      through ``interop``: prefill and decode logits within atol/rtol 1e-3;
      greedy tokens equal as in phase 12;
- 19. one JSON line of kernels, then the result line.
+ 19. scenarios and traces (no JAX on the card; every run here under
+     ``cudnn.deterministic``): (a) the quickstart configuration under
+     ``UniformDropout(0.3)`` + ``LatencyStragglers(deadline_s=8)``
+     (scenario seed 0) on the per-round, scanned, device and auto planes,
+     each beside itself without the scenario (a warm-up run of each, then
+     30-round runs timed in turns), losses, ``completed`` counts and final
+     parameters bit-equal across the planes, ``fedmom_update`` 30 launches
+     in 30 rounds (its counter per-round, the profiler on the graphed
+     planes), and what staging the masks costs the host a round; (b)
+     ``AdaptiveCohort(goal=2)`` on the scanned plane and its resume at
+     round 20 from a checkpoint, bit-equal to the uninterrupted run and to
+     the per-round plane; (c) the scenario recorded as a ``FleetTrace``,
+     saved, loaded and replayed on the device plane, bit-equal to the
+     recording run; (d) BENCH_7's configuration at full size
+     (``benchmarks/fig6_robustness.py`` ``scenario_lane``: a 1,000,000-
+     client ``zipf_linreg_provider`` fleet, the padded streaming lane,
+     ``CacheSpec(clients=64)``, M=8, H=10, b=4, 60 rounds, FedAvg and
+     FedMom at eta = K/M under dropout rates 0, 0.2, 0.4, 0.6 plus
+     stragglers): ``completed_mean`` equal to the JAX package's CPU run's
+     and ``final_loss`` within rtol 1e-3 of it at all 8 runs, ms/round and
+     the cache's bytes; the FedMom rate-0.4 cell on the hook lane (its
+     ``client_step`` launches counted) within atol/rtol 1e-4 of the padded
+     lane, and 16 rounds of it on the card against the CPU (1e-4); (e)
+     BENCH_9's 50,000-client fleet written as an ``npy-packed`` disk corpus
+     and read through ``DiskShardProvider``: FedMom's rate-0.3 scenario
+     recorded for 48 rounds, saved, loaded and replayed bit-equal to the
+     synthetic run (parameter bits and losses), ``completed_mean`` equal
+     to the JAX package's;
+ 20. one JSON line of kernels, then the result line.
 
 Without a card, or outside a checkout of the repo, it exits non-zero and
 prints no result.
@@ -242,6 +272,42 @@ RG_CMP_TOL = 1e-3                  # card vs CPU logits (fp32, TF32 off):
                                    # in other orders
 RG_LAYER_TOL = 1e-4                # kernel vs the model layer's log-depth
                                    # scan: tests/test_kernels.py:247
+# the scenario path (phase 19): the quickstart configuration under
+# UniformDropout + LatencyStragglers, on every graphed plane
+SC_DROPOUT, SC_DEADLINE, SC_SEED = 0.3, 8.0, 0
+SC_GOAL, SC_RESUME_AT = 2, 20      # adaptive cohort; resume round
+# BENCH_7.json's configuration (benchmarks/fig6_robustness.py
+# scenario_lane): a million-client Zipf linreg fleet on the streaming plane
+B7_K, B7_DIM, B7_NMIN, B7_NMAX = 1_000_000, 16, 4, 64
+B7_M, B7_H, B7_B, B7_LR = 8, 10, 4, 0.05
+B7_CR, B7_ROUNDS, B7_CACHE = 8, 60, 64     # chunk_rounds, rounds, clients
+B7_DATA_SEED, B7_SAMPLER_SEED, B7_SCEN_SEED = 13, 6, 17
+B7_DEADLINE, B7_BETA = 11.0, 0.9
+B7_RATES = (0.0, 0.2, 0.4, 0.6)
+B7_HOOK_RATE = 0.4                 # the cell run on the hook lane too
+B7_LOSS_RTOL = 1e-3                # final_loss against the reference's
+B7_CMP_ROUNDS = 16                 # card-against-CPU rounds of that cell
+# (completed_mean, final_loss) of the JAX package's scenario_lane() on the
+# CPU (jax 0.9.0; BENCH_7.json was made under a 0.4.37 pin whose keyed
+# draws differ), from
+#   JAX_PLATFORMS=cpu PYTHONPATH=src:. python -c "from
+#   benchmarks.fig6_robustness import scenario_lane; scenario_lane()"
+B7_REF = {
+    ("fedavg", 0.0): (8.0, 0.5213099658489228),
+    ("fedavg", 0.2): (7.9, 0.5636218160390853),
+    ("fedavg", 0.4): (7.716666666666667, 0.5773849308490753),
+    ("fedavg", 0.6): (7.583333333333333, 0.6091857314109802),
+    ("fedmom", 0.0): (8.0, 0.7914963841438294),
+    ("fedmom", 0.2): (7.9, 0.8494546949863434),
+    ("fedmom", 0.4): (7.716666666666667, 0.8259428262710571),
+    ("fedmom", 0.6): (7.583333333333333, 0.9124979138374328),
+}
+# BENCH_9.json's fleet and run (benchmarks/fig6_robustness.py trace_lane)
+# over a disk corpus, FedMom's rate-0.3 trace recorded, saved and replayed
+B9_K, B9_ROUNDS, B9_RATE = 50_000, 48, 0.3
+# completed_mean of FedMom's rate-0.3 replay in trace_lane() on the CPU
+# (the same command with trace_lane; BENCH_9.json has 7.7708333)
+B9_REF_COMPLETED = 7.791666666666667
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # H100 SXM fp32 (CUDA cores) peak
 
@@ -2247,6 +2313,506 @@ def rglru_card_vs_cpu(dev, fa_kernel):
     return diff
 
 
+def scenario_spec(rate, deadline, seed, **kw):
+    """UniformDropout(rate) (none at rate 0) + LatencyStragglers."""
+    from repro_torch.scenario import (LatencyStragglers, ScenarioSpec,
+                                      UniformDropout)
+    return ScenarioSpec(
+        dropout=UniformDropout(rate=rate) if rate > 0 else None,
+        stragglers=LatencyStragglers(deadline_s=deadline, mean_step_s=1.0),
+        seed=seed, **kw)
+
+
+def same_run(a, b):
+    """(losses, completed, state) of two runs: bit-equal?"""
+    from repro_torch.tree import leaves
+    return a[0] == b[0] and a[1] == b[1] and all(
+        torch_equal(x, y) for x, y in zip(leaves(a[2].w), leaves(b[2].w)))
+
+
+def torch_equal(a, b):
+    import torch
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def run_record(tr, n_rounds, plan, **kw):
+    """(losses, completed, state) of ``tr.run``."""
+    hist = [r for r in tr.run(n_rounds, plan=plan, verbose=False, **kw)
+            if "event" not in r]
+    return ([r["loss"] for r in hist], [r.get("completed") for r in hist],
+            tr.state)
+
+
+def scenario_planes_phase(dev, clients, w0, fm_kernel):
+    """Phase 19 (a-c): the quickstart configuration under a scenario on the
+    per-round, scanned, device and auto planes, against the same planes
+    without it; an adaptive cohort and its resume; a trace recorded and
+    replayed on the device plane.  Every run here is under
+    ``cudnn.deterministic``, so the planes' trajectories can be held bit
+    for bit, and shares one sampler and one session, so a chunk shape is
+    captured once."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import DeviceUniformSampler, RoundConfig, fedmom
+    from repro_torch.core.sampling import replay_span
+    from repro_torch.data import FederatedDataset
+    from repro_torch.launch.plan import ExecutionPlan, TrainSession
+    from repro_torch.launch.train import FederatedTrainer
+    from repro_torch.models import small
+    from repro_torch.scenario import AdaptiveCohort, ScenarioSpec
+    from repro_torch.scenario.spec import ScenarioRuntime
+    from repro_torch.traces import FleetTrace, TraceSpec, record_trace
+    ds = FederatedDataset(clients, seed=1)
+    pop = ds.population()
+    rcfg = RoundConfig(clients_per_round=M, local_steps=H, lr=LR,
+                       placement="mesh", compute_dtype="float32")
+    opt = fedmom(eta=ETA, beta=BETA, use_fused_kernel=True)
+    spec = scenario_spec(SC_DROPOUT, SC_DEADLINE, SC_SEED)
+    sampler, session = DeviceUniformSampler(pop, M, seed=2), TrainSession()
+
+    def trainer(**kw):
+        return FederatedTrainer(
+            loss_fn=small.lenet_loss, server_opt=opt, rcfg=rcfg, dataset=ds,
+            sampler=sampler, state=opt.init(w0), local_batch=B, device=dev,
+            session=session, **kw)
+
+    def plan(name, scenario):
+        if name == "per_round":
+            return ExecutionPlan(plane="per_round", scenario=scenario)
+        return ExecutionPlan(plane=name, chunk_rounds=G_CR,
+                             scenario=scenario)
+
+    names = ("per_round", "scanned", "device", "auto")
+    print(f"LeNet, K={K} M={M} H={H} b={B} FedMom eta={ETA} beta={BETA} "
+          f"through fedmom_update, DeviceUniformSampler; {ROUNDS} rounds, "
+          f"chunks of {G_CR}; scenario UniformDropout({SC_DROPOUT}) + "
+          f"LatencyStragglers(deadline_s={SC_DEADLINE}), seed {SC_SEED}; "
+          f"cudnn.deterministic; a warm-up run of each, then timed runs in "
+          f"turns (none, scenario, scenario, none)")
+    out = {"planes": {}}
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in names:
+            for scen in (None, spec):                       # warm-ups
+                trainer().run(ROUNDS, plan=plan(name, scen), verbose=False)
+            torch.cuda.synchronize()
+            times = {"off": [], "on": []}
+            for label in ("off", "on", "on", "off"):
+                tr = trainer()
+                t0 = time.perf_counter()
+                got = run_record(tr, ROUNDS, plan(
+                    name, spec if label == "on" else None))
+                torch.cuda.synchronize()
+                times[label].append((time.perf_counter() - t0) / ROUNDS
+                                    * 1e3)
+                runs[(name, label)] = got
+            rec = tr.session.plan_log[-2]           # the last "on" run's
+            if rec["plane"] != ("device" if name == "auto" else name) \
+                    or not rec.get("scenario"):
+                raise AssertionError(f"{name}: plan record {rec}")
+            tr = trainer()
+            if name == "per_round":
+                fm_kernel.launches = 0
+                tr.run(ROUNDS, plan=plan(name, spec), verbose=False)
+                fm, how = fm_kernel.launches, "its counter"
+            else:
+                _, rows = profile_rows(lambda: tr.run(
+                    ROUNDS, plan=plan(name, spec), verbose=False))
+                fm, how = kernel_launches(rows, FM_KERNEL_NAME), "profiler"
+            if fm != ROUNDS:
+                raise AssertionError(
+                    f"{name} under the scenario: {fm} fedmom_update "
+                    f"launches in {ROUNDS} rounds ({how}), want one a "
+                    f"round")
+            ms_off, ms_on = (statistics.fmean(times["off"]),
+                             statistics.fmean(times["on"]))
+            completed = runs[(name, "on")][1]
+            out["planes"][name] = {"ms_per_round": ms_on,
+                                   "ms_per_round_no_scenario": ms_off,
+                                   "ms_per_round_runs": times,
+                                   "fedmom_update_launches": fm,
+                                   "completed_mean": statistics.fmean(
+                                       completed)}
+            print(f"{name:9s} -> {rec['plane']:9s} scenario {ms_on:8.3f} "
+                  f"ms/round, none {ms_off:8.3f} ms/round (host clock, "
+                  f"synced at the end; runs {times}); completed mean "
+                  f"{statistics.fmean(completed):.3f} of {M}; fedmom_update "
+                  f"launches ({how}) {fm} in {ROUNDS} rounds")
+        torch.cuda.synchronize()
+        print(f"chunk graphs captured: {len(session.graphs)} (one a chunk "
+              f"shape and masking, shared by the trainers)")
+
+        ref = runs[("per_round", "on")]
+        for name in names:
+            for label in ("on", "off"):
+                if not same_run(runs[(name, label)],
+                                runs[("per_round", label)]):
+                    raise AssertionError(
+                        f"{name} ({label} scenario): losses, completed "
+                        f"counts or final parameters differ from the "
+                        f"per-round plane's")
+        runtime, cut = ScenarioRuntime(spec, H), 0
+        for t in range(ROUNDS):
+            cut += int((runtime.steps_for(t, sampler.sample(t)[0]) < H).sum())
+        if not cut or runs[("per_round", "off")][0] == ref[0]:
+            raise AssertionError("the scenario changed nothing")
+        print(f"scanned, device and auto losses, completed counts "
+              f"({sum(ref[1])} of {M * ROUNDS} client rounds did some work, "
+              f"{cut} stopped "
+              f"short of H={H}) and final parameters bit-equal to the "
+              f"per-round plane, with the scenario and without it")
+
+        # what staging the scenario costs the host a round: the cohorts'
+        # replay (one batched draw a chunk, on the CPU as the trainer does
+        # at this population, and on the card) and the masks from it
+        replay_span(sampler, 0, G_CR, dev)
+        stage = {}
+        for where in ("cpu", "cuda"):
+            rt = ScenarioRuntime(spec, H)
+            t0 = time.perf_counter()
+            for s in range(0, ROUNDS, G_CR):
+                ids = replay_span(sampler, s, s + G_CR,
+                                  dev if where == "cuda" else None)[0]
+                for r in range(G_CR):
+                    rt.masks_for(s + r, ids[r])
+            stage[where] = (time.perf_counter() - t0) / ROUNDS * 1e3
+        t0 = time.perf_counter()
+        for t in range(ROUNDS):
+            sampler.sample(t)
+        stage["cpu_per_round_replay"] = ((time.perf_counter() - t0) / ROUNDS
+                                         * 1e3)
+        out["host_stage_ms_per_round"] = stage
+        print(f"scenario staging on the host (replay + masks): "
+              f"{stage['cpu']:.3f} ms/round with a chunk's replay batched "
+              f"on the CPU (the device plane's at K={K}), {stage['cuda']:.3f}"
+              f" ms/round batched on the card; one round's replay alone on "
+              f"the CPU {stage['cpu_per_round_replay']:.3f} ms")
+
+        # an adaptive cohort on the scanned plane, and a resume at round
+        # SC_RESUME_AT from a checkpoint
+        adaptive = ScenarioSpec(dropout=spec.dropout,
+                                stragglers=spec.stragglers,
+                                cohort=AdaptiveCohort(goal=SC_GOAL),
+                                seed=SC_SEED)
+        a_plan = plan("scanned", adaptive)
+        full = run_record(trainer(), ROUNDS, a_plan)
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "adaptive.npz")
+            first = run_record(trainer(ckpt_path=ck, ckpt_every=G_CR),
+                               SC_RESUME_AT, a_plan)
+            second = run_record(trainer(ckpt_path=ck, ckpt_every=G_CR),
+                                ROUNDS, a_plan, resume=True)
+        stitched = (first[0] + second[0], first[1] + second[1], second[2])
+        if len(second[0]) != ROUNDS - SC_RESUME_AT \
+                or not same_run(stitched, full):
+            raise AssertionError(
+                f"adaptive cohort: the run resumed at round {SC_RESUME_AT} "
+                f"differs from the uninterrupted one")
+        if not same_run(run_record(trainer(), ROUNDS,
+                                   plan("per_round", adaptive)), full):
+            raise AssertionError("adaptive cohort: scanned plane differs "
+                                 "from the per-round plane")
+        print(f"AdaptiveCohort(goal={SC_GOAL}) on the scanned plane: "
+              f"completed {full[1]}; a resume at round {SC_RESUME_AT} from "
+              f"a checkpoint and the per-round plane bit-equal to the "
+              f"uninterrupted run")
+
+        # a trace of the scenario, recorded, saved, loaded and replayed on
+        # the device plane against the recording run
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = record_trace(spec, sampler, ROUNDS, H)
+            path = trace.save(os.path.join(tmp, "lenet_trace"))
+            loaded = FleetTrace.load(path)
+            if not (np.array_equal(loaded.ev_steps, trace.ev_steps)
+                    and np.array_equal(loaded.m, trace.m)):
+                raise AssertionError("the trace changed through save/load")
+            replay = run_record(
+                trainer(), ROUNDS,
+                plan("device", ScenarioSpec(trace=TraceSpec(path=path))))
+        if not same_run(replay, runs[("device", "on")]):
+            raise AssertionError(
+                "the trace replayed on the device plane differs from the "
+                "recording run")
+        print(f"trace of {trace.n_events} events over {trace.n_rounds} "
+              f"rounds saved, loaded and replayed on the device plane: "
+              f"losses, completed counts and parameters bit-equal to the "
+              f"recording run (replay_drift_bits 0)")
+        out["adaptive_completed"] = full[1]
+        out["trace_events"] = trace.n_events
+        out["graphs_captured"] = len(session.graphs)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def b7_provider():
+    from repro_torch.scenario import zipf_linreg_provider
+    return zipf_linreg_provider(B7_K, dim=B7_DIM, n_min=B7_NMIN,
+                                n_max=B7_NMAX, seed=0)
+
+
+def b7_trainer(provider, opt_name, n_clients, device, hook=False):
+    """``_scenario_run`` / ``_trace_run``'s trainer of
+    benchmarks/fig6_robustness.py: FedAvg or FedMom (through
+    ``fedmom_update``) at eta = K/M, beta 0.9."""
+    import torch
+    from repro_torch.core import (DeviceUniformSampler, RoundConfig, fedavg,
+                                  fedmom)
+    from repro_torch.data import StreamingFederatedDataset
+    from repro_torch.kernels.client_step.ops import linreg_tier_step
+    from repro_torch.launch.train import FederatedTrainer
+    ds = StreamingFederatedDataset.from_provider(provider, seed=B7_DATA_SEED)
+    eta = n_clients / B7_M
+    opt = (fedmom(eta=eta, beta=B7_BETA, use_fused_kernel=True)
+           if opt_name == "fedmom" else fedavg(eta=eta))
+    return FederatedTrainer(
+        loss_fn=linreg_loss, server_opt=opt,
+        rcfg=RoundConfig(clients_per_round=B7_M, local_steps=B7_H, lr=B7_LR,
+                         placement="mesh", compute_dtype="float32"),
+        dataset=ds, sampler=DeviceUniformSampler(ds.population(), B7_M,
+                                                 seed=B7_SAMPLER_SEED),
+        state=opt.init({"w": torch.zeros(B7_DIM), "b": torch.zeros(())}),
+        client_step_fn=linreg_tier_step() if hook else None,
+        local_batch=B7_B, device=device)
+
+
+def b7_plan(scenario, bucketed=False):
+    from repro_torch.launch.plan import CacheSpec, ExecutionPlan
+    return ExecutionPlan(plane="streaming", chunk_rounds=B7_CR,
+                         cache=CacheSpec(clients=B7_CACHE,
+                                         bucketed=bucketed),
+                         scenario=scenario)
+
+
+def bench7_phase(dev, fm_kernel, cs_kernel):
+    """Phase 19 (d): BENCH_7's dropout sweep at full size on the card, the
+    hook lane's cell, and that cell for B7_CMP_ROUNDS rounds on the CPU."""
+    import torch
+    from repro_torch.tree import leaves
+    t0 = time.perf_counter()
+    provider = b7_provider()
+    row = (B7_DIM + 1) * 4
+    declared_mb = provider.counts.nbytes / 2 ** 20
+    materialized_mb = float(provider.counts.sum()) * row / 2 ** 20
+    print(f"zipf_linreg_provider({B7_K}, dim={B7_DIM}, n_min={B7_NMIN}, "
+          f"n_max={B7_NMAX}, seed=0) in {time.perf_counter() - t0:.2f} s: "
+          f"the corpus declares {declared_mb:.4f} MB ([K] int64 counts) and "
+          f"would materialise {materialized_mb:.2f} MB")
+    print(f"M={B7_M} H={B7_H} b={B7_B} lr={B7_LR} chunk_rounds={B7_CR} "
+          f"CacheSpec(clients={B7_CACHE}) {B7_ROUNDS} rounds, data seed "
+          f"{B7_DATA_SEED}, sampler seed {B7_SAMPLER_SEED}, scenario seed "
+          f"{B7_SCEN_SEED}: UniformDropout(rate) + LatencyStragglers("
+          f"deadline_s={B7_DEADLINE}); eta=K/M={B7_K / B7_M}")
+    cells, finals = {}, {}
+    for opt_name in ("fedavg", "fedmom"):
+        for rate in B7_RATES:
+            tr = b7_trainer(provider, opt_name, B7_K, dev)
+            fm_kernel.launches = 0
+            t0 = time.perf_counter()
+            losses, completed, state = run_record(
+                tr, B7_ROUNDS,
+                b7_plan(scenario_spec(rate, B7_DEADLINE, B7_SCEN_SEED)))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / B7_ROUNDS * 1e3
+            fm = fm_kernel.launches
+            want_fm = B7_ROUNDS if opt_name == "fedmom" else 0
+            if fm != want_fm:
+                raise AssertionError(f"{opt_name} rate {rate}: {fm} "
+                                     f"fedmom_update launches, want "
+                                     f"{want_fm}")
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"{opt_name} rate {rate}: {losses}")
+            cell = {"final_loss": statistics.fmean(losses[-10:]),
+                    "completed_mean": statistics.fmean(completed),
+                    "ms_per_round": ms,
+                    "cache_nbytes": tr.stream_cache.nbytes,
+                    "hit_rate": tr.stream_cache.hit_rate,
+                    "fedmom_update_launches": fm}
+            cells[(opt_name, rate)] = cell
+            finals[(opt_name, rate)] = [x.clone() for x in leaves(state.w)]
+            ref = B7_REF[(opt_name, rate)]
+            if cell["completed_mean"] != ref[0]:
+                raise AssertionError(
+                    f"{opt_name} rate {rate}: completed_mean "
+                    f"{cell['completed_mean']!r}, the reference's "
+                    f"{ref[0]!r}")
+            if not math.isclose(cell["final_loss"], ref[1],
+                                rel_tol=B7_LOSS_RTOL):
+                raise AssertionError(
+                    f"{opt_name} rate {rate}: final_loss "
+                    f"{cell['final_loss']!r}, the reference's {ref[1]!r} "
+                    f"(rtol {B7_LOSS_RTOL})")
+            cell["final_loss_rel_diff"] = abs(cell["final_loss"] / ref[1]
+                                              - 1)
+            print(f"{opt_name} rate={rate}: final_loss "
+                  f"{cell['final_loss']:.6f} (reference {ref[1]:.6f}, rel "
+                  f"diff {cell['final_loss_rel_diff']:.2e}), completed_mean "
+                  f"{cell['completed_mean']:.6f} of {B7_M}; {ms:.3f} "
+                  f"ms/round (host clock, synced at the end); cache "
+                  f"{cell['cache_nbytes']} B, hit rate "
+                  f"{cell['hit_rate']:.4f}; fedmom_update launches {fm}")
+            del tr
+    spread = {o: max(cells[(o, r)]["final_loss"] for r in B7_RATES)
+              - min(cells[(o, r)]["final_loss"] for r in B7_RATES)
+              for o in ("fedavg", "fedmom")}
+    print(f"final-loss spread across the dropout grid: fedavg "
+          f"{spread['fedavg']:.6f}, fedmom {spread['fedmom']:.6f}")
+    # where a padded round's time goes: two chunks of the hook lane's cell
+    tr = b7_trainer(provider, "fedmom", B7_K, dev)
+    n_prof = 2 * B7_CR
+    wall, busy, n_ops, top = profile_device(lambda: tr.run(
+        n_prof, plan=b7_plan(scenario_spec(B7_HOOK_RATE, B7_DEADLINE,
+                                           B7_SCEN_SEED)), verbose=False))
+    print(f"profiled {n_prof} rounds (2 chunks) of fedmom rate="
+          f"{B7_HOOK_RATE}, padded: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy * 1e3:.2f} ms ({100 * busy / wall:.2f}%), "
+          f"{n_ops / n_prof:.0f} device ops/round; top kernels:")
+    for name, secs, count in top:
+        print(f"  {secs * 1e3:8.3f} ms  {count:6d}x  {name[:100]}")
+    del tr
+
+    # the hook lane: the same cell bucketed, each tier through client_step
+    hook = b7_trainer(provider, "fedmom", B7_K, dev, hook=True)
+    spec = scenario_spec(B7_HOOK_RATE, B7_DEADLINE, B7_SCEN_SEED)
+    cs_kernel.launches = fm_kernel.launches = 0
+    t0 = time.perf_counter()
+    losses, completed, state = run_record(hook, B7_ROUNDS,
+                                          b7_plan(spec, bucketed=True))
+    torch.cuda.synchronize()
+    hook_ms = (time.perf_counter() - t0) / B7_ROUNDS * 1e3
+    cs, fm = cs_kernel.launches, fm_kernel.launches
+    padded = cells[("fedmom", B7_HOOK_RATE)]
+    if statistics.fmean(completed) != padded["completed_mean"]:
+        raise AssertionError(f"hook lane completed {completed}")
+    if cs < B7_ROUNDS or fm != B7_ROUNDS:
+        raise AssertionError(f"hook lane: {cs} client_step and {fm} "
+                             f"fedmom_update launches in {B7_ROUNDS} rounds")
+    worst = 0.0
+    for a, b in zip(finals[("fedmom", B7_HOOK_RATE)], leaves(state.w)):
+        worst = max(worst, float((a - b).abs().max()))
+        if not torch.allclose(a, b, atol=LANE_ATOL, rtol=LANE_RTOL):
+            raise AssertionError(
+                f"hook lane and padded lane final params differ by "
+                f"{worst:.3e} (atol {LANE_ATOL}, rtol {LANE_RTOL})")
+    print(f"hook lane (bucketed, client_step) fedmom rate={B7_HOOK_RATE}: "
+          f"{hook_ms:.3f} ms/round; client_step launches {cs}, "
+          f"fedmom_update launches {fm} in {B7_ROUNDS} rounds; completed "
+          f"counts equal to the padded lane's, final params within "
+          f"{worst:.3e} of them")
+    del hook
+
+    # card against CPU: the same cell, B7_CMP_ROUNDS rounds
+    spec = scenario_spec(B7_HOOK_RATE, B7_DEADLINE, B7_SCEN_SEED)
+    got = {}
+    for device in (torch.device("cpu"), dev):
+        tr = b7_trainer(provider, "fedmom", B7_K, device)
+        t0 = time.perf_counter()
+        got[device.type] = run_record(tr, B7_CMP_ROUNDS, b7_plan(spec))
+        got[device.type + "_s"] = time.perf_counter() - t0
+        del tr
+    if got["cpu"][1] != got["cuda"][1]:
+        raise AssertionError(f"completed counts: cpu {got['cpu'][1]}, "
+                             f"cuda {got['cuda'][1]}")
+    cmp_worst = 0.0
+    for a, b in zip(leaves(got["cpu"][2].w), leaves(got["cuda"][2].w)):
+        b = b.cpu()
+        cmp_worst = max(cmp_worst, float((a - b).abs().max()))
+        if not torch.allclose(a, b, atol=LANE_ATOL, rtol=LANE_RTOL):
+            raise AssertionError(
+                f"card and CPU params differ by {cmp_worst:.3e} (atol "
+                f"{LANE_ATOL}, rtol {LANE_RTOL})")
+    print(f"card against CPU, fedmom rate={B7_HOOK_RATE}, {B7_CMP_ROUNDS} "
+          f"rounds: completed counts equal, final params within "
+          f"{cmp_worst:.3e} (atol/rtol {LANE_ATOL}); cpu "
+          f"{got['cpu_s']:.2f} s, cuda {got['cuda_s']:.2f} s")
+    return {"cells": {f"{o}@{r}": c for (o, r), c in cells.items()},
+            "padded_busy_share": busy / wall,
+            "padded_ops_per_round": n_ops / n_prof,
+            "spread": spread, "declared_mb": declared_mb,
+            "materialized_mb": materialized_mb, "hook_ms_per_round": hook_ms,
+            "hook_client_step_launches": cs,
+            "hook_vs_padded_max_abs_diff": worst,
+            "card_vs_cpu_max_abs_diff": cmp_worst,
+            "cpu_s": got["cpu_s"], "cuda_s": got["cuda_s"]}
+
+
+def disk_trace_phase(dev):
+    """Phase 19 (e): BENCH_9's fleet written as a disk corpus and read
+    through DiskShardProvider; FedMom's rate-0.3 scenario recorded, saved,
+    loaded and replayed, bit-equal to the synthetic run."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import DeviceUniformSampler
+    from repro_torch.data import (DiskShardProvider, StreamingFederatedDataset,
+                                  write_disk_corpus)
+    from repro_torch.scenario import ScenarioSpec, zipf_linreg_provider
+    from repro_torch.traces import FleetTrace, TraceRecorder, TraceSpec
+    from repro_torch.tree import leaves
+    src = zipf_linreg_provider(B9_K, dim=B7_DIM, n_min=B7_NMIN,
+                               n_max=B7_NMAX, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        corpus = write_disk_corpus(os.path.join(tmp, "corpus"), src,
+                                   layout="npy-packed")
+        write_s = time.perf_counter() - t0
+        disk_mb = sum(os.path.getsize(os.path.join(corpus, f))
+                      for f in os.listdir(corpus)) / 2 ** 20
+        provider = DiskShardProvider(corpus)
+        for cid in (0, B9_K // 2, B9_K - 1):
+            a, b = provider.shard(cid), src.shard(cid)
+            if not all(np.array_equal(a[k], b[k]) for k in b):
+                raise AssertionError(f"disk shard {cid} differs")
+        spec = scenario_spec(B9_RATE, B7_DEADLINE, B7_SCEN_SEED)
+        pop = StreamingFederatedDataset.from_provider(
+            provider, seed=B7_DATA_SEED).population()
+        t0 = time.perf_counter()
+        trace = TraceRecorder(spec, B7_H).record(
+            DeviceUniformSampler(pop, B7_M, seed=B7_SAMPLER_SEED), B9_ROUNDS)
+        record_s = time.perf_counter() - t0
+        loaded = FleetTrace.load(trace.save(os.path.join(tmp, "trace")))
+        runs = {}
+        for name, scen in (("replay", ScenarioSpec(
+                trace=TraceSpec(trace=loaded))), ("synthetic", spec)):
+            tr = b7_trainer(provider, "fedmom", B9_K, dev)
+            t0 = time.perf_counter()
+            runs[name] = run_record(tr, B9_ROUNDS, b7_plan(scen))
+            torch.cuda.synchronize()
+            runs[name + "_ms"] = (time.perf_counter() - t0) / B9_ROUNDS * 1e3
+            del tr
+    rep, syn = runs["replay"], runs["synthetic"]
+    bits = sum(int((a.cpu().numpy().view(np.uint32)
+                    != b.cpu().numpy().view(np.uint32)).sum())
+               for a, b in zip(leaves(rep[2].w), leaves(syn[2].w)))
+    bits += sum(a != b for a, b in zip(rep[0], syn[0]))
+    if bits or rep[1] != syn[1]:
+        raise AssertionError(f"trace replay drifts from the synthetic run "
+                             f"by {bits} (parameter bits + losses)")
+    completed_mean = statistics.fmean(rep[1])
+    if completed_mean != B9_REF_COMPLETED:
+        raise AssertionError(f"completed_mean {completed_mean!r}, the "
+                             f"reference's {B9_REF_COMPLETED!r}")
+    print(f"disk corpus of {B9_K} clients (npy-packed, {disk_mb:.2f} MB) "
+          f"written in {write_s:.2f} s; trace of {trace.n_events} events "
+          f"recorded in {record_s:.2f} s; FedMom rate={B9_RATE} replay "
+          f"{runs['replay_ms']:.3f} ms/round, synthetic "
+          f"{runs['synthetic_ms']:.3f} ms/round; replay_drift_bits {bits}; "
+          f"completed_mean {completed_mean!r} (the reference's "
+          f"{B9_REF_COMPLETED!r}), final_loss "
+          f"{statistics.fmean(rep[0][-10:]):.6f}")
+    return {"disk_mb": disk_mb, "write_s": write_s,
+            "replay_ms_per_round": runs["replay_ms"],
+            "synthetic_ms_per_round": runs["synthetic_ms"],
+            "replay_drift_bits": bits, "completed_mean": completed_mean,
+            "final_loss": statistics.fmean(rep[0][-10:])}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2550,7 +3116,18 @@ def main() -> int:
     rglru["card_vs_cpu_max_abs_diff"] = rglru_card_vs_cpu(dev, fa_kernel)
 
     # ------------------------------------------------------------------
-    phase("19. kernels")
+    phase("19. scenarios and traces: every plane under a scenario, "
+          "BENCH_7's million-client sweep, a disk corpus")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    scenarios = scenario_planes_phase(dev, clients, w0, fm_kernel)
+    scenarios["bench7"] = bench7_phase(dev, fm_kernel, cs_kernel)
+    scenarios["disk_trace"] = disk_trace_phase(dev)
+    scenarios["phase_s"] = time.perf_counter() - t0
+    print(f"phase 19 took {scenarios['phase_s']:.1f} s")
+
+    # ------------------------------------------------------------------
+    phase("20. kernels")
     bound_ms = timing[("fedmom", n_main)][2]
     large_ms, _, large_bound_ms = timing[("fedmom", 2 ** 26 + 3)]
     cs_ms, cs_plain_ms, cs_bound_ms, cs_v1_ms, cs_ring = cs_timing[cs_top]
@@ -2582,6 +3159,7 @@ def main() -> int:
                                         for k, v in lanes.items()},
         "streaming_launches": {k: v["launches"] for k, v in lanes.items()},
         "graph_planes": graph_planes,
+        "scenarios": scenarios,
         "zipf_device_plane": zipf_device,
         "serving": serving,
         "rwkv6_7b": rwkv,
@@ -2602,6 +3180,9 @@ def main() -> int:
         "source": "src/repro_torch/csrc/fedmom_update.cu",
         "replaces": "src/repro/kernels/fedmom_update/kernel.py:61",
         "launches": main_launches["fedmom_update"],
+        "scenario_launches": {
+            name: v["fedmom_update_launches"]
+            for name, v in scenarios["planes"].items()},
         "max_abs_err": max_err,
         "ms": fm_tree["ms"],
         "plain_ms": fm_tree["plain_ms"],
@@ -2623,6 +3204,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/client_step.cu",
         "replaces": "src/repro/kernels/client_step/kernel.py:75",
         "launches": lanes["hook"]["launches"]["client_step"],
+        "scenario_launches": scenarios["bench7"][
+            "hook_client_step_launches"],
         "max_abs_err": cs_err,
         "ms": cs_ms,
         "plain_ms": cs_plain_ms,

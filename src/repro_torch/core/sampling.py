@@ -89,6 +89,15 @@ class ClientPopulation:
         return self.counts / self.counts.sum()
 
 
+def active_slots(n: int, m_t, device) -> torch.Tensor:
+    """[..., n] bool: slot j is active when ``j < m_t``.  ``m_t`` is a
+    host int or an int64 tensor of the rounds' batch shape (one cutoff a
+    round of a batched draw)."""
+    slots = torch.arange(n, device=device)
+    return slots < (m_t.unsqueeze(-1) if isinstance(m_t, torch.Tensor)
+                    else m_t)
+
+
 def _weight_table(sampler, device) -> torch.Tensor:
     """The [K] float32 n_k/n table on ``device``, copied there once per
     device and kept: a keyed draw inside a captured CUDA graph may not copy
@@ -126,9 +135,11 @@ class UniformSampler:
     def sample_device(self, key, t):
         """Keyed S_t draw: fold the round index into ``key`` and take the
         first M entries of a permutation of [0, K).  ``t`` is an int or an
-        int64 tensor on the key's device (inside a captured chunk)."""
+        int64 tensor on the key's device (inside a captured chunk); a
+        tensor of R rounds gives [R, M] draws, row r the draw of ``t[r]``
+        alone."""
         kt = prng.fold_in(key, t)
-        idx = prng.permutation(kt, self.population.n_clients)[: self.m]
+        idx = prng.permutation(kt, self.population.n_clients)[..., : self.m]
         return idx, _weight_table(self, idx.device)[idx.long()]
 
 
@@ -187,11 +198,12 @@ class DiurnalSampler:
         Does NOT replay the stateful host ``sample``; use
         ``DeviceDiurnalSampler`` when host batch assembly must match."""
         kt = prng.fold_in(key, t)
-        idx = prng.permutation(kt, self.population.n_clients)[: self.m_max]
+        idx = prng.permutation(kt, self.population.n_clients)[
+            ..., : self.m_max]
         m_t = diurnal_m_device(t, self.m_min, self.m_max, self.period)
         w = _weight_table(self, idx.device)[idx.long()]
-        w = torch.where(torch.arange(self.m_max, device=idx.device) < m_t,
-                        w, torch.zeros_like(w))
+        w = torch.where(active_slots(self.m_max, m_t, idx.device), w,
+                        torch.zeros_like(w))
         return idx, w
 
 
@@ -200,28 +212,57 @@ class DeviceDiurnalSampler(_DeviceReplayMixin, DiurnalSampler):
     """Diurnal sampler with the host-replays-keyed-draw contract."""
 
 
-def participants_in_span(sampler, t_lo: int, t_hi: int,
-                         dedup: bool = True) -> list:
-    """Client ids drawn in rounds [t_lo, t_hi), via the host replay.
+_REPLAY_LANES = 1 << 22      # permutation lanes a batched replay draws at
+                             # once (bounds its int64 temporaries)
+
+
+def replay_span(sampler, t_lo: int, t_hi: int, device=None) -> tuple:
+    """The host replay of rounds [t_lo, t_hi): ``([R, C] ids, [R, C]
+    float32 weights)`` as numpy, row r equal to ``sampler.sample(t_lo +
+    r)``.
 
     Requires a ``KeyedReplayable`` sampler (a stateful one would peek a
-    different client set than the run then draws).  With ``dedup=True``
+    different client set than the run then draws).  The port's keyed
+    samplers draw a batch of rounds at once, on ``device`` (the CPU by
+    default): threefry and the stable sorts are exact integer work, so the
+    rows are the per-round draws bit for bit wherever they run, and a
+    million-client permutation takes a card milliseconds where it takes
+    the CPU most of a second.  Any other ``KeyedReplayable`` sampler is
+    replayed round by round through its own ``sample``.
+    """
+    if not isinstance(sampler, KeyedReplayable):
+        raise ValueError(
+            "replaying a span of rounds needs the KeyedReplayable "
+            "capability — a keyed Device* sampler whose host sample REPLAYS "
+            "the (seed, t)-keyed draw (base_key + sample_device, e.g. "
+            "DeviceUniformSampler): a stateful host sampler would peek a "
+            "different client set than the run then draws")
+    if t_hi <= t_lo:
+        return np.zeros((0, 0), np.int64), np.zeros((0, 0), np.float32)
+    if not isinstance(sampler, _DeviceReplayMixin):
+        rounds = [sampler.sample(t) for t in range(t_lo, t_hi)]
+        return (np.stack([np.asarray(i) for i, _ in rounds]),
+                np.stack([np.asarray(w, np.float32) for _, w in rounds]))
+    dev = torch.device("cpu" if device is None else device)
+    key = sampler.base_key().to(dev)
+    step = max(1, _REPLAY_LANES // max(1, sampler.population.n_clients))
+    ids, ws = [], []
+    for lo in range(t_lo, t_hi, step):
+        t = torch.arange(lo, min(lo + step, t_hi), dtype=torch.int64,
+                         device=dev)
+        idx, w = sampler.sample_device(key, t)
+        ids.append(idx.cpu().numpy())
+        ws.append(w.cpu().numpy().astype(np.float32))
+    return np.concatenate(ids), np.concatenate(ws)
+
+
+def participants_in_span(sampler, t_lo: int, t_hi: int,
+                         dedup: bool = True) -> list:
+    """Client ids drawn in rounds [t_lo, t_hi), via the host replay
+    (``replay_span``; a ``KeyedReplayable`` sampler).  With ``dedup=True``
     each id appears once, in first-appearance order; ``dedup=False``
     returns the raw round-by-round sequence.  Padded diurnal slots are
     included.
     """
-    if not isinstance(sampler, KeyedReplayable):
-        raise ValueError(
-            "participants_in_span needs the KeyedReplayable capability — a "
-            "keyed Device* sampler whose host sample REPLAYS the "
-            "(seed, t)-keyed draw (base_key + sample_device, e.g. "
-            "DeviceUniformSampler): a stateful host sampler would peek a "
-            "different client set than the run then draws")
-    seen: dict = {}
-    raw: list = []
-    for t in range(t_lo, t_hi):
-        idx, _ = sampler.sample(t)
-        for c in np.asarray(idx).tolist():
-            raw.append(int(c))
-            seen.setdefault(int(c), None)
-    return list(seen) if dedup else raw
+    raw = [int(c) for c in replay_span(sampler, t_lo, t_hi)[0].reshape(-1)]
+    return list(dict.fromkeys(raw)) if dedup else raw

@@ -16,6 +16,11 @@ tensor per field and tier and a per-tier LRU: a 3-sample client costs a
 * ``ShardCache`` — per-tier device tensors with per-tier LRU eviction;
   ``ensure(client_ids)`` uploads the missing shards, ``view()`` snapshots
   the client -> (tier, slot) tables as a ``CacheView``.
+* ``DiskShardProvider`` — a ``ShardProvider`` over an on-disk corpus
+  (``write_disk_corpus`` in the ``npy-packed`` or ``npz-per-client``
+  layout, ``leaf_to_corpus`` from a LEAF json directory), read through
+  ``np.load(mmap_mode="r")``: the reference's format, so a corpus written
+  by either package opens in the other;
 * ``CacheView`` — the gather contract the chunk loops consume
   (``gather_round_batch``, ``gather_tier_batch``, ``gather_tier_rows``),
   keyed by the true client id and n_k, so its rows are bit-equal to every
@@ -33,6 +38,9 @@ clients.
 """
 from __future__ import annotations
 
+import glob as _glob
+import json
+import os
 from bisect import bisect_left
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -228,18 +236,20 @@ class StreamingFederatedDataset:
         ``min(next_pow2(n_k), n_max)`` values of the corpus; ``tiers=m``
         keeps only the m largest (smaller clients pad up into the smallest
         kept tier), so ``tiers=1`` is the uniform n_max-slot layout."""
-        natural = sorted({min(next_pow2(int(n)), self.n_max)
-                          for n in self.counts})
+        # over the distinct n_k (a handful), then mapped back to [K]: a
+        # million-client corpus costs no per-client Python loop
+        uniq, inv = np.unique(self.counts, return_inverse=True)
+        rows = [min(next_pow2(int(n)), self.n_max) for n in uniq]
+        natural = sorted(set(rows))
         if tiers is not None:
             if int(tiers) < 1:
                 raise ValueError(f"tiers must be >= 1, got {tiers!r}")
             natural = natural[-int(tiers):]
         sizes = tuple(natural)
-        tier_of = np.asarray(
-            [bisect_left(sizes, min(next_pow2(int(n)), self.n_max))
-             for n in self.counts], np.int32)
-        tier_counts = tuple(int((tier_of == t).sum())
-                            for t in range(len(sizes)))
+        tier_of = np.asarray([bisect_left(sizes, r) for r in rows],
+                             np.int32)[inv.reshape(-1)]
+        tier_counts = tuple(int(c) for c in np.bincount(
+            tier_of, minlength=len(sizes)))
         return TierLayout(sizes=sizes, tier_of=tier_of,
                           tier_counts=tier_counts,
                           row_nbytes=self.row_nbytes)
@@ -536,3 +546,267 @@ class ShardCache:
 
 def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros((), np.dtype(dtype))).dtype
+
+
+# ---------------------------------------------------------------------------
+# on-disk corpora: DiskShardProvider + writer + LEAF ingestion
+# ---------------------------------------------------------------------------
+CORPUS_FORMAT = "repro-fleet-corpus"
+CORPUS_VERSION = 1
+CORPUS_LAYOUTS = ("npy-packed", "npz-per-client")
+
+
+def _dtype_tag(dt) -> str:
+    return np.dtype(dt).name
+
+
+def _field_dtype(arr: np.ndarray) -> np.dtype:
+    """LEAF json carries untyped numbers: floats land as float64, ints as
+    int64 — narrow to the repo's float32/int32 corpus convention."""
+    if np.issubdtype(arr.dtype, np.floating):
+        return np.dtype(np.float32)
+    if np.issubdtype(arr.dtype, np.integer):
+        return np.dtype(np.int32)
+    raise CorpusSchemaError(
+        f"unsupported field dtype {arr.dtype} (want numeric)")
+
+
+def parse_leaf_dir(leaf_dir: str):
+    """Parse a LEAF-format directory (``*.json`` files with ``users`` /
+    ``num_samples`` / ``user_data``, the layout the LEAF benchmark suite
+    emits) into ``(counts, fields, shards, users)`` — host arrays, floats
+    narrowed to float32 and ints to int32.  Files are visited in sorted
+    name order and users in file order, so the client-id assignment is
+    deterministic across runs and machines."""
+    files = sorted(_glob.glob(os.path.join(leaf_dir, "*.json")))
+    if not files:
+        raise CorpusSchemaError(
+            f"no LEAF json files in {leaf_dir!r} (want the LEAF layout: "
+            f"*.json with users/num_samples/user_data)")
+    users, shards = [], []
+    for path in files:
+        with open(path) as f:
+            blob = json.load(f)
+        for key in ("users", "user_data"):
+            if key not in blob:
+                raise CorpusSchemaError(
+                    f"{path!r} is not LEAF-format: missing {key!r}")
+        declared = dict(zip(blob["users"],
+                            blob.get("num_samples", [])))
+        for user in blob["users"]:
+            ud = blob["user_data"][user]
+            shard = {}
+            for name, rows in sorted(ud.items()):
+                arr = np.asarray(rows)
+                shard[name] = arr.astype(_field_dtype(arr))
+            n = len(next(iter(shard.values())))
+            if user in declared and int(declared[user]) != n:
+                raise CorpusSchemaError(
+                    f"LEAF user {user!r} declares num_samples="
+                    f"{declared[user]} but carries {n} rows",
+                    client=len(users))
+            users.append(user)
+            shards.append(shard)
+    fields = {name: schema
+              for name, schema in sorted(shard_schema(shards[0]).items())}
+    counts = np.array([check_shard(s, fields, k, source="LEAF user")
+                       for k, s in enumerate(shards)], np.int64)
+    return counts, fields, shards, users
+
+
+def write_disk_corpus(root: str, provider: ShardProvider,
+                      layout: str = "npy-packed") -> str:
+    """Materialize any ``ShardProvider`` as an on-disk corpus directory
+    readable by ``DiskShardProvider``; returns ``root``.
+
+    ``npy-packed``: one row-concatenated ``<field>.npy`` per field (written
+    via ``open_memmap``, so host RAM never holds the packed corpus) —
+    the mmap-backed layout for big corpora.  ``npz-per-client``: one
+    ``shards/<cid>.npz`` per client — the simple layout for small ones.
+    Either way ``counts.npy`` + ``manifest.json`` declare the schema.
+    """
+    if layout not in CORPUS_LAYOUTS:
+        raise ValueError(
+            f"layout must be one of {CORPUS_LAYOUTS}, got {layout!r}")
+    os.makedirs(root, exist_ok=True)
+    counts = np.asarray(provider.counts, np.int64)
+    fields = {name: (tuple(tail), np.dtype(dt))
+              for name, (tail, dt) in sorted(provider.fields.items())}
+    np.save(os.path.join(root, "counts.npy"), counts)
+    if layout == "npy-packed":
+        total = int(counts.sum())
+        offsets = np.concatenate([[0], np.cumsum(counts)])
+        mms = {name: np.lib.format.open_memmap(
+                   os.path.join(root, f"{name}.npy"), mode="w+",
+                   dtype=dtype, shape=(total,) + tail)
+               for name, (tail, dtype) in fields.items()}
+        for cid in range(len(counts)):
+            shard = provider.shard(cid)
+            lo, hi = int(offsets[cid]), int(offsets[cid + 1])
+            for name, mm in mms.items():
+                mm[lo:hi] = np.asarray(shard[name], mm.dtype)
+        for mm in mms.values():
+            mm.flush()
+    else:
+        sdir = os.path.join(root, "shards")
+        os.makedirs(sdir, exist_ok=True)
+        for cid in range(len(counts)):
+            shard = provider.shard(cid)
+            np.savez(os.path.join(sdir, f"{cid}.npz"),
+                     **{name: np.asarray(shard[name], dtype)
+                        for name, (_, dtype) in fields.items()})
+    manifest = {
+        "format": CORPUS_FORMAT,
+        "version": CORPUS_VERSION,
+        "layout": layout,
+        "n_clients": int(len(counts)),
+        "counts": "counts.npy",
+        "fields": {name: {"shape": list(tail), "dtype": _dtype_tag(dtype)}
+                   for name, (tail, dtype) in fields.items()},
+    }
+    with open(os.path.join(root, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=2, sort_keys=True)
+        f.write("\n")
+    return root
+
+
+def leaf_to_corpus(leaf_dir: str, out_dir: str,
+                   layout: str = "npz-per-client") -> str:
+    """Convert a LEAF-format directory into a ``DiskShardProvider`` corpus
+    (see ``write_disk_corpus`` for the layouts); returns ``out_dir``."""
+    parsed_counts, parsed_fields, parsed_shards, _ = parse_leaf_dir(leaf_dir)
+
+    class _Parsed:
+        n_clients = len(parsed_counts)
+        counts = parsed_counts
+        fields = parsed_fields
+
+        def shard(self, cid):
+            return parsed_shards[int(cid)]
+
+    return write_disk_corpus(out_dir, _Parsed(), layout=layout)
+
+
+class DiskShardProvider:
+    """``ShardProvider`` over an on-disk corpus directory.
+
+    Accepts either a manifest-declared corpus (``manifest.json`` +
+    ``counts.npy`` + field files, as ``write_disk_corpus`` /
+    ``leaf_to_corpus`` emit) or a raw LEAF-format directory of json files
+    (parsed once at construction — json cannot be mmapped; convert big
+    LEAF corpora with ``leaf_to_corpus`` to get the mmap-backed layout).
+
+    ``npy-packed`` corpora are opened with ``np.load(mmap_mode="r")``:
+    construction touches only the [K] count vector and the file headers,
+    and ``shard(cid)`` copies the client's row span out of the mapping —
+    host RAM never holds the corpus.  ``shard`` is a pure function of
+    ``client_id`` over immutable files, so an eviction-refetch (or a
+    resumed run) returns bit-identical rows — the property that keeps
+    disk-backed trajectories bit-reproducible.
+    """
+
+    def __init__(self, root: str):
+        self.root = str(root)
+        manifest_path = os.path.join(self.root, "manifest.json")
+        if os.path.exists(manifest_path):
+            self._init_manifest(manifest_path)
+        elif _glob.glob(os.path.join(self.root, "*.json")):
+            self._init_leaf()
+        else:
+            raise CorpusSchemaError(
+                f"{self.root!r} is neither a manifest-declared corpus "
+                f"(manifest.json) nor a LEAF-format directory (*.json)")
+
+    def _init_manifest(self, manifest_path: str):
+        with open(manifest_path) as f:
+            manifest = json.load(f)
+        if manifest.get("format") != CORPUS_FORMAT:
+            raise CorpusSchemaError(
+                f"{manifest_path!r} is not a {CORPUS_FORMAT} manifest "
+                f"(format={manifest.get('format')!r})")
+        if manifest.get("version") != CORPUS_VERSION:
+            raise CorpusSchemaError(
+                f"corpus version {manifest.get('version')!r} unsupported "
+                f"(this build reads version {CORPUS_VERSION})")
+        layout = manifest.get("layout")
+        if layout not in CORPUS_LAYOUTS:
+            raise CorpusSchemaError(
+                f"corpus layout {layout!r} unsupported (want one of "
+                f"{CORPUS_LAYOUTS})")
+        self.layout = layout
+        counts = np.load(os.path.join(self.root, manifest["counts"]))
+        counts = np.asarray(counts, np.int64)
+        if counts.ndim != 1 or len(counts) != int(manifest["n_clients"]):
+            raise CorpusSchemaError(
+                f"counts file has shape {counts.shape} but the manifest "
+                f"declares n_clients={manifest['n_clients']}")
+        self._counts = counts
+        self._fields = {
+            name: (tuple(spec["shape"]), np.dtype(spec["dtype"]))
+            for name, spec in sorted(manifest["fields"].items())}
+        if not self._fields:
+            raise CorpusSchemaError("corpus manifest declares no fields")
+        self._shards_mem = None
+        if layout == "npy-packed":
+            self._offsets = np.concatenate([[0], np.cumsum(counts)])
+            total = int(self._offsets[-1])
+            self._mm = {}
+            for name, (tail, dtype) in self._fields.items():
+                mm = np.load(os.path.join(self.root, f"{name}.npy"),
+                             mmap_mode="r")
+                if mm.shape != (total,) + tail or mm.dtype != dtype:
+                    raise CorpusSchemaError(
+                        f"packed field {name!r} is {mm.shape}/{mm.dtype} "
+                        f"but the manifest declares "
+                        f"{(total,) + tail}/{dtype}")
+                self._mm[name] = mm
+        else:
+            sdir = os.path.join(self.root, "shards")
+            for probe in (0, len(counts) - 1):
+                p = os.path.join(sdir, f"{probe}.npz")
+                if not os.path.exists(p):
+                    raise CorpusSchemaError(
+                        f"npz-per-client corpus missing shard file {p!r}",
+                        client=probe)
+            self._sdir = sdir
+
+    def _init_leaf(self):
+        self.layout = "leaf-json"
+        counts, fields, shards, users = parse_leaf_dir(self.root)
+        self._counts = counts
+        self._fields = fields
+        self._shards_mem = shards
+        self.users = users
+
+    @classmethod
+    def from_leaf(cls, leaf_dir: str) -> "DiskShardProvider":
+        """Open a raw LEAF-format directory directly (parse-once path;
+        equivalent to ``DiskShardProvider(leaf_dir)``)."""
+        return cls(leaf_dir)
+
+    # -- ShardProvider protocol ------------------------------------------
+    @property
+    def n_clients(self) -> int:
+        return len(self._counts)
+
+    @property
+    def counts(self) -> np.ndarray:
+        return self._counts
+
+    @property
+    def fields(self) -> Dict[str, tuple]:
+        return self._fields
+
+    def shard(self, client_id: int) -> Dict[str, np.ndarray]:
+        cid = int(client_id)
+        if not 0 <= cid < self.n_clients:
+            raise IndexError(
+                f"client {cid} outside corpus [0, {self.n_clients})")
+        if self._shards_mem is not None:          # leaf-json
+            return self._shards_mem[cid]
+        if self.layout == "npy-packed":
+            lo, hi = int(self._offsets[cid]), int(self._offsets[cid + 1])
+            return {name: np.array(mm[lo:hi])
+                    for name, mm in self._mm.items()}
+        with np.load(os.path.join(self._sdir, f"{cid}.npz")) as z:
+            return {name: z[name] for name in self._fields}

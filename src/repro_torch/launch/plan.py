@@ -29,9 +29,13 @@ the measured dispatch overhead.  Every resolution returns a
 for auto runs, into the history and the metrics jsonl).  Explicit planes
 are capability-checked (``check_plane``): the device plane needs a
 ``DeviceSampleable`` sampler, the streaming plane a ``KeyedReplayable``
-one.  The fields that belong to layers not yet ported (``scenario``,
-``secure``, ``mesh``) raise a structured ``PlanError`` with ``nearest``
-set; a plan is never silently run as something else.
+one.  ``scenario`` takes a ``repro_torch.scenario.ScenarioSpec`` (dropouts,
+stragglers, availability, an adaptive cohort or a recorded trace) and runs
+on every plane; on the device plane it needs a ``KeyedReplayable`` sampler,
+since its masks are staged against the host replay of the in-chunk draw.
+The fields that belong to layers not yet ported (``secure``, ``mesh``)
+raise a structured ``PlanError`` with ``nearest`` set; a plan is never
+silently run as something else.
 
 A ``TrainSession`` holds what outlives one ``run()`` call: the packed and
 the streaming datasets, the persistent ``ShardCache`` (a second run
@@ -114,14 +118,14 @@ def _not_ported(what: str, plane: str) -> PlanError:
     nearest = "per_round" if plane == "auto" else plane
     return PlanError(
         f"{what} is not yet ported to repro_torch (this port runs the "
-        f"planes {PLANES} and 'auto' without scenarios, secure aggregation "
-        f"or a mesh); nearest viable plane: {nearest!r}", plane=plane,
-        nearest=nearest)
+        f"planes {PLANES} and 'auto', with scenarios, but without secure "
+        f"aggregation or a mesh); nearest viable plane: {nearest!r}",
+        plane=plane, nearest=nearest)
 
 
-# the layers these fields drive (scenarios, secure aggregation, the
-# device mesh) are not ported yet
-_UNPORTED_FIELDS = ("scenario", "secure", "mesh")
+# the layers these fields drive (secure aggregation, the device mesh) are
+# not ported yet
+_UNPORTED_FIELDS = ("secure", "mesh")
 
 
 @dataclass(frozen=True)
@@ -136,8 +140,9 @@ class ExecutionPlan:
     chunk i's metrics are read).  ``local_batch`` overrides the trainer's
     ``local_batch`` field when set.  ``chunk_rounds="auto"`` sizes chunks
     from the measured dispatch overhead (``auto_chunk_rounds``); the size
-    chosen is audited on the ``PlanDecision``.  Defaults and checks are the
-    reference's."""
+    chosen is audited on the ``PlanDecision``.  ``scenario``: a
+    ``repro_torch.scenario.ScenarioSpec`` (``None`` or a null spec runs
+    exactly as no scenario).  Defaults and checks are the reference's."""
     plane: str = "auto"
     chunk_rounds: Union[int, str] = 25
     prefetch: int = 2
@@ -197,6 +202,12 @@ class ExecutionPlan:
             raise PlanError(
                 f"ckpt.every must be >= 0, got {self.ckpt.every}",
                 plane=plane)
+        if self.scenario is not None:
+            from repro_torch.scenario.spec import ScenarioSpec
+            if not isinstance(self.scenario, ScenarioSpec):
+                raise PlanError(
+                    f"scenario must be a repro_torch.scenario.ScenarioSpec, "
+                    f"got {type(self.scenario).__name__}", plane=plane)
         for name in _UNPORTED_FIELDS:
             if getattr(self, name) is not None:
                 raise _not_ported(f"ExecutionPlan.{name}", plane)
@@ -237,6 +248,7 @@ class PlanDecision:
     chunk_rounds: Optional[int] = None        # the size run() uses
     dispatch_overhead_s: Optional[float] = None   # set when measured
     bucketed: bool = False
+    scenario: bool = False
 
     def record(self) -> dict:
         rec = {"event": "plan", "plane": self.plane, "auto": self.auto,
@@ -251,6 +263,8 @@ class PlanDecision:
                 float(self.dispatch_overhead_s), 9)
         if self.bucketed:
             rec["bucketed"] = True
+        if self.scenario:
+            rec["scenario"] = True
         return rec
 
 
@@ -386,7 +400,8 @@ def resolve(plan: ExecutionPlan, trainer, n_rounds: int) -> PlanDecision:
     workload, not per run).  A ``cache.bucketed`` plan must land on the
     streaming plane with ``placement="mesh"``; anything else raises rather
     than training un-bucketed.  Builds at most the host-side streaming
-    metadata, never uploads data."""
+    metadata, never uploads data.  A non-null scenario is recorded on the
+    decision, and gated as the reference gates it."""
     if plan.chunk_rounds == "auto":
         overhead = trainer.session.dispatch_overhead(trainer.device)
         chunk = auto_chunk_rounds(overhead, n_rounds)
@@ -414,6 +429,30 @@ def resolve(plan: ExecutionPlan, trainer, n_rounds: int) -> PlanDecision:
                 f"{trainer.rcfg.placement!r}", plane="streaming")
         decision.bucketed = True
         decision.reason += "; tier-bucketed dispatch"
+    if plan.scenario is not None and not plan.scenario.null:
+        # scenario masks are staged on the host per round's cohort, so a
+        # plane that draws its cohorts inside the chunk needs the host
+        # replay of the keyed draw to know whom round t sampled.  The
+        # streaming plane already demands KeyedReplayable; the device plane
+        # only DeviceSampleable, so it is gated here.
+        from repro_torch.core.sampling import KeyedReplayable
+        if decision.plane == "device" \
+                and not isinstance(trainer.sampler, KeyedReplayable):
+            raise PlanError(
+                f"a scenario on the device plane needs the sampler "
+                f"capability KeyedReplayable (the host replay of the keyed "
+                f"cohort draw is what the scenario masks are staged "
+                f"against) but {type(trainer.sampler).__name__} does not "
+                f"provide it; nearest viable plane: 'scanned'",
+                plane="device", missing="KeyedReplayable",
+                nearest="scanned")
+        decision.scenario = True
+        parts = [type(m).__name__ for m in plan.scenario.models]
+        if plan.scenario.availability is not None:
+            parts.append(type(plan.scenario.availability).__name__)
+        if plan.scenario.cohort is not None:
+            parts.append("AdaptiveCohort")
+        decision.reason += f"; scenario active ({', '.join(parts)})"
     return decision
 
 

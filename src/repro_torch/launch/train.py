@@ -52,6 +52,19 @@ works through the padded-C convention (``rcfg.clients_per_round`` must
 equal ``sampler.lowered_clients``).  The deprecated ``run_scanned`` /
 ``run_device`` / ``run_streaming`` shims stay equal to the plan API.
 
+Scenarios (``ExecutionPlan(scenario=ScenarioSpec(...))``): the active
+``ScenarioRuntime`` turns each round's cohort into completed-step caps,
+which enter every plane as the [C, H] prefix step masks the engine already
+takes (eq. (3) partial work); records then carry ``"completed"``.  The
+per-round and scanned planes stage them with their host-assembled rounds;
+the device and streaming planes draw their cohorts inside the chunk, so
+their masks are staged against the host replay of those draws
+(``core.sampling.replay_span``, one batched draw a chunk; for a large
+population on the card, on a side stream), which each chunk's device draw
+is then held against.  An adaptive cohort is stateful: every plane stages
+its rounds exactly once and in order, and a resume replays rounds [0, t0)
+first.
+
 ``param_axes`` belongs to a later slice of the port and raises
 ``PlanError``.
 """
@@ -76,7 +89,7 @@ from repro_torch.core.multiround import (scan_rounds, scan_rounds_bucketed,
                                          scan_rounds_ondevice)
 from repro_torch.core.round import DTYPES, RoundConfig, round_step
 from repro_torch.core.sampling import (KeyedReplayable, UniformSampler,
-                                       participants_in_span)
+                                       replay_span)
 from repro_torch.core.server_opt import ServerOpt, ServerState
 from repro_torch.data.device import DeviceFederatedDataset
 from repro_torch.data.federated import FederatedDataset, minibatch_indices
@@ -85,7 +98,16 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.graph import ChunkGraph, detach_state, pin_inputs
 from repro_torch.launch.plan import (CacheSpec, ExecutionPlan, PlanError,
                                      TrainSession, _IdKey, as_plan, resolve)
+from repro_torch.scenario.spec import ScenarioRuntime
 from repro_torch.tree import tree_map
+
+
+# the host replay of a chunk's cohort draws runs on the card from this
+# population up: a million-client permutation takes the CPU ~0.65 s and the
+# card a few ms; sixty clients' chunk takes the CPU 0.4-0.7 ms a round and
+# the card's launches and read-back 1.1-1.2 ms (chip_smoke.py phase 19,
+# NVIDIA H100 80GB HBM3, 700.00 W)
+_REPLAY_ON_CARD_CLIENTS = 2048
 
 
 def _cache_counters(cache: Optional[ShardCache]):
@@ -159,7 +181,8 @@ def _warn_shim(old: str, plane: str):
 class _Chunk:
     """A dispatched chunk on its way to the history: ``sealed`` once its
     eval and checkpoint snapshot are taken, ``drawn`` the host replay's
-    client ids its device draw must equal (padded streaming only)."""
+    client ids its device draw must equal (padded streaming, and the
+    device plane under a scenario)."""
     s: int
     e: int
     metrics: dict
@@ -204,6 +227,10 @@ class FederatedTrainer:
                 "yet ported to repro_torch", nearest="per_round")
         if self.session is None:
             self.session = TrainSession()
+        # the active ScenarioRuntime, scoped to one run() call (set when the
+        # resolved plan carries a non-null ScenarioSpec, cleared after)
+        self._scenario: Optional[ScenarioRuntime] = None
+        self._replay_stream = None
         self.device = resolve_device(self.device)
         self.state = tree_map(
             lambda x: x.to(self.device) if isinstance(x, torch.Tensor)
@@ -234,21 +261,71 @@ class FederatedTrainer:
                     < h_k[:, None]).astype(np.float32)
         return lr_t, mask
 
+    def _scenario_mask(self, t: int, client_ids, mask):
+        """Fold the active scenario's completed-step caps for round ``t``'s
+        cohort into the (possibly None) H_k mask: both are prefix masks,
+        so the elementwise min composes them."""
+        if self._scenario is None:
+            return mask
+        sm = self._scenario.masks_for(t, np.asarray(client_ids))
+        return sm if mask is None else np.minimum(mask, sm)
+
     def _round_inputs(self, t: int):
         """Sample S_t and assemble its [C, H, b, ...] batches + knobs."""
         idx, weights = self.sampler.sample(t)
         batches = self.dataset.round_batches(
             idx, self.rcfg.local_steps, self.local_batch, t=t)
         lr_t, mask = self._round_knobs(t)
+        mask = self._scenario_mask(t, idx, mask)
         return batches, np.asarray(weights, np.float32), lr_t, mask
 
-    def _chunk_knobs(self, t_lo: int, t_hi: int):
+    def _replay(self, t_lo: int, t_hi: int) -> tuple:
+        """``replay_span`` of rounds [t_lo, t_hi): ([R, C] ids, [R, C]
+        weights).  With a card and a population of at least
+        ``_REPLAY_ON_CARD_CLIENTS`` it draws on the card, on a side stream,
+        so it does not wait for the chunks in flight; the current stream
+        then waits for it (the first draw fills the sampler's per-device
+        tables).  A smaller population is drawn on the CPU, where a
+        chunk's few hundred small int64 ops cost less than the card's
+        launches and read-back."""
+        pop = getattr(self.sampler, "population", None)
+        if (self.device.type != "cuda" or pop is None
+                or pop.n_clients < _REPLAY_ON_CARD_CLIENTS):
+            return replay_span(self.sampler, t_lo, t_hi)
+        if self._replay_stream is None:
+            self._replay_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._replay_stream):
+            out = replay_span(self.sampler, t_lo, t_hi, self.device)
+        torch.cuda.current_stream(self.device).wait_stream(
+            self._replay_stream)
+        return out
+
+    def _chunk_knobs(self, t_lo: int, t_hi: int, cohorts=None):
         """[R] float32 lrs + optional [R, C, H] masks for a chunk of
-        rounds."""
-        knobs = [self._round_knobs(t) for t in range(t_lo, t_hi)]
-        masks = None if knobs[0][1] is None else np.stack(
-            [m for _, m in knobs])
-        return np.asarray([lr for lr, _ in knobs], np.float32), masks
+        rounds.  With an active scenario the cohort ids matter (fates are
+        keyed per client): ``cohorts`` [R, C] are the chunk's replayed ids,
+        replayed here when not given."""
+        if self._scenario is not None and cohorts is None:
+            cohorts = self._replay(t_lo, t_hi)[0]
+        lrs, masks = [], []
+        for r, t in enumerate(range(t_lo, t_hi)):
+            lr_t, mask = self._round_knobs(t)
+            if self._scenario is not None:
+                mask = self._scenario_mask(t, cohorts[r], mask)
+            lrs.append(lr_t)
+            masks.append(mask)
+        return (np.asarray(lrs, np.float32),
+                None if masks[0] is None else np.stack(masks))
+
+    def _stage_span(self, staged: dict, t_lo: int, t_hi: int) -> list:
+        """The device and padded streaming planes' lookahead for rounds
+        [t_lo, t_hi): one replay of the chunk's draws, its lrs and masks
+        kept in ``staged`` for the dispatch, and its raw id sequence
+        returned (the cache's uploads and the draw check use it).  Called
+        once a chunk, in round order, as an adaptive cohort needs."""
+        ids = self._replay(t_lo, t_hi)[0]
+        staged[t_lo] = self._chunk_knobs(t_lo, t_hi, ids)
+        return [int(c) for c in ids.reshape(-1)]
 
     def _assemble_chunk(self, t_lo: int, t_hi: int) -> dict:
         """Rounds [t_lo, t_hi) stacked into the scanned plane's chunk
@@ -276,7 +353,7 @@ class FederatedTrainer:
         An absent or unreadable checkpoint means a fresh start.  The metrics
         jsonl is rewound to the restored round."""
         if not resume:
-            return 0
+            return self._scenario_start(0)
         if not self.ckpt_path:
             raise ValueError("resume=True needs ckpt_path")
         if not isinstance(self.sampler, KeyedReplayable):
@@ -288,11 +365,21 @@ class FederatedTrainer:
                 missing="KeyedReplayable")
         t_ck = latest_round(self.ckpt_path)
         if t_ck < 0:
-            return 0
+            return self._scenario_start(0)
         self.state, _ = restore_state(self.ckpt_path, self.state)
         if self.metrics_path:
             prune_metrics(self.metrics_path, t_ck)
-        return t_ck + 1
+        return self._scenario_start(t_ck + 1)
+
+    def _scenario_start(self, t0: int) -> int:
+        """Prime the scenario runtime for a run starting at ``t0``: an
+        adaptive cohort replays rounds [0, t0) on the host to rebuild its
+        completion-rate EMA (t0 > 0 implies resume, whose gate guarantees
+        the KeyedReplayable replay this needs).  Stateless scenarios need
+        no history."""
+        if self._scenario is not None:
+            self._scenario.warmup(t0, self.sampler)
+        return t0
 
     @contextlib.contextmanager
     def _writer(self):
@@ -344,6 +431,9 @@ class FederatedTrainer:
         try:
             self._check_client_extent()
             decision = resolve(plan, self, n_rounds)
+            self._scenario = (
+                ScenarioRuntime(plan.scenario, self.rcfg.local_steps)
+                if decision.scenario else None)
             self.session.plan_log.append(decision.record())
             if decision.auto:
                 rec = decision.record()
@@ -381,6 +471,7 @@ class FederatedTrainer:
                     self.state = detach_state(self.state)
         finally:
             self.local_batch, self.ckpt_path, self.ckpt_every = saved
+            self._scenario = None
 
     # ------------------------------------------------------------------
     # plane: per_round — one round per loop iteration
@@ -398,6 +489,8 @@ class FederatedTrainer:
                     device=self.device)
                 rec = {"round": t, "loss": float(metrics["loss"]),
                        "delta_norm": float(metrics["delta_norm"])}
+                if self._scenario is not None:
+                    rec["completed"] = int(metrics["completed"])
                 if eval_fn is not None and (t % log_every == 0
                                             or t == n_rounds - 1):
                     rec.update(eval_fn(self.state))
@@ -531,20 +624,31 @@ class FederatedTrainer:
 
     def _run_device(self, n_rounds: int, chunk_rounds: int, eval_fn,
                     eval_every: Optional[int], verbose: bool, resume: bool):
+        """Chunks drawn and gathered on the device.  Under a scenario each
+        chunk's masks are staged against the host replay of its draws, one
+        chunk ahead, and the chunk's device draw is held against that
+        replay when its metrics are read."""
         t0 = self._resume_round(resume)
         dds = self.device_dataset()
         spans = _eval_spans(t0, n_rounds, chunk_rounds, eval_every)
+        scenario = self._scenario is not None
+        staged: dict = {}
+
+        def prepare(i):
+            return self._stage_span(staged, *spans[i])
 
         def dispatch(s, e, view):
-            lrs, masks = self._chunk_knobs(s, e)
+            lrs, masks = (staged.pop(s) if scenario
+                          else self._chunk_knobs(s, e))
             values = {"lrs": lrs}
             if masks is not None:
                 values["masks"] = masks
             graph = self._device_chunk_graph(e - s, masks is not None, dds)
             return graph.run(self.state, s, values)
 
-        return self._run_fused_chunks(spans, n_rounds, None, None, dispatch,
-                                      True, eval_fn, verbose)
+        return self._run_fused_chunks(
+            spans, n_rounds, None, prepare if scenario else None, dispatch,
+            True, eval_fn, verbose, check_draws=scenario)
 
     # ------------------------------------------------------------------
     # plane: streaming — shard-cached data (corpus larger than the card)
@@ -577,16 +681,16 @@ class FederatedTrainer:
                                                 prefetch, eval_fn, verbose)
         data_key = sds.base_key(self.device)
         sample_key = self.sampler.base_key().to(self.device)
+        staged: dict = {}
 
         def prepare(i):
-            # the raw per-round sequence (dedup=False): ensure() refreshes
-            # LRU recency from it in last-use order, and the chunk's device
-            # draw is held against it when its metrics are read
-            return participants_in_span(self.sampler, *spans[i],
-                                        dedup=False)
+            # the raw per-round sequence: ensure() refreshes LRU recency
+            # from it in last-use order, and the chunk's device draw is
+            # held against it when its metrics are read
+            return self._stage_span(staged, *spans[i])
 
         def dispatch(s, e, view):
-            lrs, masks = self._chunk_knobs(s, e)
+            lrs, masks = staged.pop(s)
             return scan_rounds_ondevice(
                 self.loss_fn, self.server_opt, self.state, view,
                 self.sampler, data_key, sample_key, s, e - s, self.rcfg,
@@ -616,7 +720,9 @@ class FederatedTrainer:
 
         Every (t, cid) minibatch draw of the chunk is replayed here in one
         batched host draw (bit-equal to the device draw); padding rows get
-        row 0 (any in-range row: their weight is 0).
+        row 0 (any in-range row: their weight is 0).  The cohorts come from
+        one ``replay_span`` of the chunk; an active scenario's masks are
+        staged here, in round order.
 
         Returns ``(participants, tiers_present, tier_cids, tier_weights,
         lrs, tier_idx, tier_masks)``: the raw round-order id sequence
@@ -625,11 +731,11 @@ class FederatedTrainer:
         lrs, and [R, C_i, H] masks (None without ``hetero_steps_fn``)."""
         R = t_hi - t_lo
         rounds, lrs, participants = [], [], []
-        for t in range(t_lo, t_hi):
-            idx, weights = self.sampler.sample(t)
-            idx = np.asarray(idx)
+        cohorts, cohort_ws = self._replay(t_lo, t_hi)
+        for t, idx, weights in zip(range(t_lo, t_hi), cohorts, cohort_ws):
             participants.extend(int(c) for c in idx)
             lr_t, mask = self._round_knobs(t)
+            mask = self._scenario_mask(t, idx, mask)
             lrs.append(lr_t)
             by_tier: dict = {}
             for j, cid in enumerate(idx):
@@ -677,7 +783,8 @@ class FederatedTrainer:
             tier_ws.append(ws)
             tier_ms.append(ms)
             tier_ix.append(ix)
-        masked = self.hetero_steps_fn is not None
+        masked = (self.hetero_steps_fn is not None
+                  or self._scenario is not None)
         return (participants, tiers_present, tuple(tier_cids),
                 tuple(tier_ws), lrs, tuple(tier_ix),
                 tuple(tier_ms) if masked else None)
@@ -732,8 +839,9 @@ class FederatedTrainer:
         raw participant sequence; it runs before span i-1 is dispatched.
         ``cache.ensure`` makes span i's shards resident and ``cache.view()``
         snapshots them as the ``view`` of span i.  The scanned and device
-        planes pass ``cache=None`` and ``prepare=None`` (their ``view`` is
-        ``None``).  With ``prefetch``, span i+1's uploads
+        planes pass ``cache=None`` (their ``view`` is ``None``), and
+        ``prepare=None`` unless the device plane stages a scenario's masks
+        there.  With ``prefetch``, span i+1's uploads
         are issued right after chunk i is enqueued.  Cache writes are in
         place and on the current stream, behind chunk i's reads, and a
         copy from pageable host memory waits for that stream, so prefetch
@@ -820,11 +928,13 @@ class FederatedTrainer:
 
     def _drain_chunk(self, chunk: _Chunk, verbose: bool, t_start: float,
                      writer: Optional[AsyncCheckpointWriter]):
-        """The host-blocking half: one metrics read per chunk, the
-        device-draw check, history + jsonl append, progress line, then the
-        checkpoint submit."""
+        """The host-blocking half: one metrics read per chunk (with the
+        ``completed`` counts a scenario records), the device-draw check,
+        history + jsonl append, progress line, then the checkpoint
+        submit."""
         m = chunk.metrics
-        vals = torch.stack([m["loss"], m["delta_norm"]]).cpu().numpy()
+        vals = torch.stack([m["loss"].float(), m["delta_norm"].float(),
+                            m["completed"].float()]).cpu().numpy()
         if chunk.drawn is not None:
             got = m["clients"].cpu().numpy().reshape(-1).tolist()
             if got != chunk.drawn:
@@ -835,6 +945,9 @@ class FederatedTrainer:
         recs = [{"round": t, "loss": float(vals[0, i]),
                  "delta_norm": float(vals[1, i])}
                 for i, t in enumerate(range(chunk.s, chunk.e))]
+        if self._scenario is not None:
+            for i, rec in enumerate(recs):
+                rec["completed"] = int(vals[2, i])
         if chunk.ev is not None:
             recs[-1].update(chunk.ev)
         if chunk.cstats is not None:

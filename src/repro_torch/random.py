@@ -158,15 +158,18 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval,
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.permutation(key, n)``: ``ceil(3 ln n / ln(2**32 - 1))``
-    rounds of a stable sort of ``arange(n)`` on fresh 32-bit keys."""
+    rounds of a stable sort of ``arange(n)`` on fresh 32-bit keys.  A batch
+    of keys ``(..., 2)`` gives one permutation a key, ``(..., n)``, each
+    the one its key alone gives (the sorts are per row)."""
     n = int(n)
     rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(_M32)))
-    x = torch.arange(n, dtype=torch.int32, device=key.device)
+    x = torch.arange(n, dtype=torch.int32, device=key.device).expand(
+        key.shape[:-1] + (n,))
     for _ in range(rounds):
         pair = split(key, 2)
-        key, sub = pair[0], pair[1]
+        key, sub = pair[..., 0, :], pair[..., 1, :]
         order = torch.sort(random_bits(sub, (n,)), stable=True).indices
-        x = x[order]
+        x = torch.gather(x, -1, order)
     return x
 
 

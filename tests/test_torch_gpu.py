@@ -1282,3 +1282,124 @@ def test_graphed_run_leaves_no_alias_to_the_graph(cuda):
                                    "b": torch.zeros((), device=cuda)})
     tr.run(4, plan=plan, verbose=False)
     assert torch.equal(kept.w["w"], snapshot)
+
+
+# ---------------------------------------------------------------------------
+# scenarios on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("N", [4, 8, 16, 32, 64])
+def test_client_step_scenario_masks_match_plain(cuda, N):
+    """The hook lane's tier shapes at BENCH_7's configuration (C=8 slots,
+    H=10, b=4, D=16, tier rows 4..64) under a dropout + straggler
+    scenario's prefix masks, whole rows of zeros (a cap of 0) included:
+    the kernel divides by max(mask sum, 1) as the plain version does."""
+    from repro_torch.scenario import (LatencyStragglers, ScenarioSpec,
+                                      UniformDropout)
+    from repro_torch.scenario.spec import ScenarioRuntime
+    C, H, b, D = 8, 10, 4, 16
+    xs, ys, slots, idx, w, bias, _ = _cs_inputs(C, H, b, D, N, cuda, seed=N)
+    runtime = ScenarioRuntime(ScenarioSpec(
+        dropout=UniformDropout(0.6),
+        stragglers=LatencyStragglers(deadline_s=6.0), seed=17), H)
+    masks = [runtime.masks_for(t, np.arange(C) + 100 * t) for t in range(40)]
+    mask = next(m for m in masks if (m.sum(1) == 0).any()
+                and (m.sum(1) == H).any())
+    zero = int(np.flatnonzero(mask.sum(1) == 0)[0])
+    mask = torch.as_tensor(mask, device=cuda)
+    before = cs_kernel.launches
+    got = cs_ops.client_step(xs, ys, slots, idx, w, bias, 0.05, H, b,
+                             step_mask=mask)
+    assert cs_kernel.launches == before + 1
+    want = cs_ref.client_step(xs, ys, slots, idx, w, bias, 0.05, H, b,
+                              step_mask=mask)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got[0][zero], w) and float(got[2][zero]) == 0.0
+
+
+@pytest.mark.parametrize("plane", ["scanned", "device"])
+def test_scenario_chunk_replayed_at_two_rounds_matches_eager(cuda, plane):
+    """One captured chunk under a scenario, replayed at t0 = 0 and t0 =
+    20, against the eager loop at those rounds: the masks are staged
+    inputs, so a replay uses its own rounds' masks and draws."""
+    from repro_torch.core import multiround as tmr
+    from repro_torch.scenario import (LatencyStragglers, ScenarioSpec,
+                                      UniformDropout)
+    from repro_torch.scenario.spec import ScenarioRuntime
+    from repro_torch.tree import tree_map
+    spec = ScenarioSpec(dropout=UniformDropout(0.5),
+                        stragglers=LatencyStragglers(deadline_s=3.0), seed=4)
+    tr = _plane_trainer(cuda)
+    tr._scenario = ScenarioRuntime(spec, tr.rcfg.local_steps)
+    dds = tr.device_dataset()
+    key, dkey = tr.sampler.base_key().to(cuda), dds.base_key()
+    state = tr.state
+    for t0 in (0, 20):
+        start = state._replace(w=tree_map(torch.clone, state.w),
+                               extra=tree_map(torch.clone, state.extra),
+                               t=t0)
+        if plane == "device":
+            lrs, masks = tr._chunk_knobs(t0, t0 + 4)
+            graph = tr._device_chunk_graph(4, True, dds)
+            values = {"lrs": lrs, "masks": masks}
+        else:
+            values = tr._assemble_chunk(t0, t0 + 4)
+            masks = values["masks"]
+            sig = tuple((k, tuple(v.shape), str(v.dtype))
+                        for k, v in sorted(values["batches"].items()))
+            graph = tr._scan_chunk_graph(4, True, sig)
+        assert (masks.sum(-1) < tr.rcfg.local_steps).any()
+        state, got = graph.run(state, t0, values)
+        if plane == "device":
+            want_state, want = tmr.scan_rounds_ondevice(
+                _linreg_loss, tr.server_opt, start, dds, tr.sampler, dkey,
+                key, t0, 4, tr.rcfg, 4, lrs=lrs, step_masks=masks,
+                device=cuda)
+        else:
+            want_state, want = tmr.scan_rounds(
+                _linreg_loss, tr.server_opt, start, values["batches"],
+                values["weights"], tr.rcfg, lrs=values["lrs"],
+                step_masks=masks, device=cuda)
+        for k in ("loss", "completed"):
+            assert torch.equal(got[k], want[k]), (t0, k)
+        for k in ("w", "b"):
+            assert torch.equal(state.w[k], want_state.w[k]), (t0, k)
+    assert len(tr.session.graphs) == 1
+
+
+@pytest.mark.parametrize("which", ["trace", "constant", "min"])
+def test_availability_inside_a_capture_copies_nothing(cuda, which):
+    """``m_device`` of a trace's table, a constant and their min inside a
+    captured graph: after one eager call (the chunk's warm-up) nothing is
+    copied from the host, so the capture succeeds, and each replay reads
+    the round the graph's input holds."""
+    from repro_torch.scenario import (ConstantAvailability, MinAvailability,
+                                      ScenarioSampler)
+    from repro_torch.traces import FleetTrace, TraceAvailability
+    from repro_torch.core import ClientPopulation
+    m = np.array([3, 1, 4, 2, 5, 2], np.int32)
+    trace = FleetTrace(n_rounds=6, n_clients=8, local_steps=2, m=m,
+                       ev_round=[], ev_client=[], ev_steps=[])
+    av = {"trace": TraceAvailability(trace, policy="wrap"),
+          "constant": ConstantAvailability(3),
+          "min": MinAvailability((TraceAvailability(trace, policy="clamp"),
+                                  ConstantAvailability(3)))}[which]
+    sampler = ScenarioSampler(ClientPopulation(np.arange(1, 9)), av, seed=5)
+    key = sampler.base_key().to(cuda)
+    t = torch.zeros((), dtype=torch.int64, device=cuda)
+    sampler.sample_device(key, t)                   # the eager warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        idx, w = sampler.sample_device(key, t)
+        m_t = av.m_device(t)
+    for r in (0, 1, 4, 7):
+        t.fill_(r)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(m_t) == av.m_at(r)
+        want_idx, want_w = sampler.sample(r)
+        assert idx.cpu().numpy().tolist() == want_idx.tolist()
+        assert np.array_equal(w.cpu().numpy(), want_w)
+        assert int((w > 0).sum()) == min(int(m_t), av.peak)

@@ -223,11 +223,10 @@ def test_eval_cadence_and_plan_overrides(world, tmp_path):
 
 
 @pytest.mark.parametrize("plan", ["scanned", "device", "auto"])
-def test_unported_planes_raise_plan_error(world, plan):
-    """The planes this test once found unported now run (the name is
-    kept): each trains LeNet and logs its decision, an auto one (the
-    stateful sampler has a keyed draw, the corpus fits the CPU's unbounded
-    budget: the device plane) into the history too."""
+def test_ported_planes_run(world, plan):
+    """Each chunked plane trains LeNet and logs its decision, an auto one
+    (the stateful sampler has a keyed draw, the corpus fits the CPU's
+    unbounded budget: the device plane) into the history too."""
     tr = _torch_trainer(world, "fedavg-uniform")
     hist = tr.run(2, plan=ExecutionPlan(plane=plan, chunk_rounds=2),
                   verbose=False)
@@ -281,30 +280,49 @@ def test_chunked_planes_train_the_per_round_trajectory(world, jax_runs,
     assert tr.session.plan_log[-1]["plane"] == plane
 
 
-@pytest.mark.parametrize("field,value", [
-    ("chunk_rounds", "auto"), ("memory_budget_bytes", 1 << 20),
-    ("scenario", object()), ("secure", object()), ("mesh", object())],
-    ids=["chunk_rounds", "memory_budget_bytes", "scenario", "secure",
-         "mesh"])
-def test_unported_plan_fields_raise_plan_error(field, value):
-    """``scenario``, ``secure`` and ``mesh`` still raise; ``chunk_rounds=
-    "auto"`` and ``memory_budget_bytes`` are live fields now (the name is
-    kept): accepted on every plane, and a budget that is not a positive
-    int is refused with the reference's message."""
-    if field in ("chunk_rounds", "memory_budget_bytes"):
-        for plane in ("per_round", "streaming", "auto"):
-            assert getattr(ExecutionPlan(plane=plane, **{field: value}),
-                           field) == value
-        if field == "memory_budget_bytes":
-            with pytest.raises(PlanError, match="positive int"):
-                ExecutionPlan(memory_budget_bytes=0)
-        return
+@pytest.mark.parametrize("field", ["secure", "mesh"])
+def test_unported_plan_fields_raise_plan_error(field):
+    """``secure`` and ``mesh`` belong to layers not yet ported: they raise
+    a ``PlanError`` naming the nearest plane that runs."""
     with pytest.raises(PlanError, match="not yet ported") as err:
-        ExecutionPlan(plane="per_round", **{field: value})
+        ExecutionPlan(plane="per_round", **{field: object()})
     assert err.value.nearest == "per_round"
     with pytest.raises(PlanError) as err:
-        ExecutionPlan(plane="streaming", **{field: value})
+        ExecutionPlan(plane="streaming", **{field: object()})
     assert err.value.nearest == "streaming"
+
+
+@pytest.mark.parametrize("field,value", [
+    ("chunk_rounds", "auto"), ("memory_budget_bytes", 1 << 20),
+    ("scenario", None)],
+    ids=["chunk_rounds", "memory_budget_bytes", "scenario"])
+def test_ported_plan_fields_are_accepted(field, value):
+    """``chunk_rounds="auto"``, ``memory_budget_bytes`` and ``scenario``
+    are accepted on every plane, and a value of the wrong kind is refused
+    with the reference's message: a budget that is not a positive int, a
+    scenario that is not a ``ScenarioSpec``."""
+    if field == "scenario":
+        from repro.launch.plan import ExecutionPlan as JPlan
+        from repro.launch.plan import PlanError as JPlanError
+        from repro_torch.scenario import ScenarioSpec, UniformDropout
+        value = ScenarioSpec(dropout=UniformDropout(0.2), seed=3)
+        msgs = []
+        for plan_cls, err_cls in ((JPlan, JPlanError),
+                                  (ExecutionPlan, PlanError)):
+            with pytest.raises(err_cls) as err:
+                plan_cls(plane="per_round", scenario=object())
+            msgs.append(str(err.value).replace("repro_torch.", "repro."))
+            assert err.value.plane == "per_round"
+        assert msgs[0] == msgs[1] == (
+            "scenario must be a repro.scenario.ScenarioSpec, got object")
+    planes = (("per_round", "scanned", "device", "streaming", "auto")
+              if field == "scenario" else ("per_round", "streaming", "auto"))
+    for plane in planes:
+        assert getattr(ExecutionPlan(plane=plane, **{field: value}),
+                       field) == value
+    if field == "memory_budget_bytes":
+        with pytest.raises(PlanError, match="positive int"):
+            ExecutionPlan(memory_budget_bytes=0)
 
 
 @pytest.mark.parametrize("kw,nearest", [
