@@ -186,13 +186,39 @@ Phases, each printed as it runs; any failure exits non-zero:
      recorded for 48 rounds, saved, loaded and replayed bit-equal to the
      synthetic run (parameter bits and losses), ``completed_mean`` equal
      to the JAX package's;
- 20. one JSON line of kernels, then the result line.
+ 20. secure aggregation (every LeNet run on the card but (e)'s under
+     ``cudnn.deterministic``): (a) BENCH_8's configuration
+     (``benchmarks/perf_compare.py`` ``bench_secure`` over
+     ``_driver_setup``: LeNet on synthetic FEMNIST K=20, M=8, H=4, b=10,
+     FedMom eta=2, beta=0.9 through ``fedmom_update``, 60 rounds, chunks of
+     25, frac_bits 20) in three lanes, plain, open ring and masked, on the
+     scanned, device and per-round planes: warm ms/round of each (a warm-up
+     run, then a timed run synced at the end), masked-over-open and
+     ring-over-plain, masked-vs-open drift 0 bits, plain-vs-open final-loss
+     drift < 1e-3 (BENCH_8's assertion), ``fedmom_update`` 60 launches in
+     60 rounds (the profiler on the graphed planes, where one profiled run
+     a lane gives its device time and ops a round), the masked and plain
+     lanes bit-equal across the planes; (b) the device plane under
+     ``UniformDropout(0.3)``: masked bit-equal to open (dropout recovery
+     keyed by the graph's device round index); (c) one trainer run plain,
+     masked, open and plain: each bit-equal to a fresh trainer's run; (d)
+     BENCH_6's fleet on the hook lane, masked bit-equal to open,
+     ``client_step`` launches counted, within atol/rtol 1e-4 of phase 8's
+     plain hook lane; (e) 3 masked per-round rounds on the card against the
+     CPU (1e-4), and ``secure_weighted_sum`` / ``mask_cohort`` on one
+     numpy-made cohort stack (saturating and NaN values in it) bit-equal
+     between the card and the CPU; (f) ``secure_weighted_sum``'s device
+     time on LeNet's stack at M=8 and M=32, and the quickstart corpus
+     (K=60) at M=32 on the device plane, masked and open: ms/round and
+     peak memory;
+ 21. one JSON line of kernels, then the result line.
 
 Without a card, or outside a checkout of the repo, it exits non-zero and
 prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -308,6 +334,17 @@ B9_K, B9_ROUNDS, B9_RATE = 50_000, 48, 0.3
 # completed_mean of FedMom's rate-0.3 replay in trace_lane() on the CPU
 # (the same command with trace_lane; BENCH_9.json has 7.7708333)
 B9_REF_COMPLETED = 7.791666666666667
+# the secure-aggregation path (phase 20): BENCH_8.json's configuration
+# (benchmarks/perf_compare.py bench_secure over _driver_setup, LeNet):
+# the plain, open-ring and masked lanes at equal trajectory
+S_K, S_M, S_H, S_B, S_LR = 20, 8, 4, 10, 0.05
+S_ETA, S_BETA = 2.0, 0.9           # FedMom, through fedmom_update
+S_ROUNDS, S_CR, S_FRAC = 60, 25, 20   # rounds, chunk_rounds, frac_bits
+S_WARM_PER_ROUND = 5               # warm-up rounds of the per-round plane
+S_QUANT_DRIFT = 1e-3               # plain vs open final loss (bench_secure)
+S_DROPOUT, S_DROP_ROUNDS = 0.3, 25
+S_CMP_ROUNDS = 3                   # masked card-against-CPU rounds
+S_BIG_M, S_BIG_ROUNDS = 32, 20     # the sizing point: K=60 at M=32
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # H100 SXM fp32 (CUDA cores) peak
 
@@ -991,6 +1028,7 @@ def streaming_lanes(dev, z_clients, fm_kernel, cs_kernel):
         ms = secs / Z_ROUNDS * 1e3
         lanes[name] = {"trainer": tr, "plan": plan, "ms_per_round": ms,
                        "final_w": [x.clone() for x in leaves(tr.state.w)],
+                       "final_loss": losses[-1],
                        "hit_rate": hit_rate,
                        "misses_per_round": misses / Z_ROUNDS,
                        "launches": launched}
@@ -2812,6 +2850,460 @@ def disk_trace_phase(dev):
             "replay_drift_bits": bits, "completed_mean": completed_mean,
             "final_loss": statistics.fmean(rep[0][-10:])}
 
+def secure_trainer(clients, dev, m=S_M, session=None):
+    """``_driver_setup``'s trainer of benchmarks/perf_compare.py at
+    BENCH_8's configuration: LeNet, dataset seed 1, the keyed
+    ``DeviceUniformSampler`` (seed 2), FedMom through ``fedmom_update``."""
+    from repro_torch import random as prng
+    from repro_torch.core import DeviceUniformSampler, RoundConfig, fedmom
+    from repro_torch.data import FederatedDataset
+    from repro_torch.launch.train import FederatedTrainer
+    from repro_torch.models import small
+    ds = FederatedDataset(clients, seed=1)
+    opt = fedmom(eta=S_ETA, beta=S_BETA, use_fused_kernel=True)
+    return FederatedTrainer(
+        loss_fn=small.lenet_loss, server_opt=opt,
+        rcfg=RoundConfig(clients_per_round=m, local_steps=S_H, lr=S_LR,
+                         placement="mesh", compute_dtype="float32"),
+        dataset=ds, sampler=DeviceUniformSampler(ds.population(), m, seed=2),
+        state=opt.init(small.lenet_init(prng.PRNGKey(0), device=dev)),
+        local_batch=S_B, device=dev, session=session)
+
+
+def secure_plan(plane, spec, chunk_rounds=S_CR, scenario=None):
+    from repro_torch.launch.plan import ExecutionPlan
+    if plane == "per_round":
+        return ExecutionPlan(plane="per_round", secure=spec,
+                             scenario=scenario)
+    return ExecutionPlan(plane=plane, chunk_rounds=chunk_rounds,
+                         secure=spec, scenario=scenario)
+
+
+def drift_bits(a, b):
+    """Parameters of two states that differ in any bit."""
+    import torch
+    from repro_torch.tree import leaves
+    return sum(int((x.cpu().view(torch.int32)
+                    != y.cpu().view(torch.int32)).sum())
+               for x, y in zip(leaves(a.w), leaves(b.w)))
+
+
+def ring_card_vs_cpu(dev, specs):
+    """The same fp32 cohort stack (numpy, LeNet's tree at M=S_M, with
+    +-3e9, +-inf and NaN in one leaf) through ``secure_weighted_sum`` on
+    the card and on the CPU, masked and open, with and without a dropout,
+    the round index a host int and a card tensor: bit-equal."""
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.core.secure_agg import mask_cohort, secure_weighted_sum
+    from repro_torch.models import small
+    from repro_torch.tree import leaves, tree_map
+    rng = np.random.default_rng(0)
+    y = tree_map(lambda x: (1e-3 * rng.normal(size=(S_M,) + tuple(
+        x.shape))).astype(np.float32), small.lenet_init(prng.PRNGKey(0)))
+    first = max(leaves(y), key=lambda a: a.size).reshape(S_M, -1)
+    first[0, :5] = [3e9, -3e9, np.inf, -np.inf, np.nan]
+    first[3, 7] = np.nan
+    first[5, 1] = 5000.0                     # wraps the aggregate's ring
+    checked = 0
+    for name, spec in specs.items():
+        if spec is None:
+            continue
+        for surv in (None, np.array([1, 1, 0, 1, 1, 0, 1, 1], bool)):
+            for t in (7, "card"):
+                out = []
+                for d in (torch.device("cpu"), dev):
+                    yt = tree_map(lambda a, d=d: torch.from_numpy(a).to(d),
+                                  y)
+                    tt = (torch.tensor(7, device=d) if t == "card" else t)
+                    st = None if surv is None else torch.from_numpy(
+                        surv).to(d)
+                    agg = secure_weighted_sum(yt, st, spec, tt)
+                    words = mask_cohort(prng.fold_in(prng.PRNGKey(3, d), 7),
+                                        yt, spec)
+                    out.append([x.cpu() for x in leaves(agg)]
+                               + [x.cpu() for x in leaves(words)])
+                for a, b in zip(*out):
+                    if not torch.equal(a.view(torch.int32)
+                                       if a.dtype == torch.float32 else a,
+                                       b.view(torch.int32)
+                                       if b.dtype == torch.float32 else b):
+                        raise AssertionError(
+                            f"{name}, survivors {surv}, t {t}: the card's "
+                            f"ring transport differs from the CPU's")
+                checked += 1
+    print(f"secure_weighted_sum and mask_cohort on LeNet's tree at M={S_M} "
+          f"(saturating +-3e9, +-inf, NaN and a wrapping sum included): "
+          f"card bit-equal to the CPU in {checked} cases (masked and open, "
+          f"with and without a dropout, t a host int and a card tensor)")
+    return checked
+
+
+def secure_phase(dev, clients, z_clients, hook_lane, fm_kernel, cs_kernel):
+    """Phase 20: BENCH_8's configuration on the scanned, device and
+    per-round planes in three lanes (plain, open ring, masked), the device
+    plane under dropout, one trainer across specs, BENCH_6's fleet on the
+    hook lane, card against CPU, and the grid at M=32."""
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.core import SecureAggSpec
+    from repro_torch.core.secure_agg import secure_weighted_sum
+    from repro_torch.models import small
+    from repro_torch.data import synthetic_femnist
+    from repro_torch.scenario import ScenarioSpec, UniformDropout
+    from repro_torch.tree import leaves, tree_map
+    specs = {"plain": None,
+             "open": SecureAggSpec(masked=False, seed=0, frac_bits=S_FRAC),
+             "masked": SecureAggSpec(masked=True, seed=0, frac_bits=S_FRAC)}
+    b8_clients, _ = synthetic_femnist(n_clients=S_K, seed=0)
+    print(f"BENCH_8: LeNet on synthetic FEMNIST K={S_K}, M={S_M} H={S_H} "
+          f"b={S_B} lr={S_LR} FedMom eta={S_ETA} beta={S_BETA} through "
+          f"fedmom_update, DeviceUniformSampler; {S_ROUNDS} rounds, chunks "
+          f"of {S_CR}, frac_bits {S_FRAC}; cudnn.deterministic; each lane a "
+          f"warm-up run (the per-round plane {S_WARM_PER_ROUND} rounds), "
+          f"then a timed run synced at the end")
+    out = {"planes": {}, "part_s": {}}
+    runs = {}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["part_s"][name] = now - t_part
+        print(f"  ({name}: {now - t_part:.1f} s)")
+        t_part = now
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        for plane in ("scanned", "device", "per_round"):
+            res = {}
+            for lane, spec in specs.items():
+                tr = secure_trainer(b8_clients, dev)
+                init, plan = tr.state, secure_plan(plane, spec)
+                tr.run(S_WARM_PER_ROUND if plane == "per_round"
+                       else S_ROUNDS, plan=plan, verbose=False)
+                torch.cuda.synchronize()
+                tr.state, tr.history = init, []
+                fm_kernel.launches = 0
+                t0 = time.perf_counter()
+                hist = [r for r in tr.run(S_ROUNDS, plan=plan, verbose=False)
+                        if "event" not in r]
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / S_ROUNDS * 1e3
+                losses = [r["loss"] for r in hist]
+                if len(losses) != S_ROUNDS or not all(
+                        math.isfinite(x) for x in losses):
+                    raise AssertionError(f"{plane} {lane}: losses {losses}")
+                rec = tr.session.plan_log[-1]
+                if bool(rec.get("secure")) != (spec is not None):
+                    raise AssertionError(f"{plane} {lane}: record {rec}")
+                row = {"ms_per_round": ms, "final_loss": losses[-1]}
+                if plane == "per_round":
+                    fm = fm_kernel.launches
+                else:
+                    tr.state, tr.history = init, []
+                    wall, rows = profile_rows(lambda: tr.run(
+                        S_ROUNDS, plan=plan, verbose=False))
+                    fm = kernel_launches(rows, FM_KERNEL_NAME)
+                    busy = sum(r[1] for r in rows)
+                    row.update(device_ms_per_round=busy / S_ROUNDS * 1e3,
+                               ops_per_round=sum(r[2] for r in rows)
+                               / S_ROUNDS, busy_share=busy / wall,
+                               top=[(k[:80], round(sec * 1e3, 3), c)
+                                    for k, sec, c in rows[:6]])
+                if fm != S_ROUNDS:
+                    raise AssertionError(
+                        f"{plane} {lane}: {fm} fedmom_update launches in "
+                        f"{S_ROUNDS} rounds, want one a round")
+                row["fedmom_update_launches"] = fm
+                runs[(plane, lane)] = (losses, tr.state)
+                res[lane] = row
+                extra = ("" if plane == "per_round" else
+                         f"; profiled: {row['device_ms_per_round']:.3f} ms "
+                         f"of device time and {row['ops_per_round']:.0f} "
+                         f"device ops a round, busy "
+                         f"{100 * row['busy_share']:.1f}%")
+                print(f"{plane:9s} {lane:6s} {ms:8.3f} ms/round (host "
+                      f"clock); final loss {losses[-1]:.6f}; fedmom_update "
+                      f"{fm} in {S_ROUNDS} rounds{extra}")
+                del tr
+            bits = drift_bits(runs[(plane, "masked")][1],
+                              runs[(plane, "open")][1])
+            if bits or runs[(plane, "masked")][0] != runs[(plane, "open")][0]:
+                raise AssertionError(
+                    f"{plane}: masked differs from open in {bits} params "
+                    f"(or in its losses)")
+            quant = abs(res["plain"]["final_loss"] - res["open"]["final_loss"])
+            if not quant < S_QUANT_DRIFT:
+                raise AssertionError(f"{plane}: plain vs open final loss "
+                                     f"drift {quant}")
+            res["masked_over_open"] = (res["masked"]["ms_per_round"]
+                                       / res["open"]["ms_per_round"])
+            res["open_over_plain"] = (res["open"]["ms_per_round"]
+                                      / res["plain"]["ms_per_round"])
+            res["masked_open_drift_bits"] = bits
+            res["quantization_drift"] = quant
+            if plane != "per_round":
+                res["grid_device_ms_per_round"] = (
+                    res["masked"]["device_ms_per_round"]
+                    - res["open"]["device_ms_per_round"])
+                res["ring_device_ms_per_round"] = (
+                    res["open"]["device_ms_per_round"]
+                    - res["plain"]["device_ms_per_round"])
+                print(f"{plane:9s} masked top kernels: "
+                      f"{res['masked']['top']}")
+            out["planes"][plane] = res
+            print(f"{plane:9s} masked/open {res['masked_over_open']:.3f}x, "
+                  f"ring/plain {res['open_over_plain']:.3f}x; masked vs open "
+                  f"drift {bits} bits; plain vs open final-loss drift "
+                  f"{quant:.3e} (< {S_QUANT_DRIFT})"
+                  + ("" if plane == "per_round" else
+                     f"; device time a round: grid "
+                     f"{res['grid_device_ms_per_round']:.3f} ms, ring "
+                     f"{res['ring_device_ms_per_round']:.3f} ms"))
+        for lane in ("masked", "plain"):
+            ref = runs[("per_round", lane)]
+            for plane in ("scanned", "device"):
+                got = runs[(plane, lane)]
+                if got[0] != ref[0] or drift_bits(got[1], ref[1]):
+                    raise AssertionError(
+                        f"{lane}: {plane} differs from the per-round plane")
+        print("masked and plain: scanned and device planes bit-equal to the "
+              "per-round plane (losses and parameters)")
+        part("BENCH_8 lanes")
+
+        # dropout recovery inside a graph: with a scenario, survivors'
+        # pairwise terms with the dropped are recomputed from the round key
+        # folded from the graph's device round index
+        scen = ScenarioSpec(dropout=UniformDropout(rate=S_DROPOUT), seed=0)
+        drop = {}
+        for lane in ("open", "masked"):
+            tr = secure_trainer(b8_clients, dev)
+            hist = [r for r in tr.run(S_DROP_ROUNDS, plan=secure_plan(
+                "device", specs[lane], scenario=scen), verbose=False)
+                if "event" not in r]
+            drop[lane] = ([r["loss"] for r in hist],
+                          [r["completed"] for r in hist], tr.state)
+        bits = drift_bits(drop["masked"][2], drop["open"][2])
+        if bits or drop["masked"][:2] != drop["open"][:2] \
+                or min(drop["masked"][1]) == S_M:
+            raise AssertionError(
+                f"device plane under UniformDropout({S_DROPOUT}): masked "
+                f"differs from open in {bits} params, or nobody dropped "
+                f"(completed {drop['masked'][1]})")
+        out["dropout_completed_mean"] = statistics.fmean(drop["masked"][1])
+        print(f"device plane under UniformDropout({S_DROPOUT}), "
+              f"{S_DROP_ROUNDS} rounds: completed mean "
+              f"{out['dropout_completed_mean']:.3f} of {S_M}; masked "
+              f"bit-equal to open (dropout recovery inside the graph)")
+        part("dropout")
+
+        # one trainer across specs on the device plane: each run equals the
+        # fresh trainer's run of its lane above (the chunk graphs are keyed
+        # on the spec; none is replayed for another)
+        tr = secure_trainer(b8_clients, dev)
+        init = tr.state
+        for lane in ("plain", "masked", "open", "plain"):
+            tr.state, tr.history = init, []
+            hist = [r for r in tr.run(S_ROUNDS, plan=secure_plan(
+                "device", specs[lane]), verbose=False) if "event" not in r]
+            want = runs[("device", lane)]
+            if [r["loss"] for r in hist] != want[0] \
+                    or drift_bits(tr.state, want[1]):
+                raise AssertionError(
+                    f"one trainer, {lane} after other specs: differs from a "
+                    f"fresh trainer's run")
+            if tr.rcfg.secure is not None:
+                raise AssertionError("the spec outlived its run")
+        keyed = sorted({str(k[-2].secure) for k in tr.session.graphs})
+        out["graphs_one_trainer"] = len(tr.session.graphs)
+        print(f"one trainer run plain, masked, open, plain on the device "
+              f"plane: each bit-equal to a fresh trainer's; "
+              f"{len(tr.session.graphs)} chunk graphs keyed on {keyed}")
+        del tr
+        part("one trainer")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # BENCH_6's Zipf fleet on the hook lane (client_step), masked and open
+    tr_cs = {}
+    for lane in ("open", "masked"):
+        tr = zipf_trainer(z_clients, dev, hook=True)
+        init = tr.state
+        plan = dataclasses.replace(hook_lane["plan"], secure=specs[lane])
+        tr.run(Z_CR, plan=plan, verbose=False)                  # warm-up
+        torch.cuda.synchronize()
+        tr.state, tr.history = init, []
+        fm_kernel.launches = cs_kernel.launches = 0
+        t0 = time.perf_counter()
+        hist = tr.run(Z_ROUNDS, plan=plan, verbose=False)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / Z_ROUNDS * 1e3
+        want_cs = tier_launches(tr.sampler, tr.stream_cache.layout.tier_of,
+                                Z_ROUNDS, Z_CR)
+        launched = {"fedmom_update": fm_kernel.launches,
+                    "client_step": cs_kernel.launches}
+        if launched != {"fedmom_update": Z_ROUNDS, "client_step": want_cs}:
+            raise AssertionError(
+                f"hook lane {lane}: launches {launched}, want fedmom_update "
+                f"{Z_ROUNDS} and client_step {want_cs}")
+        tr_cs[lane] = (tr.state, ms, launched, hist[-1]["loss"])
+        print(f"hook lane (BENCH_6's fleet) {lane:6s} {ms:.3f} ms/round "
+              f"(plain {hook_lane['ms_per_round']:.3f} in phase 8); "
+              f"launches {launched}")
+    bits = drift_bits(tr_cs["masked"][0], tr_cs["open"][0])
+    if bits:
+        raise AssertionError(f"hook lane: masked differs from open in "
+                             f"{bits} params")
+    # the fixed-point grid against plain fp32: at this configuration the
+    # loss rises and momentum amplifies the 2^-21 rounding of every round;
+    # the same drift on the CPU, where the plain version runs, says how
+    # much of it is the ring's (BENCH_8 holds the final loss to 1e-3)
+    cpu = torch.device("cpu")
+    cpu_w, cpu_loss = {}, {}
+    for lane in ("plain", "open"):
+        tr = zipf_trainer(z_clients, cpu, hook=True)
+        hist = tr.run(Z_ROUNDS, plan=dataclasses.replace(
+            hook_lane["plan"], secure=specs[lane]), verbose=False)
+        cpu_w[lane], cpu_loss[lane] = leaves(tr.state.w), hist[-1]["loss"]
+    drift = {
+        "card": max(float((a.cpu() - b.cpu()).abs().max()) for a, b in zip(
+            leaves(tr_cs["masked"][0].w), hook_lane["final_w"])),
+        "cpu": max(float((a - b).abs().max())
+                   for a, b in zip(cpu_w["open"], cpu_w["plain"]))}
+    loss_drift = abs(tr_cs["masked"][3] - hook_lane["final_loss"])
+    if not loss_drift < S_QUANT_DRIFT:
+        raise AssertionError(f"hook lane: masked vs plain final loss drift "
+                             f"{loss_drift}")
+    # the card's masked lane against the CPU's, over phase 9's rounds
+    got = []
+    for d in (cpu, dev):
+        tr = zipf_trainer(z_clients, d, hook=True)
+        tr.run(Z_CMP_ROUNDS, plan=dataclasses.replace(
+            hook_lane["plan"], secure=specs["masked"]), verbose=False)
+        got.append(leaves(tr.state.w))
+    cmp = max(float((a - b.cpu()).abs().max()) for a, b in zip(*got))
+    if not all(torch.allclose(a, b.cpu(), atol=LANE_ATOL, rtol=LANE_RTOL)
+               for a, b in zip(*got)):
+        raise AssertionError(f"hook lane masked: card vs CPU {cmp:.3e}")
+    out["hook"] = {lane: {"ms_per_round": v[1], "launches": v[2]}
+                   for lane, v in tr_cs.items()}
+    out["hook"].update(masked_vs_plain_max_abs=drift["card"],
+                       cpu_open_vs_plain_max_abs=drift["cpu"],
+                       masked_vs_plain_final_loss=loss_drift,
+                       card_vs_cpu_max_abs=cmp)
+    print(f"hook lane: masked bit-equal to open over {Z_ROUNDS} rounds; "
+          f"masked vs plain: params max abs {drift['card']:.3e} (the CPU's "
+          f"open vs plain {drift['cpu']:.3e}, final loss "
+          f"{cpu_loss['plain']:.6f} vs {cpu_loss['open']:.6f}), final loss "
+          f"drift {loss_drift:.3e} "
+          f"(< {S_QUANT_DRIFT}); masked card vs CPU after {Z_CMP_ROUNDS} "
+          f"rounds {cmp:.3e} (atol/rtol {LANE_ATOL})")
+    part("hook lane")
+
+    # card against CPU: per-round rounds, plain and masked.  The ring
+    # rounds every weighted delta to 2^-20 (~1e-3 of a LeNet delta here),
+    # so an ulp's difference upstream flips whole quanta: the masked run is
+    # held to the CPU's own spread under a one-ulp nudge of the initial
+    # weights, measured here, and the plain run to CMP_ATOL
+    w_init = small.lenet_init(prng.PRNGKey(0))
+    nudged = tree_map(lambda x: torch.nextafter(
+        x, torch.full_like(x, math.inf)), w_init)
+    cmp = {}
+    for lane, d, w in (("plain", cpu, w_init), ("plain", dev, w_init),
+                       ("masked", cpu, w_init), ("masked", dev, w_init),
+                       ("nudged", cpu, nudged)):
+        tr = secure_trainer(b8_clients, d)
+        tr.state = tr.server_opt.init(tree_map(lambda x, d=d: x.to(d), w))
+        tr.run(S_CMP_ROUNDS, plan=secure_plan(
+            "per_round", specs["plain" if lane == "plain" else "masked"]),
+            verbose=False)
+        cmp[(lane, d.type)] = [x.cpu() for x in leaves(tr.state.w)]
+
+    def max_abs(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    plain = max_abs(cmp[("plain", "cpu")], cmp[("plain", dev.type)])
+    masked = max_abs(cmp[("masked", "cpu")], cmp[("masked", dev.type)])
+    spread = max_abs(cmp[("masked", "cpu")], cmp[("nudged", "cpu")])
+    if not all(torch.allclose(a, b, atol=CMP_ATOL, rtol=CMP_RTOL) for a, b
+               in zip(cmp[("plain", "cpu")], cmp[("plain", dev.type)])):
+        raise AssertionError(f"plain rounds: card vs CPU {plain:.3e}")
+    if not masked <= max(CMP_ATOL, 2 * spread):
+        raise AssertionError(
+            f"masked rounds: card vs CPU {masked:.3e}, the CPU's one-ulp "
+            f"spread {spread:.3e}")
+    out["card_vs_cpu_max_abs"] = {"plain": plain, "masked": masked,
+                                  "cpu_masked_one_ulp_spread": spread}
+    print(f"{S_CMP_ROUNDS} per-round rounds, card vs CPU params max abs: "
+          f"plain {plain:.3e} (atol/rtol {CMP_ATOL}), masked {masked:.3e} "
+          f"(held to twice the CPU's own masked spread under a one-ulp "
+          f"nudge of the initial weights, {spread:.3e})")
+    out["ring_cases_bit_equal"] = ring_card_vs_cpu(dev, specs)
+    part("card vs CPU")
+
+    # what the grid costs on its own: secure_weighted_sum on LeNet's
+    # stack, device time of graph replays, masked against open
+    grid = {}
+    for m in (S_M, S_BIG_M):
+        w = small.lenet_init(prng.PRNGKey(0), device=dev)
+        y = tree_map(lambda x, m=m: 1e-3 * torch.randn(
+            (m,) + tuple(x.shape), device=dev), w)
+        t_dev = torch.tensor(5, device=dev)
+        surv = torch.ones(m, dtype=torch.bool, device=dev)
+        surv[1] = False
+        for lane in ("open", "masked"):
+            for label, s in (("all", None), ("dropout", surv)):
+                grid[(m, lane, label)] = graph_ms(
+                    lambda y=y, s=s, lane=lane: secure_weighted_sum(
+                        y, s, specs[lane], t_dev), iters=20, replays=10)
+        print(f"secure_weighted_sum on LeNet's stack at M={m}: open "
+              f"{grid[(m, 'open', 'all')]:.4f} ms, masked "
+              f"{grid[(m, 'masked', 'all')]:.4f} ms, masked with a dropout "
+              f"{grid[(m, 'masked', 'dropout')]:.4f} ms (device, graph "
+              f"replays); {m * (m - 1) // 2} pairs x 30,720 words hashed")
+    out["grid_ms"] = {f"M{m}_{lane}_{label}": v
+                      for (m, lane, label), v in grid.items()}
+    part("grid")
+
+    # a bigger cohort: the quickstart corpus (K=60) at M=32, device plane
+    # (under cudnn.deterministic, so that masked and open are comparable
+    # bit for bit)
+    big = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for lane in ("open", "masked"):
+            tr = secure_trainer(clients, dev, m=S_BIG_M)
+            init, plan = tr.state, secure_plan("device", specs[lane],
+                                               chunk_rounds=G_CR)
+            tr.run(S_BIG_ROUNDS, plan=plan, verbose=False)
+            torch.cuda.synchronize()
+            tr.state, tr.history = init, []
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            hist = tr.run(S_BIG_ROUNDS, plan=plan, verbose=False)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / S_BIG_ROUNDS * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            if not all(math.isfinite(r["loss"]) for r in hist
+                       if "event" not in r):
+                raise AssertionError(f"M={S_BIG_M} {lane}: non-finite loss")
+            big[lane] = {"ms_per_round": ms, "peak_bytes": peak,
+                         "state": tr.state}
+            print(f"K={K} M={S_BIG_M} device plane {lane:6s} {ms:8.3f} "
+                  f"ms/round, peak memory {peak / 2**20:.1f} MiB")
+            del tr
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if drift_bits(big["masked"]["state"], big["open"]["state"]):
+        raise AssertionError(f"M={S_BIG_M}: masked differs from open")
+    out["big_cohort"] = {lane: {k: v for k, v in r.items() if k != "state"}
+                         for lane, r in big.items()}
+    part(f"M={S_BIG_M}")
+    torch.cuda.empty_cache()
+    return out
+
 
 def main() -> int:
     import torch
@@ -3127,7 +3619,16 @@ def main() -> int:
     print(f"phase 19 took {scenarios['phase_s']:.1f} s")
 
     # ------------------------------------------------------------------
-    phase("20. kernels")
+    phase("20. secure aggregation: BENCH_8's lanes on the scanned, device "
+          "and per-round planes, dropout recovery, the hook lane")
+    t0 = time.perf_counter()
+    secure = secure_phase(dev, clients, z_clients, lanes["hook"], fm_kernel,
+                          cs_kernel)
+    secure["phase_s"] = time.perf_counter() - t0
+    print(f"phase 20 took {secure['phase_s']:.1f} s")
+
+    # ------------------------------------------------------------------
+    phase("21. kernels")
     bound_ms = timing[("fedmom", n_main)][2]
     large_ms, _, large_bound_ms = timing[("fedmom", 2 ** 26 + 3)]
     cs_ms, cs_plain_ms, cs_bound_ms, cs_v1_ms, cs_ring = cs_timing[cs_top]
@@ -3160,6 +3661,13 @@ def main() -> int:
         "streaming_launches": {k: v["launches"] for k, v in lanes.items()},
         "graph_planes": graph_planes,
         "scenarios": scenarios,
+        "secure": {k: v for k, v in secure.items() if k != "planes"},
+        "secure_planes": {
+            plane: {k: v for k, v in res.items()
+                    if k not in ("plain", "masked", "open")}
+            | {lane: {k: v for k, v in res[lane].items() if k != "top"}
+               for lane in ("plain", "open", "masked")}
+            for plane, res in secure["planes"].items()},
         "zipf_device_plane": zipf_device,
         "serving": serving,
         "rwkv6_7b": rwkv,
@@ -3183,6 +3691,11 @@ def main() -> int:
         "scenario_launches": {
             name: v["fedmom_update_launches"]
             for name, v in scenarios["planes"].items()},
+        "secure_launches": {
+            f"{plane}_{lane}": secure["planes"][plane][lane][
+                "fedmom_update_launches"]
+            for plane in secure["planes"]
+            for lane in ("plain", "open", "masked")},
         "max_abs_err": max_err,
         "ms": fm_tree["ms"],
         "plain_ms": fm_tree["plain_ms"],
@@ -3206,6 +3719,9 @@ def main() -> int:
         "launches": lanes["hook"]["launches"]["client_step"],
         "scenario_launches": scenarios["bench7"][
             "hook_client_step_launches"],
+        "secure_launches": {
+            lane: secure["hook"][lane]["launches"]["client_step"]
+            for lane in ("open", "masked")},
         "max_abs_err": cs_err,
         "ms": cs_ms,
         "plain_ms": cs_plain_ms,

@@ -32,6 +32,17 @@ streaming plane (``--cache-clients``, ``--cache-tiers``, ``--bucketed``):
         --rounds 20 --plan device --dropout 0.3 --deadline 8
     PYTHONPATH=src python examples/quickstart_torch.py --provider 100000 \
         --rounds 48 --chunk-rounds 8 --dropout 0.3 --deadline 11
+
+Privacy: ``--secure-agg`` runs each round's aggregation through the
+uint32-ring pairwise masking of ``core/secure_agg.py``
+(``SecureAggSpec``; the masked trajectory is bit-equal to the open ring's,
+``--secure-frac-bits`` sets the fixed-point precision), on every plane and
+under the scenario dropouts above.  ``--dp-clip C [--dp-noise Z]`` wraps
+the server optimizer in central DP (DP-FedAvg / DP-FedMom: the aggregate
+clipped to L2 norm C, seeded Gaussian noise of stddev C*Z):
+
+    PYTHONPATH=src python examples/quickstart_torch.py --device cpu \
+        --rounds 20 --plan device --secure-agg --dp-clip 1.0 --dp-noise 0.1
 """
 import argparse
 
@@ -40,7 +51,8 @@ import torch
 
 from repro_torch import random as prng
 from repro_torch.core import (DeviceUniformSampler, RoundConfig,
-                              UniformSampler, fedavg, fedmom)
+                              SecureAggSpec, UniformSampler, dp, fedavg,
+                              fedmom)
 from repro_torch.data import (DiskShardProvider, FederatedDataset,
                               StreamingFederatedDataset, synthetic_femnist)
 from repro_torch.device import resolve_device
@@ -120,6 +132,20 @@ def main():
                     help="train from an on-disk corpus / LEAF json "
                          "directory via DiskShardProvider (mmap-backed; "
                          "streaming plane)")
+    ap.add_argument("--secure-agg", action="store_true",
+                    help="aggregate under compiled secure aggregation "
+                         "(uint32-ring pairwise masks; bit-equal to the "
+                         "open plane)")
+    ap.add_argument("--secure-frac-bits", type=int, default=20,
+                    help="fixed-point fractional bits for the masking "
+                         "ring (values exact on a 2^-frac_bits grid)")
+    ap.add_argument("--dp-clip", type=float, default=None, metavar="C",
+                    help="central DP: clip the aggregate to L2 norm C "
+                         "before the server update (DP-FedAvg/DP-FedMom)")
+    ap.add_argument("--dp-noise", type=float, default=0.0, metavar="Z",
+                    help="central DP noise multiplier: Gaussian stddev "
+                         "C*Z added to the clipped aggregate (needs "
+                         "--dp-clip; seeded per round)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run on the "
                          "CPU)")
@@ -144,11 +170,15 @@ def main():
             trace=(TraceSpec(path=args.replay_trace)
                    if args.replay_trace is not None else None),
             seed=args.scenario_seed)
+    secure = (SecureAggSpec(masked=True, seed=0,
+                            frac_bits=args.secure_frac_bits)
+              if args.secure_agg else None)
     plan = ExecutionPlan(plane=plane, chunk_rounds=args.chunk_rounds,
                          cache=CacheSpec(clients=args.cache_clients,
                                          tiers=args.cache_tiers,
                                          bucketed=args.bucketed),
-                         memory_budget_bytes=budget, scenario=scenario)
+                         memory_budget_bytes=budget, scenario=scenario,
+                         secure=secure)
     device = resolve_device(args.device)
     if device.type == "cuda":
         # fp32 convolutions in full fp32, as the reference computes them
@@ -235,11 +265,25 @@ def main():
                  f"replay={args.replay_trace}"
                  if args.replay_trace is not None else None]
         scen_tag = f" [scenario: {', '.join(p for p in parts if p)}]"
+    priv = []
+    if args.secure_agg:
+        priv.append(f"secure-agg frac_bits={args.secure_frac_bits}")
+    if args.dp_clip is not None:
+        priv.append(f"dp clip={args.dp_clip} noise={args.dp_noise}")
+    if priv:
+        scen_tag += f" [{', '.join(priv)}]"
 
-    for name, opt in [("FedAvg (eta=K/M)", fedavg(eta=K / M)),
+    def privatize(opt):
+        if args.dp_clip is None:
+            return opt
+        return dp(opt, clip=args.dp_clip,
+                  noise_multiplier=args.dp_noise, seed=0)
+
+    for name, opt in [("FedAvg (eta=K/M)", privatize(fedavg(eta=K / M))),
                       ("FedMom (eta=K/M, beta=0.9)",
-                       fedmom(eta=K / M, beta=0.9,
-                              use_fused_kernel=args.fused_server))]:
+                       privatize(fedmom(eta=K / M, beta=0.9,
+                                        use_fused_kernel=args.fused_server))
+                       )]:
         print(f"\n=== {name} [plan={plan.plane}] [device={device}]"
               f"{' [hetero H_k]' if args.hetero else ''}{scen_tag} ===")
         # the per-round plane works with the paper's stateful sampler; the

@@ -15,6 +15,12 @@ from repro_torch.core.sampling import (  # noqa: F401
     UniformSampler,
     participants_in_span,
 )
+from repro_torch.core.secure_agg import (  # noqa: F401
+    EmptyCohortError,
+    SecureAggSpec,
+    aggregate_masked,
+    mask_client_updates,
+)
 from repro_torch.core.server_opt import (  # noqa: F401
     ServerOpt,
     ServerState,

@@ -11,7 +11,10 @@ CUDA graph per chunk shape and replay it for every chunk
 (``launch/graph.py`` ``ChunkGraph``), with ``t0``, the ``lrs`` and the
 masks (and the scanned plane's batches) in static device tensors: ``t``
 is then ``t0 + r``, an int64 device tensor, so each replay draws the
-clients and minibatches of its own rounds.
+clients and minibatches of its own rounds, and folds its own rounds'
+secure-aggregation mask keys and DP noise keys (``round_step`` reads the
+round from the server state's ``t``, which the chunk carries as that
+tensor).
 
 * ``scan_rounds``: host-staged ``[R, C, H, ...]`` batches and ``[R, C]``
   weights (the scanned plane; the trainer's producer thread assembles

@@ -18,9 +18,12 @@ both on one device:
     one client replica alive at a time.
 
 ``bucketed_round_step`` runs one round as per-size-tier launches (the
-bucketed streaming plane).  Secure aggregation (``RoundConfig.secure``) and
-logical-axis sharding (``param_axes``) belong to later slices of the port
-and raise ``PlanError``.
+bucketed streaming plane).  Under secure aggregation (``RoundConfig.secure``,
+a ``core.secure_agg.SecureAggSpec``) step 4 runs through the uint32-ring
+masking layer instead of the fp32 reduction: the masked aggregate is
+bit-equal to the open ring's, on every plane.  Logical-axis sharding
+(``param_axes``) belongs to a later slice of the port and raises
+``PlanError``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ import torch
 from torch.func import vmap
 
 from repro_torch.core import client as client_lib
+from repro_torch.core import secure_agg
+from repro_torch.core.secure_agg import SecureAggSpec
 from repro_torch.core.server_opt import ServerOpt, ServerState
 from repro_torch.device import resolve_device
 from repro_torch.launch.plan import PlanError
@@ -51,14 +56,13 @@ class RoundConfig:
     local_opt_kwargs: tuple = ()
     delta_dtype: str = "float32"    # bfloat16 variant = memory hillclimb
     compute_dtype: str = "bfloat16"
-    secure: Optional[Any] = None    # secure aggregation: not yet ported
+    # secure aggregation: step 4's reduction runs through the uint32-ring
+    # masking layer (core/secure_agg.py).  Frozen and hashable, so it keys
+    # the chunk graphs like every other field.  mesh placement only: the
+    # pairwise-mask grid needs the whole [C, ...] cohort stack
+    secure: Optional[SecureAggSpec] = None
 
     def __post_init__(self):
-        if self.secure is not None:
-            raise PlanError(
-                "RoundConfig.secure (secure aggregation) is not yet ported "
-                "to repro_torch; run the open aggregation",
-                plane="per_round", nearest="per_round")
         for name in ("delta_dtype", "compute_dtype"):
             if getattr(self, name) not in DTYPES:
                 raise ValueError(f"{name} must be one of {sorted(DTYPES)}, "
@@ -67,6 +71,33 @@ class RoundConfig:
 
 def _f32(x):
     return x.to(torch.float32)
+
+
+def _weighted_delta_stack(w_c, final, weights):
+    """[C, ...] per-client weighted deltas ``(n_k/n)(w_t - w^k)`` in fp32:
+    the difference in the compute dtype, cast, then weighted, as the
+    reference forms them; what a client would transmit under masking."""
+    C = weights.shape[0]
+    return tree_map(
+        lambda w0, wk: weights.reshape((C,) + (1,) * w0.dim())
+        * _f32(w0[None] - wk), w_c, final)
+
+
+def _survivors(step_mask):
+    """A client with zero unmasked local steps never reported its update
+    (dropout): its masked message is absent and its pairwise terms need
+    recovery."""
+    return None if step_mask is None else torch.sum(step_mask, dim=1) > 0
+
+
+def _secure_delta(spec, w_c, final, weights, step_mask, t, ddt):
+    """Step 4 under secure aggregation: per-client weighted deltas in
+    fp32, the masked ring transport with dropout recovery, decoded and
+    cast to the delta dtype."""
+    y = _weighted_delta_stack(w_c, final, weights)
+    return tree_map(
+        lambda d: d.to(ddt),
+        secure_agg.secure_weighted_sum(y, _survivors(step_mask), spec, t))
 
 
 def _check_state_device(state: ServerState, dev: torch.device):
@@ -96,6 +127,12 @@ def round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
     state must already lie there.
     Returns (new_state, metrics).
     """
+    if rcfg.secure is not None and rcfg.placement != "mesh":
+        raise ValueError(
+            "secure aggregation needs placement='mesh' (got "
+            f"{rcfg.placement!r}): the pairwise-mask grid is [C, C, ...] "
+            "per leaf, and scan placement exists for FSDP replicas that "
+            "cannot even hold the [C, ...] cohort stack")
     dev = resolve_device(device)
     _no_param_axes(param_axes)
     _check_state_device(state, dev)
@@ -120,10 +157,14 @@ def round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
             final, losses = vmap(one_client)(batches, mask)
         # products and accumulation stay fp32 whatever delta_dtype is; only
         # the reduced result is rounded to ddt
-        delta = tree_map(
-            lambda w0, wk: torch.einsum("c,c...->...", weights,
-                                        _f32(w0[None] - wk)).to(ddt),
-            w_c, final)
+        if rcfg.secure is not None:
+            delta = _secure_delta(rcfg.secure, w_c, final, weights, mask,
+                                  state.t, ddt)
+        else:
+            delta = tree_map(
+                lambda w0, wk: torch.einsum("c,c...->...", weights,
+                                            _f32(w0[None] - wk)).to(ddt),
+                w_c, final)
     elif rcfg.placement == "scan":
         acc = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
                                              device=dev), w_c)
@@ -184,6 +225,11 @@ def bucketed_round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
     The delta accumulates tier by tier, one fp32 einsum each, so a
     multi-tier round equals the padded ``round_step`` within fp32
     reassociation and a single occupied tier equals it bit for bit.
+    Under ``rcfg.secure`` that caveat disappears: tier i is masked as a
+    sub-cohort under ``fold_in(round_key, i)`` (i its position in
+    ``tier_data``, with or without ``tier_update_fn``), and the tiers'
+    ring totals add exactly and decode once, bit-equal to the padded
+    secure round.
     Returns ``(new_state, metrics)`` with ``round_step``'s keys minus the
     per-client ``losses``.
     """
@@ -211,8 +257,21 @@ def bucketed_round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
         return vmap(one_client)(batches, mask)
 
     update = tier_update_fn or run_tier
-    acc = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                         device=dev), w_c)
+    secure = rcfg.secure
+    if secure is not None:
+        acc = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.int64,
+                                             device=dev), w_c)
+        grids = None
+        if secure.masked:
+            # every tier's pair draw in one pass, tier i's under
+            # fold_in(round_key, i)
+            grids = secure_agg.sub_cohort_grids(
+                secure_agg.round_mask_key(secure, state.t, dev),
+                [len(w) for w in tier_weights],
+                max(x.numel() for x in leaves(w_c)))
+    else:
+        acc = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                             device=dev), w_c)
     loss_num = torch.zeros((), dtype=torch.float32, device=dev)
     loss_den = torch.zeros((), dtype=torch.float32, device=dev)
     completed = torch.zeros((), dtype=torch.int32, device=dev)
@@ -221,16 +280,24 @@ def bucketed_round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
         mask = (None if tier_masks is None else torch.as_tensor(
             tier_masks[i], dtype=torch.float32, device=dev))
         final, losses = update(w_c, i, data, mask)
-        acc = tree_map(
-            lambda d, w0, wk: d + torch.einsum("c,c...->...", weights,
-                                               _f32(w0[None] - wk)),
-            acc, w_c, final)
+        if secure is not None:
+            ring = secure_agg.masked_ring_sum(
+                _weighted_delta_stack(w_c, final, weights), _survivors(mask),
+                secure, None, grid=None if grids is None else grids[i])
+            acc = secure_agg.ring_add(acc, ring)
+        else:
+            acc = tree_map(
+                lambda d, w0, wk: d + torch.einsum("c,c...->...", weights,
+                                                   _f32(w0[None] - wk)),
+                acc, w_c, final)
         eff_w = weights
         if mask is not None:
             eff_w = weights * (torch.sum(mask, dim=1) > 0).to(torch.float32)
         loss_num = loss_num + torch.sum(eff_w * losses)
         loss_den = loss_den + torch.sum(eff_w)
         completed = completed + torch.sum(eff_w > 0).to(torch.int32)
+    if secure is not None:
+        acc = secure_agg.decode(acc, secure)
     delta = tree_map(lambda d: d.to(ddt), acc)
     new_state = server_opt.update(state, delta)
     metrics = {

@@ -33,9 +33,11 @@ one.  ``scenario`` takes a ``repro_torch.scenario.ScenarioSpec`` (dropouts,
 stragglers, availability, an adaptive cohort or a recorded trace) and runs
 on every plane; on the device plane it needs a ``KeyedReplayable`` sampler,
 since its masks are staged against the host replay of the in-chunk draw.
-The fields that belong to layers not yet ported (``secure``, ``mesh``)
-raise a structured ``PlanError`` with ``nearest`` set; a plan is never
-silently run as something else.
+``secure`` takes a ``repro_torch.core.SecureAggSpec`` (masked or open-ring
+secure aggregation) and runs on every plane with ``placement="mesh"``.
+The field that belongs to a layer not yet ported (``mesh``) raises a
+structured ``PlanError`` with ``nearest`` set; a plan is never silently
+run as something else.
 
 A ``TrainSession`` holds what outlives one ``run()`` call: the packed and
 the streaming datasets, the persistent ``ShardCache`` (a second run
@@ -118,14 +120,13 @@ def _not_ported(what: str, plane: str) -> PlanError:
     nearest = "per_round" if plane == "auto" else plane
     return PlanError(
         f"{what} is not yet ported to repro_torch (this port runs the "
-        f"planes {PLANES} and 'auto', with scenarios, but without secure "
-        f"aggregation or a mesh); nearest viable plane: {nearest!r}",
-        plane=plane, nearest=nearest)
+        f"planes {PLANES} and 'auto', with scenarios and secure "
+        f"aggregation, but without a mesh); nearest viable plane: "
+        f"{nearest!r}", plane=plane, nearest=nearest)
 
 
-# the layers these fields drive (secure aggregation, the device mesh) are
-# not ported yet
-_UNPORTED_FIELDS = ("secure", "mesh")
+# the layer this field drives (the device mesh) is not ported yet
+_UNPORTED_FIELDS = ("mesh",)
 
 
 @dataclass(frozen=True)
@@ -142,7 +143,9 @@ class ExecutionPlan:
     from the measured dispatch overhead (``auto_chunk_rounds``); the size
     chosen is audited on the ``PlanDecision``.  ``scenario``: a
     ``repro_torch.scenario.ScenarioSpec`` (``None`` or a null spec runs
-    exactly as no scenario).  Defaults and checks are the reference's."""
+    exactly as no scenario).  ``secure``: a
+    ``repro_torch.core.SecureAggSpec`` (the masked or open-ring transport,
+    scoped to the run).  Defaults and checks are the reference's."""
     plane: str = "auto"
     chunk_rounds: Union[int, str] = 25
     prefetch: int = 2
@@ -208,6 +211,12 @@ class ExecutionPlan:
                 raise PlanError(
                     f"scenario must be a repro_torch.scenario.ScenarioSpec, "
                     f"got {type(self.scenario).__name__}", plane=plane)
+        if self.secure is not None:
+            from repro_torch.core.secure_agg import SecureAggSpec
+            if not isinstance(self.secure, SecureAggSpec):
+                raise PlanError(
+                    f"secure must be a repro_torch.core.SecureAggSpec, got "
+                    f"{type(self.secure).__name__}", plane=plane)
         for name in _UNPORTED_FIELDS:
             if getattr(self, name) is not None:
                 raise _not_ported(f"ExecutionPlan.{name}", plane)
@@ -249,6 +258,7 @@ class PlanDecision:
     dispatch_overhead_s: Optional[float] = None   # set when measured
     bucketed: bool = False
     scenario: bool = False
+    secure: bool = False
 
     def record(self) -> dict:
         rec = {"event": "plan", "plane": self.plane, "auto": self.auto,
@@ -265,6 +275,8 @@ class PlanDecision:
             rec["bucketed"] = True
         if self.scenario:
             rec["scenario"] = True
+        if self.secure:
+            rec["secure"] = True
         return rec
 
 
@@ -400,8 +412,8 @@ def resolve(plan: ExecutionPlan, trainer, n_rounds: int) -> PlanDecision:
     workload, not per run).  A ``cache.bucketed`` plan must land on the
     streaming plane with ``placement="mesh"``; anything else raises rather
     than training un-bucketed.  Builds at most the host-side streaming
-    metadata, never uploads data.  A non-null scenario is recorded on the
-    decision, and gated as the reference gates it."""
+    metadata, never uploads data.  A non-null scenario and a secure spec
+    are recorded on the decision, and gated as the reference gates them."""
     if plan.chunk_rounds == "auto":
         overhead = trainer.session.dispatch_overhead(trainer.device)
         chunk = auto_chunk_rounds(overhead, n_rounds)
@@ -453,6 +465,18 @@ def resolve(plan: ExecutionPlan, trainer, n_rounds: int) -> PlanDecision:
         if plan.scenario.cohort is not None:
             parts.append("AdaptiveCohort")
         decision.reason += f"; scenario active ({', '.join(parts)})"
+    if plan.secure is not None:
+        if trainer.rcfg.placement != "mesh":
+            raise PlanError(
+                f"secure aggregation masks the [C, ...] cohort stack with a "
+                f"[C, C, ...] pairwise grid — placement='mesh' only, got "
+                f"rcfg.placement={trainer.rcfg.placement!r}",
+                plane=decision.plane)
+        decision.secure = True
+        decision.reason += (
+            f"; secure aggregation "
+            f"({'masked' if plan.secure.masked else 'open ring'}, "
+            f"frac_bits={plan.secure.frac_bits})")
     return decision
 
 

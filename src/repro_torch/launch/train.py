@@ -65,12 +65,16 @@ is then held against.  An adaptive cohort is stateful: every plane stages
 its rounds exactly once and in order, and a resume replays rounds [0, t0)
 first.
 
-``param_axes`` belongs to a later slice of the port and raises
-``PlanError``.
+Secure aggregation (``ExecutionPlan(secure=SecureAggSpec(...))``): step 4
+of every round on every plane runs through the uint32-ring pairwise
+masking of ``core/secure_agg.py``; the masked trajectory is bit-equal to
+the open ring's, with scenario dropouts recovered.  ``param_axes`` belongs
+to a later slice of the port and raises ``PlanError``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import queue
 import threading
 import time
@@ -417,10 +421,14 @@ class FederatedTrainer:
         checkpoint.  Every resolution is appended to ``session.plan_log``;
         an auto resolution also to the history and the metrics jsonl as a
         ``{"event": "plan", ...}`` record.  Returns the history (one record
-        per round, after any such record).
+        per round, after any such record).  ``plan.secure`` is scoped the
+        same way as ``local_batch`` / ``ckpt``: it lands on ``self.rcfg``
+        for this call only (``rcfg`` keys the chunk graphs, so an open and
+        a masked run never share a graph).
         """
         plan = as_plan(plan)
-        saved = (self.local_batch, self.ckpt_path, self.ckpt_every)
+        saved = (self.local_batch, self.ckpt_path, self.ckpt_every,
+                 self.rcfg)
         if plan.local_batch is not None:
             self.local_batch = plan.local_batch
         if plan.ckpt is not None:
@@ -428,6 +436,8 @@ class FederatedTrainer:
                 self.ckpt_path = plan.ckpt.path
             if plan.ckpt.every is not None:
                 self.ckpt_every = plan.ckpt.every
+        if plan.secure is not None:
+            self.rcfg = dataclasses.replace(self.rcfg, secure=plan.secure)
         try:
             self._check_client_extent()
             decision = resolve(plan, self, n_rounds)
@@ -470,7 +480,8 @@ class FederatedTrainer:
                     # past this run: a later replay overwrites them
                     self.state = detach_state(self.state)
         finally:
-            self.local_batch, self.ckpt_path, self.ckpt_every = saved
+            (self.local_batch, self.ckpt_path, self.ckpt_every,
+             self.rcfg) = saved
             self._scenario = None
 
     # ------------------------------------------------------------------

@@ -1403,3 +1403,152 @@ def test_availability_inside_a_capture_copies_nothing(cuda, which):
         assert idx.cpu().numpy().tolist() == want_idx.tolist()
         assert np.array_equal(w.cpu().numpy(), want_w)
         assert int((w > 0).sum()) == min(int(m_t), av.peak)
+
+
+# ---------------------------------------------------------------------------
+# secure aggregation on the card
+# ---------------------------------------------------------------------------
+def _secure_specs():
+    from repro_torch.core import SecureAggSpec
+    return (SecureAggSpec(masked=True, seed=5),
+            SecureAggSpec(masked=False, seed=5))
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_ring_transport_on_card_bit_equal_to_cpu(cuda, masked):
+    """``encode``, ``mask_cohort``, ``ring_survivor_sum`` and
+    ``secure_weighted_sum`` on one numpy-made cohort stack, saturating
+    (+-3e9, +-inf), NaN and wrapping values included: the card's words and
+    aggregates equal the CPU's bit for bit (the saturating cast is explicit,
+    where the card's ``cvt`` and the CPU's cast differ)."""
+    from repro_torch import random as prng
+    from repro_torch.core import secure_agg as sa
+    spec = _secure_specs()[0 if masked else 1]
+    rng = np.random.default_rng(1)
+    y = {"a": rng.normal(size=(6, 33, 7)).astype(np.float32),
+         "b": rng.normal(size=(6,)).astype(np.float32),
+         "c": 1e-4 * rng.normal(size=(6, 1000)).astype(np.float32)}
+    y["a"][0, 0, :5] = [3e9, -3e9, np.inf, -np.inf, np.nan]
+    y["a"][2, 3, 1] = np.nan
+    y["c"][4, 9] = 5000.0
+    surv = np.array([1, 0, 1, 1, 0, 1], bool)
+    outs = []
+    for d in (torch.device("cpu"), cuda):
+        yt = {k: torch.from_numpy(v).to(d) for k, v in y.items()}
+        key = prng.fold_in(prng.PRNGKey(3, d), 11)
+        words = sa.mask_cohort(key, yt, spec)
+        res = [sa.encode(yt, spec), words,
+               sa.ring_survivor_sum(key, words, torch.from_numpy(surv).to(d),
+                                    spec),
+               sa.secure_weighted_sum(yt, None, spec, 4),
+               sa.secure_weighted_sum(yt, torch.from_numpy(surv).to(d),
+                                      spec, torch.tensor(4, device=d))]
+        outs.append([{k: v.cpu() for k, v in r.items()} for r in res])
+    for a, b in zip(*outs):
+        for k in a:
+            x, z = a[k], b[k]
+            if x.dtype == torch.float32:
+                x, z = x.view(torch.int32), z.view(torch.int32)
+            assert torch.equal(x, z), k
+
+
+@pytest.mark.parametrize("plane", ["scanned", "device"])
+def test_secure_graphed_planes_bit_equal_on_card(cuda, plane):
+    """Masked equals open, and the per-round plane, on the graphed planes
+    (linreg: no cuDNN), also under a dropout scenario: dropout recovery
+    inside a replay needs the round key folded from the graph's device
+    round index."""
+    from repro_torch.scenario import ScenarioSpec, UniformDropout
+    masked, open_ = _secure_specs()
+    scen = ScenarioSpec(dropout=UniformDropout(rate=0.4), seed=11)
+    for scenario in (None, scen):
+        runs = {}
+        for name, p, spec in (("masked", plane, masked),
+                              ("open", plane, open_),
+                              ("per_round", "per_round", masked)):
+            tr = _plane_trainer(cuda)
+            tr.run(11, plan=ExecutionPlan(plane=p, chunk_rounds=4,
+                                          secure=spec, scenario=scenario),
+                   verbose=False)
+            runs[name] = tr
+        _same_run(runs["masked"], runs["open"])
+        _same_run(runs["masked"], runs["per_round"])
+        if scenario is not None:
+            assert min(r["completed"] for r in runs["masked"].history
+                       if "event" not in r) < 3
+
+
+def test_secure_chunk_replayed_at_two_rounds_matches_eager(cuda):
+    """One captured masked chunk under dropouts, replayed at t0 = 0 and
+    t0 = 20, against the eager loop at those rounds."""
+    from repro_torch.core import multiround as tmr
+    from repro_torch.scenario import ScenarioSpec, UniformDropout
+    from repro_torch.scenario.spec import ScenarioRuntime
+    from repro_torch.tree import tree_map
+    import dataclasses
+    tr = _plane_trainer(cuda)
+    tr.rcfg = dataclasses.replace(tr.rcfg, secure=_secure_specs()[0])
+    tr._scenario = ScenarioRuntime(
+        ScenarioSpec(dropout=UniformDropout(0.5), seed=4),
+        tr.rcfg.local_steps)
+    dds = tr.device_dataset()
+    key, dkey = tr.sampler.base_key().to(cuda), dds.base_key()
+    state = tr.state
+    for t0 in (0, 20):
+        start = state._replace(w=tree_map(torch.clone, state.w),
+                               extra=tree_map(torch.clone, state.extra),
+                               t=t0)
+        lrs, masks = tr._chunk_knobs(t0, t0 + 4)
+        assert (masks.sum(-1) == 0).any()
+        graph = tr._device_chunk_graph(4, True, dds)
+        state, got = graph.run(state, t0, {"lrs": lrs, "masks": masks})
+        want_state, want = tmr.scan_rounds_ondevice(
+            _linreg_loss, tr.server_opt, start, dds, tr.sampler, dkey, key,
+            t0, 4, tr.rcfg, 4, lrs=lrs, step_masks=masks, device=cuda)
+        assert torch.equal(got["loss"], want["loss"]), t0
+        for k in ("w", "b"):
+            assert torch.equal(state.w[k], want_state.w[k]), (t0, k)
+
+
+def test_secure_specs_on_one_trainer_on_card(cuda):
+    """One trainer's device plane run plain, masked, open, plain: each run
+    equals a fresh trainer's, and the session holds one graph per spec."""
+    masked, open_ = _secure_specs()
+    tr = _plane_trainer(cuda)
+    init = tr.state
+    for spec in (None, masked, open_, None):
+        tr.state, tr.history = init, []
+        plan = ExecutionPlan(plane="device", chunk_rounds=4, secure=spec)
+        tr.run(8, plan=plan, verbose=False)
+        fresh = _plane_trainer(cuda)
+        fresh.run(8, plan=plan, verbose=False)
+        _same_run(tr, fresh)
+        assert tr.rcfg.secure is None
+    assert {k[-2].secure for k in tr.session.graphs} == {None, masked,
+                                                         open_}
+
+
+def test_secure_hook_lane_masked_equals_open_on_card(cuda):
+    """The bucketed streaming lane through the CUDA ``client_step`` hook:
+    masked equals open bit for bit, and the kernel runs."""
+    masked, open_ = _secure_specs()
+    fleet = [dict(c) for c in _plane_fleet()]
+    runs = {}
+    for name, spec in (("masked", masked), ("open", open_)):
+        ds = FederatedDataset([dict(c) for c in fleet], seed=1)
+        opt = tso.fedmom(eta=1.0, beta=0.9, use_fused_kernel=True)
+        tr = FederatedTrainer(
+            loss_fn=_linreg_loss, server_opt=opt,
+            rcfg=tround.RoundConfig(3, 4, 0.05, compute_dtype="float32"),
+            dataset=ds, sampler=DeviceUniformSampler(ds.population(), 3,
+                                                     seed=2),
+            state=opt.init({"w": torch.zeros(5), "b": torch.zeros(())}),
+            client_step_fn=cs_ops.linreg_tier_step(), local_batch=4,
+            device=cuda)
+        cs_kernel.launches = 0
+        tr.run(12, plan=ExecutionPlan(
+            plane="streaming", chunk_rounds=4,
+            cache=CacheSpec(bucketed=True), secure=spec), verbose=False)
+        assert cs_kernel.launches > 0
+        runs[name] = tr
+    _same_run(runs["masked"], runs["open"])

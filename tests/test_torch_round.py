@@ -267,9 +267,11 @@ def test_bf16_compute_loosely_matches_reference():
 
 
 def test_unported_round_features_raise_plan_error():
-    with pytest.raises(PlanError, match="secure") as err:
-        tround.RoundConfig(2, 1, 0.1, secure=object())
-    assert err.value.nearest == "per_round"
+    """``param_axes`` (sharding) is refused; ``secure`` is ported and a
+    ``SecureAggSpec`` is accepted."""
+    from repro_torch.core import SecureAggSpec
+    spec = SecureAggSpec(masked=True, seed=1)
+    assert tround.RoundConfig(2, 1, 0.1, secure=spec).secure == spec
     params, batches, weights = _setup()
     opt = tso.fedavg()
     with pytest.raises(PlanError, match="param_axes"):

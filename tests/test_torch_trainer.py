@@ -280,10 +280,10 @@ def test_chunked_planes_train_the_per_round_trajectory(world, jax_runs,
     assert tr.session.plan_log[-1]["plane"] == plane
 
 
-@pytest.mark.parametrize("field", ["secure", "mesh"])
+@pytest.mark.parametrize("field", ["mesh"])
 def test_unported_plan_fields_raise_plan_error(field):
-    """``secure`` and ``mesh`` belong to layers not yet ported: they raise
-    a ``PlanError`` naming the nearest plane that runs."""
+    """``mesh`` belongs to a layer not yet ported: it raises a
+    ``PlanError`` naming the nearest plane that runs."""
     with pytest.raises(PlanError, match="not yet ported") as err:
         ExecutionPlan(plane="per_round", **{field: object()})
     assert err.value.nearest == "per_round"
@@ -294,13 +294,28 @@ def test_unported_plan_fields_raise_plan_error(field):
 
 @pytest.mark.parametrize("field,value", [
     ("chunk_rounds", "auto"), ("memory_budget_bytes", 1 << 20),
-    ("scenario", None)],
-    ids=["chunk_rounds", "memory_budget_bytes", "scenario"])
+    ("scenario", None), ("secure", None)],
+    ids=["chunk_rounds", "memory_budget_bytes", "scenario", "secure"])
 def test_ported_plan_fields_are_accepted(field, value):
-    """``chunk_rounds="auto"``, ``memory_budget_bytes`` and ``scenario``
-    are accepted on every plane, and a value of the wrong kind is refused
-    with the reference's message: a budget that is not a positive int, a
-    scenario that is not a ``ScenarioSpec``."""
+    """``chunk_rounds="auto"``, ``memory_budget_bytes``, ``scenario`` and
+    ``secure`` are accepted on every plane, and a value of the wrong kind
+    is refused with the reference's message: a budget that is not a
+    positive int, a scenario that is not a ``ScenarioSpec``, a secure spec
+    that is not a ``SecureAggSpec``."""
+    if field == "secure":
+        from repro.launch.plan import ExecutionPlan as JPlan
+        from repro.launch.plan import PlanError as JPlanError
+        from repro_torch.core import SecureAggSpec
+        value = SecureAggSpec(masked=True, seed=3)
+        msgs = []
+        for plan_cls, err_cls in ((JPlan, JPlanError),
+                                  (ExecutionPlan, PlanError)):
+            with pytest.raises(err_cls) as err:
+                plan_cls(plane="per_round", secure=object())
+            msgs.append(str(err.value).replace("repro_torch.", "repro."))
+            assert err.value.plane == "per_round"
+        assert msgs[0] == msgs[1] == (
+            "secure must be a repro.core.SecureAggSpec, got object")
     if field == "scenario":
         from repro.launch.plan import ExecutionPlan as JPlan
         from repro.launch.plan import PlanError as JPlanError
@@ -316,7 +331,8 @@ def test_ported_plan_fields_are_accepted(field, value):
         assert msgs[0] == msgs[1] == (
             "scenario must be a repro.scenario.ScenarioSpec, got object")
     planes = (("per_round", "scanned", "device", "streaming", "auto")
-              if field == "scenario" else ("per_round", "streaming", "auto"))
+              if field in ("scenario", "secure")
+              else ("per_round", "streaming", "auto"))
     for plane in planes:
         assert getattr(ExecutionPlan(plane=plane, **{field: value}),
                        field) == value
