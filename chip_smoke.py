@@ -21,7 +21,10 @@ recurrent state caches; and recurrentgemma-9b at full width: the
 ``rglru_scan`` kernel's own path (its wrapper on the gates of a layer of
 the model, as the reference drives it) and ``serve.generate`` over its
 RG-LRU and ring caches (every LOCAL layer of prefill through
-``flash_attention``).
+``flash_attention``); and federated training of language models:
+fed-llm-100m at full size, gemma3-1b at full width through ``round_step``
+and the paper's Shakespeare LSTM, the server step through
+``fedmom_update``.
 Phases, each printed as it runs; any failure exits non-zero:
 
   1. card and settings: ``nvidia-smi`` name and power limit; TF32 off;
@@ -64,8 +67,8 @@ Phases, each printed as it runs; any failure exits non-zero:
      one CUDA-graph replay; for each: warm ms/round beside the per-round
      plane's (a warm-up run, then a timed run synced at the end), the
      first call's s with its captures, the device-busy share and device
-     ops a round of one profiled chunk, ``fedmom_update`` launches counted
-     from the profiler's kernel names over a profiled 30-round run (the
+     ops a round of one profiled chunk, and ``fedmom_update`` launches
+     counted from the profiler's kernel names over that chunk (the
      Python counter counts no replay); with
      ``torch.backends.cudnn.deterministic`` (cuDNN's default algorithms
      are not run-to-run deterministic, so even two per-round runs differ)
@@ -165,8 +168,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      each beside itself without the scenario (a warm-up run of each, then
      30-round runs timed in turns), losses, ``completed`` counts and final
      parameters bit-equal across the planes, ``fedmom_update`` 30 launches
-     in 30 rounds (its counter per-round, the profiler on the graphed
-     planes), and what staging the masks costs the host a round; (b)
+     in 30 rounds on the per-round plane (its counter, over a timed run),
+     10 in one profiled chunk of 10 on each graphed plane, and what
+     staging the masks costs the host a round; (b)
      ``AdaptiveCohort(goal=2)`` on the scanned plane and its resume at
      round 20 from a checkpoint, bit-equal to the uninterrupted run and to
      the per-round plane; (c) the scenario recorded as a ``FleetTrace``,
@@ -196,8 +200,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      run, then a timed run synced at the end), masked-over-open and
      ring-over-plain, masked-vs-open drift 0 bits, plain-vs-open final-loss
      drift < 1e-3 (BENCH_8's assertion), ``fedmom_update`` 60 launches in
-     60 rounds (the profiler on the graphed planes, where one profiled run
-     a lane gives its device time and ops a round), the masked and plain
+     60 rounds on the per-round plane, 25 in one profiled chunk of 25 on
+     the graphed planes (which gives a lane's device time and ops a
+     round), the masked and plain
      lanes bit-equal across the planes; (b) the device plane under
      ``UniformDropout(0.3)``: masked bit-equal to open (dropout recovery
      keyed by the graph's device round index); (c) one trainer run plain,
@@ -211,7 +216,37 @@ Phases, each printed as it runs; any failure exits non-zero:
      time on LeNet's stack at M=8 and M=32, and the quickstart corpus
      (K=60) at M=32 on the device plane, masked and open: ms/round and
      peak memory;
- 21. one JSON line of kernels, then the result line.
+ 21. federated language models: (a) fed-llm-100m at full size
+     (``examples/federated_llm_torch.py``'s defaults: 84,231,296 fp32
+     parameters, 12 stacked layers, 16 clients x 20,000 tokens, M=4, H=2,
+     b=4, seq 128, FedMom eta=K/M through ``fedmom_update``) for 30 rounds
+     on the per-round plane with the fused server and with the plain one
+     (params within atol/rtol 1e-5), then 30 on ``plane="auto"`` (chunks
+     of 10 as CUDA graphs; what auto resolves to and why): ms/round,
+     device-busy share and device ops of profiled rounds, peak memory,
+     ``fedmom_update`` launches (counter, and profiler on the graphed
+     plane), the loss falling on both planes; then ``fedmom_update`` on
+     one server step of its tree, bit-equal to the plain version, its
+     time beside the bound, the plain version's, and FedAvgM's tree call
+     in turns with ``torch._fused_sgd_``; (b) its 2-layer cut at full
+     width, card against CPU after 3 rounds (atol/rtol 1e-4, the card's
+     keyed weights carried to the host); (c) gemma3-1b at full width in
+     fp32 (1.30 G keyed random parameters, its config's ``scan_layers``)
+     through ``round_step``, M=2, H=2, b=2, seq 256, 3 rounds with remat
+     and 3 without: ms/round, peak memory, the loss finite, the server
+     moved, ``fedmom_update`` launches (counter, and the profiler over one
+     round), then ``fedmom_update`` on its tree as in (a); (d) the paper's
+     Shakespeare task (``examples/paper_shakespeare_torch.py``: the
+     char-LSTM, 40 clients, M=2, b=10, lr 0.8, eta=K/M): FedSGD (H=1),
+     FedAvg and FedMom (H=10) 30 rounds each on ``plane="auto"`` in chunks
+     of 3 (a first run with its captures, then a timed run): ms/round,
+     final losses, one profiled FedMom chunk's ``fedmom_update`` launches;
+     3 FedMom rounds on the card against the CPU (atol/rtol 1e-4);
+ 22. one JSON line of kernels, then the result line.
+
+Each phase's wall seconds print on a line of their own when it ends.
+``python3 chip_smoke.py --only-lm`` runs phases 1, 2 and 21 alone (a
+development run; it prints no result line).
 
 Without a card, or outside a checkout of the repo, it exits non-zero and
 prints no result.
@@ -345,12 +380,38 @@ S_QUANT_DRIFT = 1e-3               # plain vs open final loss (bench_secure)
 S_DROPOUT, S_DROP_ROUNDS = 0.3, 25
 S_CMP_ROUNDS = 3                   # masked card-against-CPU rounds
 S_BIG_M, S_BIG_ROUNDS = 32, 20     # the sizing point: K=60 at M=32
+# the federated LM path (phase 21): examples/federated_llm_torch.py's
+# defaults at full size (fed-llm-100m), gemma3-1b at full width through
+# round_step, and examples/paper_shakespeare_torch.py's configuration
+L_ROUNDS, L_CR = 30, 10            # rounds a lane; auto's chunk_rounds
+L_FUSED_TOL = 1e-5                 # fused vs unfused server params after
+                                   # L_ROUNDS: the embedding's backward
+                                   # scatters with atomics
+L_CMP_LAYERS, L_CMP_ROUNDS = 2, 3  # card-vs-CPU cut of fed-llm-100m
+L_CMP_TOL = 1e-4                   # card vs CPU params (fp32, TF32 off)
+GT_M, GT_H, GT_B, GT_S = 2, 2, 2, 256   # gemma3-1b: clients, steps, b, seq
+GT_ROUNDS, GT_LR = 3, 0.05
+SH_K, SH_ROUNDS, SH_CR = 40, 30, 3      # Shakespeare clients, rounds, chunk
+SH_CMP_ROUNDS, SH_CMP_TOL = 3, 1e-4     # its card-vs-CPU FedMom rounds
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # H100 SXM fp32 (CUDA cores) peak
 
 
+_PHASE = {"name": None, "t0": 0.0, "seconds": {}}
+
+
 def phase(name):
-    print(f"\n== {name}", flush=True)
+    """Start phase ``name``, first printing the wall seconds of the one
+    before it on a line of its own (``name=None`` closes the last)."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        secs = now - _PHASE["t0"]
+        _PHASE["seconds"][_PHASE["name"].split(".")[0]] = round(secs, 2)
+        print(f"phase {_PHASE['name'].split('.')[0]} took {secs:.1f} s",
+              flush=True)
+    _PHASE.update(name=name, t0=now)
+    if name is not None:
+        print(f"\n== {name}", flush=True)
 
 
 def _median_ms(run_once, reps, calls_per_rep):
@@ -1179,14 +1240,11 @@ def graph_planes_phase(dev, clients, w0):
         # the profiler slows the host; the device's share of an unprofiled
         # round is its device time a round over the timed ms/round
         busy_ms = busy / G_CR * 1e3
-        tr.state, tr.history = opt.init(w0), []
-        _, rows30 = profile_rows(
-            lambda: tr.run(ROUNDS, plan=plan, verbose=False))
-        fm = kernel_launches(rows30, FM_KERNEL_NAME)
-        if fm != ROUNDS:
+        fm = kernel_launches(rows, FM_KERNEL_NAME)
+        if fm != G_CR:
             raise AssertionError(
                 f"{name}: the profiler counts {fm} fedmom_update launches "
-                f"in {ROUNDS} rounds, want one a round")
+                f"in {G_CR} rounds, want one a round")
         out[name] = {"plane": rec["plane"], "ms_per_round": ms,
                      "first_call_s": first_s, "capture_s": capture_s,
                      "busy_share": busy / wall,
@@ -1201,7 +1259,7 @@ def graph_planes_phase(dev, clients, w0):
               f"({100 * busy / wall:.2f}%), {n_ops / G_CR:.0f} device "
               f"ops/round, {busy_ms:.3f} ms of device time a round "
               f"({100 * busy_ms / ms:.1f}% of the unprofiled ms/round); "
-              f"fedmom_update launches (profiler) {fm} in {ROUNDS} rounds")
+              f"fedmom_update launches (profiler) {fm} in {G_CR} rounds")
         print(f"          reason: {rec['reason']}")
         del tr
     for name in ("scanned", "device", "auto"):
@@ -2436,35 +2494,42 @@ def scenario_planes_phase(dev, clients, w0, fm_kernel):
     try:
         for name in names:
             for scen in (None, spec):                       # warm-ups
-                trainer().run(ROUNDS, plan=plan(name, scen), verbose=False)
+                trainer().run(S_WARM_PER_ROUND if name == "per_round"
+                              else ROUNDS, plan=plan(name, scen),
+                              verbose=False)
             torch.cuda.synchronize()
             times = {"off": [], "on": []}
+            fm_kernel.launches = 0
             for label in ("off", "on", "on", "off"):
                 tr = trainer()
+                if label == "on":
+                    fm_on = fm_kernel.launches
                 t0 = time.perf_counter()
                 got = run_record(tr, ROUNDS, plan(
                     name, spec if label == "on" else None))
                 torch.cuda.synchronize()
                 times[label].append((time.perf_counter() - t0) / ROUNDS
                                     * 1e3)
+                if label == "on":
+                    fm_on = fm_kernel.launches - fm_on
                 runs[(name, label)] = got
             rec = tr.session.plan_log[-2]           # the last "on" run's
             if rec["plane"] != ("device" if name == "auto" else name) \
                     or not rec.get("scenario"):
                 raise AssertionError(f"{name}: plan record {rec}")
-            tr = trainer()
             if name == "per_round":
-                fm_kernel.launches = 0
-                tr.run(ROUNDS, plan=plan(name, spec), verbose=False)
-                fm, how = fm_kernel.launches, "its counter"
+                # the counter over the last timed run under the scenario
+                fm, how, n_fm = fm_on, "its counter", ROUNDS
             else:
+                tr = trainer()
                 _, rows = profile_rows(lambda: tr.run(
-                    ROUNDS, plan=plan(name, spec), verbose=False))
+                    G_CR, plan=plan(name, spec), verbose=False))
                 fm, how = kernel_launches(rows, FM_KERNEL_NAME), "profiler"
-            if fm != ROUNDS:
+                n_fm = G_CR
+            if fm != n_fm:
                 raise AssertionError(
                     f"{name} under the scenario: {fm} fedmom_update "
-                    f"launches in {ROUNDS} rounds ({how}), want one a "
+                    f"launches in {n_fm} rounds ({how}), want one a "
                     f"round")
             ms_off, ms_on = (statistics.fmean(times["off"]),
                              statistics.fmean(times["on"]))
@@ -2479,7 +2544,7 @@ def scenario_planes_phase(dev, clients, w0, fm_kernel):
                   f"ms/round, none {ms_off:8.3f} ms/round (host clock, "
                   f"synced at the end; runs {times}); completed mean "
                   f"{statistics.fmean(completed):.3f} of {M}; fedmom_update "
-                  f"launches ({how}) {fm} in {ROUNDS} rounds")
+                  f"launches ({how}) {fm} in {n_fm} rounds")
         torch.cuda.synchronize()
         print(f"chunk graphs captured: {len(session.graphs)} (one a chunk "
               f"shape and masking, shared by the trainers)")
@@ -2991,6 +3056,7 @@ def secure_phase(dev, clients, z_clients, hook_lane, fm_kernel, cs_kernel):
                         if "event" not in r]
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) / S_ROUNDS * 1e3
+                final = tr.state          # before a shorter profiled run
                 losses = [r["loss"] for r in hist]
                 if len(losses) != S_ROUNDS or not all(
                         math.isfinite(x) for x in losses):
@@ -3004,20 +3070,21 @@ def secure_phase(dev, clients, z_clients, hook_lane, fm_kernel, cs_kernel):
                 else:
                     tr.state, tr.history = init, []
                     wall, rows = profile_rows(lambda: tr.run(
-                        S_ROUNDS, plan=plan, verbose=False))
+                        S_CR, plan=plan, verbose=False))
                     fm = kernel_launches(rows, FM_KERNEL_NAME)
                     busy = sum(r[1] for r in rows)
-                    row.update(device_ms_per_round=busy / S_ROUNDS * 1e3,
+                    row.update(device_ms_per_round=busy / S_CR * 1e3,
                                ops_per_round=sum(r[2] for r in rows)
-                               / S_ROUNDS, busy_share=busy / wall,
+                               / S_CR, busy_share=busy / wall,
                                top=[(k[:80], round(sec * 1e3, 3), c)
                                     for k, sec, c in rows[:6]])
-                if fm != S_ROUNDS:
+                n_fm = S_ROUNDS if plane == "per_round" else S_CR
+                if fm != n_fm:
                     raise AssertionError(
                         f"{plane} {lane}: {fm} fedmom_update launches in "
-                        f"{S_ROUNDS} rounds, want one a round")
+                        f"{n_fm} rounds, want one a round")
                 row["fedmom_update_launches"] = fm
-                runs[(plane, lane)] = (losses, tr.state)
+                runs[(plane, lane)] = (losses, final)
                 res[lane] = row
                 extra = ("" if plane == "per_round" else
                          f"; profiled: {row['device_ms_per_round']:.3f} ms "
@@ -3026,7 +3093,7 @@ def secure_phase(dev, clients, z_clients, hook_lane, fm_kernel, cs_kernel):
                          f"{100 * row['busy_share']:.1f}%")
                 print(f"{plane:9s} {lane:6s} {ms:8.3f} ms/round (host "
                       f"clock); final loss {losses[-1]:.6f}; fedmom_update "
-                      f"{fm} in {S_ROUNDS} rounds{extra}")
+                      f"{fm} in {n_fm} rounds{extra}")
                 del tr
             bits = drift_bits(runs[(plane, "masked")][1],
                               runs[(plane, "open")][1])
@@ -3305,8 +3372,517 @@ def secure_phase(dev, clients, z_clients, hook_lane, fm_kernel, cs_kernel):
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 21: federated language models
+# ---------------------------------------------------------------------------
+def lm_examples():
+    """The two LM examples as modules (``examples/`` is not a package)."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import federated_llm_torch
+    import paper_shakespeare_torch
+    return federated_llm_torch, paper_shakespeare_torch
+
+
+def clone_tree(tree):
     import torch
+    from repro_torch.tree import tree_map
+    return tree_map(torch.clone, tree)
+
+
+def tree_max_abs(a, b):
+    """(max abs difference, allclose at L_TOL's pair) of two trees, b may
+    lie on another device."""
+    from repro_torch.tree import leaves
+    return max(float((x - y.to(x.device)).abs().max())
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def trees_close(a, b, atol, rtol):
+    import torch
+    from repro_torch.tree import leaves
+    return all(torch.allclose(x, y.to(x.device), atol=atol, rtol=rtol)
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def per_round_run(tr, n_rounds):
+    """``n_rounds`` on the per-round plane with a stamp after each round
+    (each round ends in a read of its loss): (history, seconds a round)."""
+    import torch
+    stamps = []
+
+    def stamp(_state):
+        stamps.append(time.perf_counter())
+        return {}
+
+    t0 = time.perf_counter()
+    hist = tr.run(n_rounds, verbose=False, eval_fn=stamp, log_every=1)
+    torch.cuda.synchronize()
+    return hist, [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+
+
+def loss_falls(name, losses, k=5):
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    first, last = statistics.fmean(losses[:k]), statistics.fmean(losses[-k:])
+    if not last < first:
+        raise AssertionError(f"{name}: loss did not fall ({first:.4f} -> "
+                             f"{last:.4f})")
+    return first, last
+
+
+def lm_tree_check(name, w, v, fm_kernel, fm_ops, fm_ref, eta, iters):
+    """``fedmom_update`` on one server step of an LM's tree: the path's
+    tree call bit-equal to the plain version on every leaf, its launches
+    (one a table), device times of the kernel, the plain version and
+    FedAvgM's tree call in turns with ``torch._fused_sgd_`` on the same
+    leaf lists, beside the bytes bound."""
+    import torch
+    from repro_torch.tree import leaves, tree_map
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    d = tree_map(lambda x: 1e-3 * torch.randn(x.shape, device=x.device,
+                                              generator=gen), w)
+    n = sum(x.numel() for x in leaves(w))
+    sizes = [x.numel() for x in leaves(w)]
+    tables = len(fm_kernel.tree_plan(sizes, [True] * len(sizes)))
+    before = fm_kernel.launches
+    got = fm_ops.fused_update_tree(w, v, d, eta=eta, beta=BETA)
+    launched = fm_kernel.launches - before
+    want = fm_ref.fedmom_update(w, v, d, eta, BETA)
+    torch.cuda.synchronize()
+    for g, r in zip(leaves(got), leaves(want)):
+        if not torch.equal(g, r):
+            raise AssertionError(f"{name}: fedmom_update differs from the "
+                                 f"plain version")
+    if launched != tables:
+        raise AssertionError(f"{name}: {launched} launches, want one a "
+                             f"table ({tables})")
+    del got, want
+    torch.cuda.empty_cache()
+    out = {"elements": n, "leaves": len(sizes), "tables": tables,
+           "bound_ms": 20.0 * n / HBM_BYTES_PER_S * 1e3}
+    out["ms"] = cuda_ms(lambda: fm_ops.fused_update_tree(
+        w, v, d, eta=eta, beta=BETA), iters)
+    out["plain_ms"] = cuda_ms(lambda: fm_ref.fedmom_update(
+        w, v, d, eta, BETA), max(iters // 4, 2))
+    lw, lm, ld = ([x.clone() for x in leaves(t)] for t in (w, v, d))
+
+    def avgm():
+        return fm_ops.fused_avgm_tree(w, v, d, eta=eta, beta=BETA)
+
+    def library():
+        torch._fused_sgd_(lw, ld, lm, weight_decay=0.0, momentum=BETA,
+                          lr=eta, dampening=0.0, nesterov=False,
+                          maximize=False, is_first_step=False)
+
+    def turns(a, b):
+        ta, tb, tb2, ta2 = (cuda_ms(f, iters) for f in (a, b, b, a))
+        return (ta + ta2) / 2, (tb + tb2) / 2
+
+    out["fedavgm_ms"], out["fedavgm_library_ms"] = turns(avgm, library)
+    del lw, lm, ld, d
+    torch.cuda.empty_cache()
+    print(f"fedmom_update on {name}'s tree ({n} fp32 elements, "
+          f"{len(sizes)} leaves, {tables} table(s)): bit-equal to the plain "
+          f"version, {launched} launch(es); kernel {out['ms']:.4f} ms, "
+          f"bound {out['bound_ms']:.4f} ms (20 B/elem at 3.35 TB/s, "
+          f"{out['bound_ms'] / out['ms']:.1%}), plain {out['plain_ms']:.4f} "
+          f"ms; FedAvgM tree call {out['fedavgm_ms']:.4f} ms, "
+          f"torch._fused_sgd_ {out['fedavgm_library_ms']:.4f} ms (in turns)")
+    return out
+
+
+def fed_llm_lanes(dev, fl, fm_kernel):
+    """(a): fed-llm-100m at the example's defaults on the per-round plane
+    (fused and unfused server) and on ``plane="auto"``."""
+    import torch
+    from repro_torch.launch.plan import ExecutionPlan
+    from repro_torch.tree import leaves
+    out = {}
+
+    def args(*extra):
+        return fl.parser().parse_args(list(extra))
+
+    tr, _, cfg = fl.build(args("--fused-server"), device=dev)
+    w0 = clone_tree(tr.state.w)
+    out["n_params"] = sum(x.numel() for x in leaves(w0))
+    a = args()
+    print(f"{cfg.name}: {out['n_params']} fp32 parameters ({cfg.n_layers} "
+          f"stacked layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}); {a.clients} clients x 20,000 tokens, M={a.m} "
+          f"H={a.local_steps} b={a.batch} seq {a.seq} lr {a.lr}, FedMom "
+          f"eta=K/M beta 0.9; {L_ROUNDS} rounds a lane")
+    for lane, trainer in (("fused", tr), ("unfused", None)):
+        if trainer is None:
+            trainer, _, _ = fl.build(args(), device=dev,
+                                     init=(clone_tree(w0), None))
+        torch.cuda.reset_peak_memory_stats()
+        fm_kernel.launches = 0
+        hist, steps = per_round_run(trainer, L_ROUNDS)
+        launches = fm_kernel.launches
+        losses = [r["loss"] for r in hist]
+        first, last = loss_falls(f"fed-llm {lane}", losses)
+        row = {"ms_per_round": statistics.median(steps[1:]) * 1e3,
+               "first_round_ms": steps[0] * 1e3,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "loss_first": losses[0], "loss_last": losses[-1],
+               "fedmom_update_launches": launches}
+        if lane == "fused" and launches != L_ROUNDS:
+            raise AssertionError(f"fed-llm fused: {launches} fedmom_update "
+                                 f"launches in {L_ROUNDS} rounds")
+        if lane == "unfused" and launches:
+            raise AssertionError("fed-llm unfused launched fedmom_update")
+        row["w"] = clone_tree(trainer.state.w)
+        if lane == "fused":
+            # the time breakdown: 3 more rounds under the profiler
+            wall, rows = profile_rows(lambda: trainer.run(3, verbose=False))
+            busy = sum(r[1] for r in rows)
+            row.update(busy_share=busy / wall,
+                       device_ms_per_round=busy / 3 * 1e3,
+                       ops_per_round=sum(r[2] for r in rows) / 3,
+                       profiled_fedmom_update=kernel_launches(
+                           rows, FM_KERNEL_NAME),
+                       top=[(k[:90], round(s * 1e3, 3), c)
+                            for k, s, c in rows[:8]])
+            if row["profiled_fedmom_update"] != 3:
+                raise AssertionError(
+                    f"fed-llm: profiler counts {row['profiled_fedmom_update']}"
+                    f" fedmom_update launches in 3 rounds")
+        out[lane] = row
+        print(f"per-round {lane:7s} {row['ms_per_round']:9.2f} ms/round "
+              f"(median, host clock, each round synced; first "
+              f"{row['first_round_ms']:.1f} ms); loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} (first 5 {first:.4f}, last 5 {last:.4f}); "
+              f"peak {row['peak_bytes'] / 2**30:.2f} GiB; fedmom_update "
+              f"{launches} in {L_ROUNDS} rounds"
+              + (f"; profiled 3 rounds: device "
+                 f"{row['device_ms_per_round']:.2f} ms a round, busy "
+                 f"{100 * row['busy_share']:.2f}%, "
+                 f"{row['ops_per_round']:.0f} device ops a round, "
+                 f"fedmom_update {row['profiled_fedmom_update']}; top: "
+                 f"{row['top']}" if lane == "fused" else ""))
+        del trainer
+        torch.cuda.empty_cache()
+    diff = tree_max_abs(out["fused"]["w"], out["unfused"]["w"])
+    if not trees_close(out["fused"]["w"], out["unfused"]["w"], L_FUSED_TOL,
+                       L_FUSED_TOL):
+        raise AssertionError(f"fed-llm: fused and unfused params differ by "
+                             f"{diff:.3e} (atol/rtol {L_FUSED_TOL})")
+    out["fused_vs_unfused_max_abs"] = diff
+    print(f"fused vs unfused server after {L_ROUNDS} rounds: max abs "
+          f"{diff:.3e} (atol/rtol {L_FUSED_TOL}; the embedding's backward "
+          f"scatters with atomics, so two runs are not bit-equal)")
+    for lane in ("fused", "unfused"):
+        del out[lane]["w"]
+
+    # plane="auto": the keyed sampler, chunks of 10 rounds as CUDA graphs
+    tr, _, _ = fl.build(args("--fused-server", "--plan", "auto"), device=dev,
+                        init=(clone_tree(w0), None))
+    plan = ExecutionPlan(plane="auto", chunk_rounds=L_CR)
+    opt = tr.server_opt
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr.run(L_ROUNDS, plan=plan, verbose=False)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    decision = tr.session.plan_log[-1]
+    captures = sum(g.capture_s or 0.0 for g in tr.session.graphs.values())
+    tr.state, tr.history = opt.init(clone_tree(w0)), []
+    t0 = time.perf_counter()
+    hist = [r for r in tr.run(L_ROUNDS, plan=plan, verbose=False)
+            if "loss" in r]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / L_ROUNDS * 1e3
+    losses = [r["loss"] for r in hist]
+    first, last = loss_falls("fed-llm auto", losses)
+    peak = torch.cuda.max_memory_allocated()
+    tr.state, tr.history = opt.init(clone_tree(w0)), []
+    wall, rows = profile_rows(lambda: tr.run(L_CR, plan=plan, verbose=False))
+    busy = sum(r[1] for r in rows)
+    fm = kernel_launches(rows, FM_KERNEL_NAME)
+    if fm != L_CR:
+        raise AssertionError(f"fed-llm auto: {fm} fedmom_update launches in "
+                             f"{L_CR} rounds (profiler)")
+    out["auto"] = {"resolved": decision["plane"],
+                   "reason": decision["reason"], "ms_per_round": ms,
+                   "first_run_s": first_s, "captures_s": captures,
+                   "peak_bytes": peak, "loss_first": losses[0],
+                   "loss_last": losses[-1], "busy_share": busy / wall,
+                   "device_ms_per_round": busy / L_CR * 1e3,
+                   "ops_per_round": sum(r[2] for r in rows) / L_CR,
+                   "fedmom_update_launches": fm}
+    print(f"auto -> {decision['plane']} ({decision['reason']}): "
+          f"{ms:.2f} ms/round (host clock, synced at the end); first run "
+          f"{first_s:.2f} s with {captures:.2f} s of captures; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (first 5 {first:.4f}, last "
+          f"5 {last:.4f}); peak {peak / 2**30:.2f} GiB (the graph's pool "
+          f"included); one profiled chunk: device {busy / L_CR * 1e3:.2f} ms "
+          f"a round, busy {100 * busy / wall:.2f}%, fedmom_update {fm} in "
+          f"{L_CR} rounds")
+    out["tree_w"], out["tree_v"] = tr.state.w, tr.state.extra["v"]
+    return out
+
+
+def fed_llm_card_vs_cpu(dev, fl):
+    """(b): fed-llm-100m cut to L_CMP_LAYERS layers at full width, the
+    card's keyed weights carried to the CPU, L_CMP_ROUNDS FedMom rounds on
+    each (the fused server: the kernel on the card, its plain version on
+    the CPU)."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.interop import tree_from_numpy, tree_to_numpy
+    cfg = dc.replace(fl.model_100m(), n_layers=L_CMP_LAYERS)
+    args = fl.parser().parse_args(["--fused-server"])
+    card, _, _ = fl.build(args, cfg=cfg, device=dev)
+    w_host = tree_from_numpy(tree_to_numpy(card.state.w), "cpu")
+    host, _, _ = fl.build(args, cfg=cfg, device="cpu", init=(w_host, None))
+    t0 = time.perf_counter()
+    h_host = host.run(L_CMP_ROUNDS, verbose=False)
+    host_s = time.perf_counter() - t0
+    h_card = card.run(L_CMP_ROUNDS, verbose=False)
+    diff = tree_max_abs(host.state.w, card.state.w)
+    if not trees_close(host.state.w, card.state.w, L_CMP_TOL, L_CMP_TOL):
+        raise AssertionError(f"fed-llm {L_CMP_LAYERS} layers: card and CPU "
+                             f"params differ by {diff:.3e}")
+    print(f"{cfg.name} cut to {L_CMP_LAYERS} layers, {L_CMP_ROUNDS} FedMom "
+          f"rounds: card vs CPU params max abs {diff:.3e} (atol/rtol "
+          f"{L_CMP_TOL}, TF32 off); losses cpu "
+          f"{[round(r['loss'], 6) for r in h_host]} cuda "
+          f"{[round(r['loss'], 6) for r in h_card]} (CPU {host_s:.1f} s)")
+    del card, host
+    torch.cuda.empty_cache()
+    return diff
+
+
+def gemma_train_phase(dev, fm_kernel):
+    """(c): gemma3-1b at full width in fp32 (keyed random weights from the
+    port's ``init``, the config's ``scan_layers`` and ``remat``), M=2 H=2
+    b=2 seq 256 through ``round_step`` with the fused server, remat on and
+    off."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.core import RoundConfig, fedmom, round_step
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+    cfg = dc.replace(get_config(G_ARCH), dtype="float32")
+    t0 = time.perf_counter()
+    params, axes = T.init(cfg, prng.PRNGKey(0), device=dev)
+    torch.cuda.synchronize()
+    n = sum(x.numel() for x in leaves(params))
+    init_s = time.perf_counter() - t0
+    M_, H_, b_, S_ = GT_M, GT_H, GT_B, GT_S
+    print(f"{G_ARCH}: {n} fp32 parameters (init {init_s:.1f} s); "
+          f"scan_layers={cfg.scan_layers}, remat={cfg.remat} "
+          f"({cfg.remat_policy}); M={M_} H={H_} b={b_} seq {S_}, "
+          f"{GT_ROUNDS} rounds of round_step, FedMom eta=1 beta 0.9 fused, "
+          f"lr {GT_LR}")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (GT_ROUNDS, M_, H_, b_, S_ + 1))
+    batches = [{"tokens": torch.as_tensor(t[..., :-1], dtype=torch.int32,
+                                          device=dev),
+                "labels": torch.as_tensor(t[..., 1:], dtype=torch.int32,
+                                          device=dev)} for t in toks]
+    weights = torch.full((M_,), 1.0 / M_, device=dev)
+    opt = fedmom(eta=1.0, beta=BETA, use_fused_kernel=True)
+    rcfg = RoundConfig(clients_per_round=M_, local_steps=H_, lr=GT_LR,
+                       placement="mesh", compute_dtype="float32")
+    out = {"n_params": n, "init_s": init_s}
+    # every token passes the final norm: its scale moves in every round
+    norm0 = params["final_norm"].clone()
+    state = None
+    for remat in (True, False):
+        c = dc.replace(cfg, remat=remat)
+
+        def loss_fn(p, batch, c=c):
+            return T.loss_fn(p, c, batch)
+
+        state = opt.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fm_kernel.launches = 0
+        times, metrics = [], []
+        for r in range(GT_ROUNDS):
+            t0 = time.perf_counter()
+            state, m = round_step(loss_fn, opt, state, batches[r], weights,
+                                  rcfg, param_axes=axes, device=dev)
+            metrics.append((float(m["loss"]), float(m["delta_norm"])))
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for pair in metrics for x in pair):
+            raise AssertionError(f"{G_ARCH} remat={remat}: {metrics}")
+        if torch.equal(state.w["final_norm"], norm0):
+            raise AssertionError(f"{G_ARCH} remat={remat}: server did not "
+                                 f"move")
+        row = {"ms_per_round": statistics.median(times[1:]) * 1e3,
+               "first_round_ms": times[0] * 1e3, "peak_bytes": peak,
+               "losses": [x[0] for x in metrics],
+               "fedmom_update_launches_per_round":
+                   fm_kernel.launches / GT_ROUNDS}
+        out["remat" if remat else "no_remat"] = row
+        print(f"remat={remat!s:5s} {row['ms_per_round']:9.1f} ms/round "
+              f"(median of rounds 2-{GT_ROUNDS}, host clock, synced; first "
+              f"{row['first_round_ms']:.1f} ms); peak "
+              f"{peak / 2**30:.2f} GiB; losses {row['losses']}; "
+              f"delta_norm {[round(x[1], 4) for x in metrics]}; "
+              f"fedmom_update {fm_kernel.launches} launches in {GT_ROUNDS} "
+              f"rounds")
+        if remat:
+            def one_round(state=state, c=c):
+                return round_step(lambda p, b: T.loss_fn(p, c, b), opt,
+                                  state, batches[0], weights, rcfg,
+                                  param_axes=axes, device=dev)
+            wall, rows = profile_rows(one_round)
+            busy = sum(r[1] for r in rows)
+            row.update(busy_share=busy / wall,
+                       profiled_fedmom_update=kernel_launches(
+                           rows, FM_KERNEL_NAME),
+                       top=[(k[:90], round(s * 1e3, 3), cnt)
+                            for k, s, cnt in rows[:8]])
+            del one_round
+            print(f"  one profiled round: wall {wall * 1e3:.1f} ms, device "
+                  f"busy {100 * busy / wall:.2f}%, fedmom_update "
+                  f"{row['profiled_fedmom_update']} launch(es) (profiler); "
+                  f"top {row['top']}")
+        if not remat:
+            break
+        state = None
+        torch.cuda.empty_cache()
+    del params, batches
+    torch.cuda.empty_cache()
+    out["tree_w"], out["tree_v"] = state.w, state.extra["v"]
+    return out
+
+
+def shakespeare_phase(dev, sh, fm_kernel):
+    """(d): the paper's task 2 at the example's configuration on
+    ``plane="auto"``, and 3 FedMom rounds on the card against the CPU."""
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.interop import tree_from_numpy, tree_to_numpy
+    from repro_torch.launch.plan import ExecutionPlan
+    from repro_torch.models import small
+    ds = sh.dataset(SH_K)
+    K_ = ds.population().n_clients
+    w0 = small.lstm_init(prng.PRNGKey(0), device=dev)
+    plan = ExecutionPlan(plane="auto", chunk_rounds=SH_CR)
+    out = {}
+    print(f"char-LSTM 1x128 on synthetic Shakespeare: K={K_} M=2 b=10 lr "
+          f"0.8, eta=K/M; {SH_ROUNDS} rounds a run on plane='auto' in chunks "
+          f"of {SH_CR} (a first run with the captures, then a timed run)")
+    for name, opt, H_ in sh.runs(K_, 2, fused=True):
+        tr = sh.make_trainer(ds, opt, H_, 0.8, "auto", dev, 2)
+        tr.state = opt.init(clone_tree(w0))
+        t0 = time.perf_counter()
+        tr.run(SH_ROUNDS, plan=plan, verbose=False)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        decision = tr.session.plan_log[-1]
+        tr.state, tr.history = opt.init(clone_tree(w0)), []
+        t0 = time.perf_counter()
+        hist = [r for r in tr.run(SH_ROUNDS, plan=plan, verbose=False)
+                if "loss" in r]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / SH_ROUNDS * 1e3
+        losses = [r["loss"] for r in hist]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"shakespeare {name}: {losses}")
+        row = {"resolved": decision["plane"], "ms_per_round": ms,
+               "first_run_s": first_s, "loss_first": losses[0],
+               "final_loss": losses[-1]}
+        if name == "FedMom":
+            tr.state, tr.history = opt.init(clone_tree(w0)), []
+            wall, rows = profile_rows(lambda: tr.run(SH_CR, plan=plan,
+                                                     verbose=False))
+            busy = sum(r[1] for r in rows)
+            row.update(busy_share=busy / wall,
+                       device_ms_per_round=busy / SH_CR * 1e3,
+                       fedmom_update_launches=kernel_launches(
+                           rows, FM_KERNEL_NAME))
+            if row["fedmom_update_launches"] != SH_CR:
+                raise AssertionError(
+                    f"shakespeare FedMom: {row['fedmom_update_launches']} "
+                    f"fedmom_update launches in {SH_CR} rounds")
+        out[name] = row
+        print(f"{name:6s} (H={H_:2d}) auto -> {decision['plane']}: "
+              f"{ms:8.2f} ms/round; first run {first_s:.1f} s; loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}"
+              + (f"; one profiled chunk: device "
+                 f"{row['device_ms_per_round']:.2f} ms a round, busy "
+                 f"{100 * row['busy_share']:.1f}%, "
+                 f"fedmom_update {row['fedmom_update_launches']} in {SH_CR} "
+                 f"rounds" if name == "FedMom" else ""))
+        del tr
+    print("rounds-to-loss summary (lower = faster):",
+          {k: round(v["final_loss"], 4) for k, v in out.items()})
+    # card against CPU: 3 FedMom rounds, per-round plane, carried weights
+    _, opt, H_ = sh.runs(K_, 2, fused=True)[2]
+    runs = {}
+    for device in ("cpu", dev):
+        tr = sh.make_trainer(ds, opt, H_, 0.8, "per_round", device, 2)
+        tr.state = opt.init(tree_from_numpy(tree_to_numpy(w0), device))
+        tr.run(SH_CMP_ROUNDS, verbose=False)
+        runs[str(device)] = tr
+    diff = tree_max_abs(runs["cpu"].state.w, runs[str(dev)].state.w)
+    if not trees_close(runs["cpu"].state.w, runs[str(dev)].state.w,
+                       SH_CMP_TOL, SH_CMP_TOL):
+        raise AssertionError(f"shakespeare: card and CPU params differ by "
+                             f"{diff:.3e}")
+    out["card_vs_cpu_max_abs_diff"] = diff
+    print(f"FedMom {SH_CMP_ROUNDS} rounds card vs CPU: params max abs "
+          f"{diff:.3e} (atol/rtol {SH_CMP_TOL})")
+    return out
+
+
+def lm_phase(dev, fm_kernel, fm_ops, fm_ref):
+    """Phase 21: (a) fed-llm-100m at full size on the per-round and auto
+    planes, (b) its 2-layer cut on the card against the CPU, (c)
+    gemma3-1b at full width with and without remat, (d) the paper's
+    Shakespeare task; ``fedmom_update`` on both LM trees."""
+    import torch
+    fl, sh = lm_examples()
+    out = {"part_s": {}}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["part_s"][name] = now - t_part
+        print(f"  ({name}: {now - t_part:.1f} s)", flush=True)
+        t_part = now
+
+    print("(a) fed-llm-100m at full size")
+    a = fed_llm_lanes(dev, fl, fm_kernel)
+    out["fed_llm_tree"] = lm_tree_check(
+        "fed-llm-100m", a.pop("tree_w"), a.pop("tree_v"), fm_kernel, fm_ops,
+        fm_ref, 4.0, 20)
+    out["fed_llm"] = a
+    torch.cuda.empty_cache()
+    part("a")
+    print(f"(b) fed-llm-100m cut to {L_CMP_LAYERS} layers: card against CPU")
+    out["fed_llm_card_vs_cpu_max_abs_diff"] = fed_llm_card_vs_cpu(dev, fl)
+    part("b")
+    print(f"(c) {G_ARCH} at full width, fp32, through round_step")
+    c = gemma_train_phase(dev, fm_kernel)
+    out["gemma_tree"] = lm_tree_check(
+        G_ARCH, c.pop("tree_w"), c.pop("tree_v"), fm_kernel, fm_ops, fm_ref,
+        1.0, 5)
+    out["gemma3_1b"] = c
+    torch.cuda.empty_cache()
+    part("c")
+    print("(d) the paper's Shakespeare task")
+    out["shakespeare"] = shakespeare_phase(dev, sh, fm_kernel)
+    part("d")
+    return out
+
+
+def main(argv=None) -> int:
+    import torch
+    argv = sys.argv[1:] if argv is None else argv
+    only_lm = "--only-lm" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false — this "
               "script needs a CUDA card", file=sys.stderr)
@@ -3362,6 +3938,14 @@ def main() -> int:
         if log.is_file():
             print(log.read_text().strip())
     print(f"build time {build_s:.2f} s for {len(sources)} source(s)")
+    if only_lm:
+        # a development run of the newest phase alone: no result line
+        phase("21. federated language models (alone)")
+        lm = lm_phase(torch.device("cuda"), fm_kernel, fm_ops, fm_ref)
+        phase(None)
+        print(json.dumps({"card": card, "lm": lm}, default=str))
+        print("--only-lm: phases 1, 2 and 21 only; no result line")
+        return 0
 
     # ------------------------------------------------------------------
     phase("3. kernel against plain (fedmom_update)")
@@ -3616,7 +4200,6 @@ def main() -> int:
     scenarios["bench7"] = bench7_phase(dev, fm_kernel, cs_kernel)
     scenarios["disk_trace"] = disk_trace_phase(dev)
     scenarios["phase_s"] = time.perf_counter() - t0
-    print(f"phase 19 took {scenarios['phase_s']:.1f} s")
 
     # ------------------------------------------------------------------
     phase("20. secure aggregation: BENCH_8's lanes on the scanned, device "
@@ -3625,10 +4208,14 @@ def main() -> int:
     secure = secure_phase(dev, clients, z_clients, lanes["hook"], fm_kernel,
                           cs_kernel)
     secure["phase_s"] = time.perf_counter() - t0
-    print(f"phase 20 took {secure['phase_s']:.1f} s")
 
     # ------------------------------------------------------------------
-    phase("21. kernels")
+    phase("21. federated language models: fed-llm-100m at full size, "
+          "gemma3-1b at full width, the paper's Shakespeare task")
+    lm = lm_phase(dev, fm_kernel, fm_ops, fm_ref)
+
+    # ------------------------------------------------------------------
+    phase("22. kernels")
     bound_ms = timing[("fedmom", n_main)][2]
     large_ms, _, large_bound_ms = timing[("fedmom", 2 ** 26 + 3)]
     cs_ms, cs_plain_ms, cs_bound_ms, cs_v1_ms, cs_ring = cs_timing[cs_top]
@@ -3646,8 +4233,11 @@ def main() -> int:
 
     fa_bound_by = ("bytes" if per_launch(5) >= per_launch(6)
                    else "operations")
+    phase(None)
     print(json.dumps({
-        "card": card, "main_path_ms_per_round": ms_round,
+        "card": card, "phase_seconds": _PHASE["seconds"],
+        "main_path_ms_per_round": ms_round,
+        "lm": lm,
         "fedmom_update_tree": fm_tree,
         "torch_streaming_ms_and_bound_ms": {
             name: t for (k, name), t in timing.items() if k == "stream"},
@@ -3696,6 +4286,17 @@ def main() -> int:
                 "fedmom_update_launches"]
             for plane in secure["planes"]
             for lane in ("plain", "open", "masked")},
+        "lm_launches": {
+            "fed_llm_per_round": lm["fed_llm"]["fused"][
+                "fedmom_update_launches"],
+            "fed_llm_auto_profiled": lm["fed_llm"]["auto"][
+                "fedmom_update_launches"],
+            "gemma3_1b_per_round": lm["gemma3_1b"]["remat"][
+                "fedmom_update_launches_per_round"],
+            "shakespeare_fedmom_profiled": lm["shakespeare"]["FedMom"][
+                "fedmom_update_launches"]},
+        "lm_trees": {"fed_llm_100m": lm["fed_llm_tree"],
+                     "gemma3_1b": lm["gemma_tree"]},
         "max_abs_err": max_err,
         "ms": fm_tree["ms"],
         "plain_ms": fm_tree["plain_ms"],

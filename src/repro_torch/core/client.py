@@ -41,8 +41,10 @@ def local_update(loss_fn: LossFn, params: Any, batches: Any,
         batch = tree_map(lambda x: x[h], batches)
         g, loss = grad_fn(params, batch)
         upd, new_state = opt.update(g, state, params, lr)
+        del g          # a model-sized tree a client: free it before the sum
         new_params = tree_map(lambda pi, ui: (pi + ui).to(pi.dtype),
                               params, upd)
+        del upd        # and this one before the next step's grads
         if step_mask is None:
             params, state = new_params, new_state
             losses.append(loss)

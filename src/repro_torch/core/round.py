@@ -22,8 +22,13 @@ bucketed streaming plane).  Under secure aggregation (``RoundConfig.secure``,
 a ``core.secure_agg.SecureAggSpec``) step 4 runs through the uint32-ring
 masking layer instead of the fp32 reduction: the masked aggregate is
 bit-equal to the open ring's, on every plane.  Logical-axis sharding
-(``param_axes``) belongs to a later slice of the port and raises
-``PlanError``.
+(``param_axes``, the twin tree of logical-axis tuples that a model's
+``init`` returns) is accepted and constrains the per-client replicas and
+the scan accumulator where the reference does, through
+``sharding.shard_tree``; outside a mesh, which is all the port has yet,
+those constraints are identities, so a round with ``param_axes`` is
+bit-equal to one without.  The live mesh comes with the mesh slice
+(ROADMAP Queue 1); ``ExecutionPlan(mesh=...)`` raises ``PlanError``.
 """
 from __future__ import annotations
 
@@ -38,8 +43,8 @@ from repro_torch.core import secure_agg
 from repro_torch.core.secure_agg import SecureAggSpec
 from repro_torch.core.server_opt import ServerOpt, ServerState
 from repro_torch.device import resolve_device
-from repro_torch.launch.plan import PlanError
 from repro_torch.optim import local as local_opt_lib
+from repro_torch.sharding import shard_tree
 from repro_torch.tree import leaves, tree_map
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -134,7 +139,6 @@ def round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
             "per leaf, and scan placement exists for FSDP replicas that "
             "cannot even hold the [C, ...] cohort stack")
     dev = resolve_device(device)
-    _no_param_axes(param_axes)
     _check_state_device(state, dev)
     batches = tree_map(lambda x: torch.as_tensor(x, device=dev), batches)
     weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
@@ -155,6 +159,8 @@ def round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
             final, losses = vmap(one_client)(batches)
         else:
             final, losses = vmap(one_client)(batches, mask)
+        if param_axes is not None:
+            final = shard_tree(final, param_axes, prefix=("clients",))
         # products and accumulation stay fp32 whatever delta_dtype is; only
         # the reduced result is rounded to ddt
         if rcfg.secure is not None:
@@ -166,6 +172,10 @@ def round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
                                             _f32(w0[None] - wk)).to(ddt),
                 w_c, final)
     elif rcfg.placement == "scan":
+        if param_axes is not None:
+            # scan placement keeps FSDP-sharded params: the broadcast model
+            # once, the accumulator every client
+            w_c = shard_tree(w_c, param_axes)
         acc = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
                                              device=dev), w_c)
         loss_list = []
@@ -174,6 +184,8 @@ def round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
             wk, loss = one_client(b_k, None if mask is None else mask[c])
             acc = tree_map(lambda d, w0, wkl: d + weights[c] * _f32(w0 - wkl),
                            acc, w_c, wk)
+            if param_axes is not None:
+                acc = shard_tree(acc, param_axes)
             loss_list.append(loss)
         losses = torch.stack(loss_list)
         delta = tree_map(lambda d: d.to(ddt), acc)
@@ -193,13 +205,6 @@ def round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
         "round": state.t,
     }
     return new_state, metrics
-
-
-def _no_param_axes(param_axes):
-    if param_axes is not None:
-        raise PlanError("param_axes (logical-axis sharding) is not yet "
-                        "ported to repro_torch", plane="per_round",
-                        nearest="per_round")
 
 
 def bucketed_round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
@@ -238,7 +243,6 @@ def bucketed_round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
             "bucketed dispatch is a per-tier vmap — placement='mesh' only "
             f"(got {rcfg.placement!r}); use the padded round_step for scan")
     dev = resolve_device(device)
-    _no_param_axes(param_axes)
     _check_state_device(state, dev)
     opt = local_opt_lib.get(rcfg.local_opt, **dict(rcfg.local_opt_kwargs))
     lr_t = torch.as_tensor(rcfg.lr if lr is None else lr,
@@ -252,9 +256,11 @@ def bucketed_round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
         def one_client(b, m=None):
             return client_lib.local_update(loss_fn, w_c, b, lr_t, opt,
                                            step_mask=m)
-        if mask is None:
-            return vmap(one_client)(batches)
-        return vmap(one_client)(batches, mask)
+        final, losses = (vmap(one_client)(batches) if mask is None
+                         else vmap(one_client)(batches, mask))
+        if param_axes is not None:
+            final = shard_tree(final, param_axes, prefix=("clients",))
+        return final, losses
 
     update = tier_update_fn or run_tier
     secure = rcfg.secure

@@ -2,6 +2,7 @@ from repro_torch.data.device import DeviceFederatedDataset  # noqa: F401
 from repro_torch.data.federated import (  # noqa: F401
     CorpusSchemaError,
     FederatedDataset,
+    lm_clients_to_dataset,
     minibatch_indices,
 )
 from repro_torch.data.stream import (  # noqa: F401

@@ -68,8 +68,14 @@ first.
 Secure aggregation (``ExecutionPlan(secure=SecureAggSpec(...))``): step 4
 of every round on every plane runs through the uint32-ring pairwise
 masking of ``core/secure_agg.py``; the masked trajectory is bit-equal to
-the open ring's, with scenario dropouts recovered.  ``param_axes`` belongs
-to a later slice of the port and raises ``PlanError``.
+the open ring's, with scenario dropouts recovered.
+
+``param_axes`` (the logical-axes twin of the parameter tree, from a model's
+``init``) reaches the round engine on every plane, where it constrains the
+per-client replicas as in the reference; outside a mesh those constraints
+are identities (``sharding.shard_tree``), so a run with it equals a run
+without.  ``ExecutionPlan(mesh=...)`` raises ``PlanError`` until the mesh
+slice (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -205,7 +211,7 @@ class FederatedTrainer:
     dataset: FederatedDataset
     sampler: UniformSampler
     state: ServerState
-    param_axes: Optional[Any] = None         # sharding: a later slice
+    param_axes: Optional[Any] = None         # logical axes of state.w
     lr_schedule: Optional[Callable] = None   # round t -> gamma_t
     hetero_steps_fn: Optional[Callable] = None  # round t -> [C] ints H_k
     client_step_fn: Optional[Callable] = None   # fused gather+local-SGD
@@ -225,10 +231,6 @@ class FederatedTrainer:
                 f"local_batch must be a positive int, got "
                 f"{self.local_batch!r}")
         self.local_batch = int(self.local_batch)
-        if self.param_axes is not None:
-            raise PlanError(
-                "FederatedTrainer.param_axes (logical-axis sharding) is not "
-                "yet ported to repro_torch", nearest="per_round")
         if self.session is None:
             self.session = TrainSession()
         # the active ScenarioRuntime, scoped to one run() call (set when the
@@ -346,8 +348,8 @@ class FederatedTrainer:
         return out
 
     def _sig(self):
-        return (_IdKey(self.loss_fn), _IdKey(self.server_opt), self.rcfg,
-                str(self.device))
+        return (_IdKey(self.loss_fn), _IdKey(self.server_opt),
+                _IdKey(self.param_axes), self.rcfg, str(self.device))
 
     def _resume_round(self, resume: bool) -> int:
         """First round this run should execute: 0 normally; with
@@ -496,7 +498,8 @@ class FederatedTrainer:
                 batches, weights, lr_t, mask = self._round_inputs(t)
                 self.state, metrics = round_step(
                     self.loss_fn, self.server_opt, self.state, batches,
-                    weights, self.rcfg, lr=lr_t, step_mask=mask,
+                    weights, self.rcfg, param_axes=self.param_axes,
+                    lr=lr_t, step_mask=mask,
                     device=self.device)
                 rec = {"round": t, "loss": float(metrics["loss"]),
                        "delta_norm": float(metrics["delta_norm"])}
@@ -526,10 +529,12 @@ class FederatedTrainer:
                           batch_sig: tuple) -> ChunkGraph:
         loss_fn, opt, rcfg, dev = (self.loss_fn, self.server_opt, self.rcfg,
                                    self.device)
+        axes = self.param_axes
 
         def body(state, inp):
             return scan_rounds(loss_fn, opt, state, inp["batches"],
-                               inp["weights"], rcfg, lrs=inp["lrs"],
+                               inp["weights"], rcfg, param_axes=axes,
+                               lrs=inp["lrs"],
                                step_masks=inp.get("masks"), device=dev)
 
         key = ("scan_chunk", n_rounds, masked, batch_sig) + self._sig()
@@ -543,7 +548,7 @@ class FederatedTrainer:
         draw keys where they lie, so they key it too."""
         loss_fn, opt, rcfg, dev = (self.loss_fn, self.server_opt, self.rcfg,
                                    self.device)
-        sampler, b = self.sampler, self.local_batch
+        sampler, b, axes = self.sampler, self.local_batch, self.param_axes
 
         def build():
             sample_key, data_key = self._sample_key().to(dev), dds.base_key()
@@ -551,7 +556,8 @@ class FederatedTrainer:
             def body(state, inp):
                 return scan_rounds_ondevice(
                     loss_fn, opt, state, dds, sampler, data_key, sample_key,
-                    inp["t0"], n_rounds, rcfg, b, lrs=inp["lrs"],
+                    inp["t0"], n_rounds, rcfg, b, param_axes=axes,
+                    lrs=inp["lrs"],
                     step_masks=inp.get("masks"), device=dev)
 
             return ChunkGraph(body, n_rounds, dev)
@@ -705,7 +711,8 @@ class FederatedTrainer:
             return scan_rounds_ondevice(
                 self.loss_fn, self.server_opt, self.state, view,
                 self.sampler, data_key, sample_key, s, e - s, self.rcfg,
-                self.local_batch, lrs=lrs, step_masks=masks,
+                self.local_batch, param_axes=self.param_axes, lrs=lrs,
+                step_masks=masks,
                 device=self.device)
 
         return self._run_fused_chunks(spans, n_rounds, cache, prepare,
@@ -831,7 +838,8 @@ class FederatedTrainer:
             return scan_rounds_bucketed(
                 self.loss_fn, self.server_opt, self.state, view,
                 tiers_present, cids, ws, data_key, s, e - s, self.rcfg,
-                self.local_batch, lrs=lrs, tier_masks=ms, tier_idx=ixs,
+                self.local_batch, param_axes=self.param_axes, lrs=lrs,
+                tier_masks=ms, tier_idx=ixs,
                 client_step_fn=self.client_step_fn, device=self.device)
 
         return self._run_fused_chunks(spans, n_rounds, cache, prepare,

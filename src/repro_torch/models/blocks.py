@@ -250,9 +250,9 @@ def init_block(kg: KeyGen, cfg: ModelConfig, kind: str, dtype, *,
 
 
 def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, rope):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = L.proj(x, p["wq"])
+    k = L.proj(x, p["wk"])
+    v = L.proj(x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -337,8 +337,9 @@ def _rglru_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict):
     both from it."""
     mode = ctx["mode"]
     cache = ctx.get("cache")
-    y_gate = torch.nn.functional.gelu(x @ p["w_y"], approximate="tanh")
-    u = x @ p["w_x"]
+    y_gate = torch.nn.functional.gelu(L.proj(x, p["w_y"]),
+                                      approximate="tanh")
+    u = L.proj(x, p["w_x"])
     conv_state = cache["conv"] if mode == "decode" else None
     u, conv_state = L.causal_conv1d(p["conv_w"], p["conv_b"], u, conv_state)
     if mode == "decode":
@@ -348,7 +349,7 @@ def _rglru_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict):
                                  scan_dtype=getattr(torch, cfg.rglru_dtype),
                                  gate_gather=cfg.rglru_gate_gather)
         h_last = h_last.to(torch.float32)
-    out = (h * y_gate) @ p["w_o"]
+    out = L.proj(h * y_gate, p["w_o"])
     if mode == "train":
         return out, None
     cache["h"].copy_(h_last)
@@ -391,15 +392,16 @@ def _rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict):
     # static per-component token-shift interpolation (Finch's ddlerp LoRA is
     # applied to the decay only, as in the reference)
     xr, xk, xv, xw, xg = (x + mu[i] * (xs - x) for i in range(5))
-    r = torch.einsum("bsd,dhk->bshk", xr, p["w_r"])
-    k = torch.einsum("bsd,dhk->bshk", xk, p["w_k"])
-    v = torch.einsum("bsd,dhk->bshk", xv, p["w_v"])
-    g = torch.einsum("bsd,dhk->bshk", xg, p["w_g"])
+    r = L.proj(xr, p["w_r"])
+    k = L.proj(xk, p["w_k"])
+    v = L.proj(xv, p["w_v"])
+    g = L.proj(xg, p["w_g"])
     # data-dependent decay (the Finch hallmark): log w = -exp(w0 + lora(xw))
-    lora = torch.einsum("bsl,lhk->bshk", torch.tanh(xw @ p["lora_a"]),
-                        p["lora_b"])
-    log_w = -torch.exp(torch.clamp(
-        p["w0"].to(torch.float32) + lora.to(torch.float32), -20.0, 8.0))
+    lora = L.proj(torch.tanh(L.proj(xw, p["lora_a"])), p["lora_b"])
+    # jnp.clip's gradient: half at either bound (minimum of maximum)
+    z = p["w0"].to(torch.float32) + lora.to(torch.float32)
+    log_w = -torch.exp(torch.minimum(torch.maximum(z, L._scalar(-20.0, z)),
+                                     L._scalar(8.0, z)))
     if mode == "decode":
         o, state = L.rwkv6_step(r, k, v, log_w, p["u"], cache["s"])
     elif cfg.rwkv_impl == "pallas" and mode == "train":
@@ -412,7 +414,7 @@ def _rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict):
         o, state = L.rwkv6_chunked(r, k, v, log_w, p["u"], chunk=chunk)
     o = L.head_rms_norm(o, p["ln_x"], cfg.norm_eps)
     o = o * torch.nn.functional.silu(g)
-    out = torch.einsum("bshk,hkd->bsd", o, p["w_o"])
+    out = L.proj(o, p["w_o"], 2)
     if mode == "train":
         return out, None
     cache["s"].copy_(state)
@@ -430,9 +432,9 @@ def _rwkv_channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict):
     mu = p["mu"].to(x.dtype)
     xr = x + mu[0] * (xs - x)
     xk = x + mu[1] * (xs - x)
-    rgate = torch.sigmoid(xr @ p["w_r"])
-    kk = torch.square(torch.relu(xk @ p["w_k"]))
-    out = rgate * (kk @ p["w_v"])
+    rgate = torch.sigmoid(L.proj(xr, p["w_r"]))
+    kk = torch.square(torch.relu(L.proj(xk, p["w_k"])))
+    out = rgate * L.proj(kk, p["w_v"])
     if mode == "train":
         return out, None
     cache["cm_prev"].copy_(x[:, -1])
@@ -469,7 +471,7 @@ def apply_block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     sub_ctx = dict(ctx, cache=cache.get("self"))
     mix, self_cache = _attn_mix(p["attn"], cfg, kind, h, sub_ctx)
-    x = x + torch.einsum("bshk,hkd->bsd", mix, p["attn"]["wo"])
+    x = x + L.proj(mix, p["attn"]["wo"], 2)
     new_cache = {}
     if self_cache is not None:
         new_cache["self"] = self_cache

@@ -7,18 +7,116 @@ the q-chunked masked attention (the plain path that
 MLP, the RG-LRU layer (gates, the log-depth ``rglru_scan`` for forward and
 prefill, ``rglru_step`` for decode, the depthwise ``causal_conv1d``) and
 the RWKV6 recurrence (``rwkv6_chunked`` for forward and prefill, the plain
-path that ``rwkv_impl="xla"`` selects; ``rwkv6_step`` for decode).  The
-reference's ``shard`` layout hints are identities on one card and are left
-out.  ``mrope_tables`` and ``moe_apply`` come with their slices (ROADMAP
-Queue 1, the rest of the zoo: MoE and VLM).
+path that ``rwkv_impl="xla"`` selects; ``rwkv6_step`` for decode).  Every
+product of an activation with a weight goes through ``proj``, which
+``remat_policy="dots"`` records in the forward and reads back in the
+recompute (``models/transformer.py``).  The reference's ``shard`` layout
+hints are identities on one card and are left out.  ``mrope_tables`` and
+``moe_apply`` come with their slices (ROADMAP Queue 1, the rest of the
+zoo: MoE and VLM).
 """
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# weight products (the "dots" that remat_policy="dots" keeps)
+# ---------------------------------------------------------------------------
+class _Products(threading.local):
+    record: Optional[list] = None     # the forward appends each product
+    replay: Optional[list] = None     # the recompute pops them in order
+
+
+_products = _Products()
+
+
+def _fold(x: torch.Tensor, w: torch.Tensor, n_in: int):
+    K = math.prod(w.shape[:n_in])
+    return x.reshape(-1, K), w.reshape(K, -1)
+
+
+class _SavedProduct(torch.autograd.Function):
+    """``proj`` whose value was kept by the forward: returns it without the
+    product, and differentiates as the product does (``mm``'s own backward
+    formulas on the same folded operands, so the grads are bit-equal to
+    the plain path's)."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w, n_in, y):
+        return y.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, n_in, _ = inputs
+        ctx.n_in = n_in
+        ctx.save_for_backward(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        x2, w2 = _fold(x, w, ctx.n_in)
+        g2 = g.reshape(-1, w2.shape[1])
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = g2.mm(w2.t()).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            gw = x2.t().mm(g2).reshape(w.shape)
+        return gx, gw, None, None
+
+
+def proj(x: torch.Tensor, w: torch.Tensor, n_in: int = 1) -> torch.Tensor:
+    """The last ``n_in`` axes of ``x`` contracted with the first ``n_in``
+    of the weight ``w`` as one folded ``mm`` ([..., K] @ [K, N]): x
+    [..., D] @ w [D, F], ``bsd,dhk->bshk`` and, with ``n_in=2``,
+    ``bshk,hkd->bsd``.  Inside a group that ``remat_policy="dots"``
+    rematerializes, the forward records the value and the recompute reads
+    it back instead of multiplying again."""
+    lead = x.shape[:x.dim() - n_in]
+    if _products.replay is not None:
+        return _SavedProduct.apply(x, w, n_in, _products.replay.pop(0))
+    x2, w2 = _fold(x, w, n_in)
+    y = (x2 @ w2).reshape(lead + w.shape[n_in:])
+    if _products.record is not None:
+        _products.record.append(y)
+    return y
+
+
+class recorded_products:
+    """``with recorded_products() as ys:`` collects every ``proj`` value
+    computed inside, in call order."""
+
+    def __enter__(self) -> list:
+        _products.record = []
+        return _products.record
+
+    def __exit__(self, *exc):
+        _products.record = None
+
+
+class replayed_products:
+    """``with replayed_products(ys):`` makes every ``proj`` inside return
+    the next of ``ys`` (as ``_SavedProduct``) instead of computing it; all
+    of them must be used."""
+
+    def __init__(self, ys):
+        self.ys = list(ys)
+
+    def __enter__(self):
+        _products.replay = self.ys
+
+    def __exit__(self, exc_type, *exc):
+        left = len(self.ys)
+        _products.replay = None
+        if exc_type is None and left:
+            raise RuntimeError(f"the recompute used {left} fewer weight "
+                               f"products than the forward recorded")
 
 
 # ---------------------------------------------------------------------------
@@ -166,15 +264,15 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     """Gated (swiglu/geglu, 3 matrices) or plain (gelu, 2 matrices) MLP.
     GELU is the tanh approximation, ``jax.nn.gelu``'s default."""
     if act in ("swiglu", "geglu"):
-        g = x @ p["wi_gate"]
-        u = x @ p["wi_up"]
+        g = proj(x, p["wi_gate"])
+        u = proj(x, p["wi_up"])
         g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
         h = g * u
     elif act == "gelu":
-        h = F.gelu(x @ p["wi_up"], approximate="tanh")
+        h = F.gelu(proj(x, p["wi_up"]), approximate="tanh")
     else:
         raise ValueError(act)
-    return h @ p["wo"]
+    return proj(h, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -189,13 +287,22 @@ def _rglru_gates(p: dict, u: torch.Tensor, gate_gather: bool = False):
     ``gate_gather`` is the reference's sharding hint (gather u before the
     gate matmuls); on one card it changes nothing."""
     f32 = torch.float32
-    r_gate = torch.sigmoid((u @ p["w_a"]).to(f32))      # recurrence
-    i_gate = torch.sigmoid((u @ p["w_i"]).to(f32))      # input
+    r_gate = torch.sigmoid(proj(u, p["w_a"]).to(f32))   # recurrence
+    i_gate = torch.sigmoid(proj(u, p["w_i"]).to(f32))   # input
     # a = sigmoid(Lambda); a_t = a ** (c * r_t)  -> log a_t
     log_a = -_RGLRU_C * r_gate * F.softplus(p["lam"].to(f32))
-    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    # torch.maximum, not clamp: at a tie it splits the gradient in half,
+    # as jnp.maximum does
+    b = torch.sqrt(torch.maximum(1.0 - torch.exp(2.0 * log_a),
+                                 _scalar(1e-12, log_a)))
     x_in = b * i_gate * u.to(f32)
     return log_a, x_in
+
+
+def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d tensor on ``like``'s device made by a fill, not copied from
+    the host (a host copy is refused inside a CUDA-graph capture)."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -307,6 +414,9 @@ def rwkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     idx = torch.arange(C, device=r.device)
     intra_mask = (idx[:, None] > idx[None, :]).to(f32)   # strict lower
+    # ddiff is exactly 0 at j = i - 1: torch.minimum splits the gradient
+    # there as jnp.minimum does (clamp would pass all of it)
+    zero = torch.zeros((), dtype=f32, device=r.device)
 
     outs = []
     for c in range(n):
@@ -319,7 +429,7 @@ def rwkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         #            + u-bonus diagonal term
         ddiff = le[:, :, None] - li[:, None, :]   # [B,C(i),C(j),H,Dk]
         att = torch.einsum("bihk,bijhk,bjhk->bijh", rc,
-                           torch.exp(torch.clamp(ddiff, max=0.0)), kc)
+                           torch.exp(torch.minimum(ddiff, zero)), kc)
         att = att * intra_mask[None, :, :, None]
         diag = torch.einsum("bchk,hk,bchk->bch", rc, uf, kc)
         o = o + torch.einsum("bijh,bjhv->bihv", att, vc)

@@ -5,8 +5,8 @@ and RWKV recurrent-state caches, the forward loss, prefill and decode.
 The port's counterpart of the JAX package's ``models/transformer.py``:
 
     init(cfg, key, device=None)              -> (params, logical_axes)
-    apply(params, cfg, batch)                -> (logits, aux)   # forward
-    loss_fn(params, cfg, batch)              -> (loss, metrics)
+    apply(params, cfg, batch)                -> (logits, aux)
+    loss_fn(params, cfg, batch)              -> (loss, metrics)  # trains
     init_cache(cfg, batch, max_len, device=None) -> (cache, logical_axes)
     prefill(params, cfg, batch, cache)       -> (logits_last, cache)
     decode_step(params, cfg, cache, tokens, pos) -> (logits, cache)
@@ -19,6 +19,19 @@ trailing layers, so a tree carries across packages as numpy
 views of the stack (the counterpart of ``lax.scan``), and caches are
 written in place.  ``init`` and ``init_cache`` run on ``cuda`` unless the
 caller passes ``device``; the other functions run where their tensors lie.
+
+``loss_fn`` trains under ``torch.func`` (the round engine's
+``vmap(grad_and_value)``) and plain autograd alike.  With ``cfg.remat``
+each stacked group is rematerialized as the reference's
+``jax.checkpoint`` does: one ``autograd.Function`` (``_RematGroup``, with
+``generate_vmap_rule``, so ``torch.func`` transforms it, which
+``torch.utils.checkpoint`` does not allow) keeps the group's inputs and
+recomputes the group under ``torch.func.vjp`` in the backward.
+``remat_policy="dots"`` also keeps the outputs of the group's weight
+products (``layers.proj``), which the recompute reads instead of
+multiplying again.  Remat changes memory, not values: the grads are the
+ones without it, bit for bit on the CPU.  The remainder layers are not
+rematerialized, as in the reference.
 
 Dense families (ATTN / LOCAL blocks, 1-D rope), the RG-LRU hybrids
 (RGLRU and LOCAL blocks; the recurrence runs the log-depth
@@ -43,7 +56,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map, unflatten_like
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -140,6 +153,76 @@ def _make_rope(cfg: ModelConfig, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# remat: one stacked group recomputed in the backward
+# ---------------------------------------------------------------------------
+class _RematGroup(torch.autograd.Function):
+    """``run(x, *weights, *extras) -> x`` as one node: the forward saves its
+    inputs (and, under ``"dots"``, the weight products it recorded); the
+    backward recomputes ``run`` under ``torch.func.vjp`` from them.  The
+    first ``n_diff`` inputs (x and the group's weights) get grads; the
+    extras (rope tables) do not.
+
+    ``torch.func.grad`` always differentiates with ``create_graph=True``,
+    which would keep the recompute's graph, and so every group's
+    activations, alive through the whole backward: the grads leave the
+    backward detached, so each group's recompute is freed when its
+    backward returns.  The backward is therefore not differentiable
+    again; nothing in the port takes a second derivative."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, policy, n_diff, *inputs):
+        if policy != "dots":
+            return (run(*inputs),)
+        with L.recorded_products() as ys:
+            x = run(*inputs)
+        return (x, *ys)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.run, ctx.policy, ctx.n_diff = inputs[:3]
+        ctx.n_in = len(inputs) - 3
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.save_for_backward(*inputs[3:], *output[1:])
+
+    @staticmethod
+    def backward(ctx, gx, *_):
+        saved = ctx.saved_tensors
+        diff, extras = saved[:ctx.n_diff], saved[ctx.n_diff:ctx.n_in]
+        products = saved[ctx.n_in:]
+
+        def rerun(*d):
+            if ctx.policy != "dots":
+                return ctx.run(*d, *extras)
+            with L.replayed_products(products):
+                return ctx.run(*d, *extras)
+
+        _, vjp_fn = torch.func.vjp(rerun, *diff)
+        grads = tuple(g.detach() for g in vjp_fn(gx))
+        return (None, None, None) + grads + (None,) * len(extras)
+
+
+def _remat_group(gp: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict):
+    """One group's blocks through ``_RematGroup``.  The blocks' aux is a
+    constant 0.0 here: MoE, the only source of one, raises at ``init``."""
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy must be 'full' or 'dots', got "
+                         f"{cfg.remat_policy!r}")
+    ws = leaves(gp)
+    rope = tuple(ctx["rope"]) if ctx.get("rope") is not None else ()
+
+    def run(x, *rest):
+        p = unflatten_like(gp, list(rest[:len(ws)]))
+        bctx = dict(ctx, rope=tuple(rest[len(ws):]) or None, cache=None)
+        for i, kind in enumerate(cfg.layer_pattern):
+            x, _, _ = B.apply_block(p[f"b{i}"], cfg, kind, x, bctx)
+        return x
+
+    return _RematGroup.apply(run, cfg.remat_policy, 1 + len(ws), x, *ws,
+                             *rope)[0]
+
+
+# ---------------------------------------------------------------------------
 # stack application (shared by train / prefill / decode)
 # ---------------------------------------------------------------------------
 def _apply_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict,
@@ -151,8 +234,21 @@ def _apply_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict,
     use_cache = cache is not None
 
     if "groups" in params:
+        # the reference checkpoints the scanned groups only where it
+        # differentiates (no cache); so does the port, when grads flow
+        remat = (cfg.remat and not use_cache and torch.is_grad_enabled()
+                 and any(a.requires_grad
+                         for a in leaves(params["groups"]) + [x]))
+        # one unbind a leaf: its backward stacks the groups' grads in one
+        # op, where indexing each group would add n_groups full-size
+        # zero-padded grads
+        stack = params["groups"]
+        cols = [torch.unbind(a) for a in leaves(stack)]
         for g in range(cfg.n_groups):
-            gp = tree_map(lambda a: a[g], params["groups"])
+            gp = unflatten_like(stack, [c[g] for c in cols])
+            if remat:
+                x = _remat_group(gp, cfg, x, ctx)
+                continue
             gc = (tree_map(lambda a: a[g], cache["groups"]) if use_cache
                   else None)
             for i, kind in enumerate(cfg.layer_pattern):
@@ -217,12 +313,18 @@ def apply(params: dict, cfg: ModelConfig, batch: dict,
     ctx = {"mode": "train", "rope": rope, "causal": True, "q_chunk": q_chunk}
     x = _embed_inputs(params, cfg, batch)
     x, _, aux = _apply_stack(params, cfg, x, ctx, cache=None)
-    return (_logits(params, cfg, x),
-            torch.as_tensor(aux, dtype=torch.float32, device=x.device))
+    # aux is a Python 0.0 without MoE: a fill, not a copy from the host
+    # (which a CUDA-graph capture refuses)
+    aux = (aux.to(torch.float32) if isinstance(aux, torch.Tensor)
+           else torch.full((), aux, dtype=torch.float32, device=x.device))
+    return _logits(params, cfg, x), aux
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
-    """Mean next-token cross entropy over ``loss_mask`` (forward only)."""
+    """Mean next-token cross entropy over ``loss_mask``; differentiable
+    under ``torch.func`` and autograd (the kernels of
+    ``attention_impl="pallas"`` and ``rwkv_impl="pallas"`` are forward
+    only, in both packages, and raise under grad)."""
     logits, aux = apply(params, cfg, batch)
     labels = batch["labels"].long()
     mask = batch.get("loss_mask")

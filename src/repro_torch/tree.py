@@ -35,57 +35,62 @@ def _children(node) -> Tuple[list, Callable[[list], Any]] | None:
     return None
 
 
+# The walkers below are module-level functions that take their accumulator
+# as an argument.  A recursive closure (``def walk`` calling itself inside
+# ``leaves``) is a reference cycle through its own cell, and it keeps every
+# leaf it collected alive until Python's cycle collector runs: on the card,
+# model-sized trees of a round's clients stayed allocated that way.
+def _walk_paths(node, prefix, paths, out):
+    kids = _children(node)
+    if kids is None:
+        paths.append("/".join(prefix))
+        out.append(node)
+        return
+    for label, child in kids[0]:
+        _walk_paths(child, prefix + [label], paths, out)
+
+
 def flatten_with_paths(tree) -> Tuple[List[str], list]:
     """(path strings, leaves) in ``jax.tree_util`` order."""
     paths: List[str] = []
-    leaves: list = []
+    out: list = []
+    _walk_paths(tree, [], paths, out)
+    return paths, out
 
-    def walk(node, prefix):
-        kids = _children(node)
-        if kids is None:
-            paths.append("/".join(prefix))
-            leaves.append(node)
-            return
-        for label, child in kids[0]:
-            walk(child, prefix + [label])
 
-    walk(tree, [])
-    return paths, leaves
+def _walk(node, out):
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], out)
+    elif isinstance(node, (tuple, list)):
+        for child in node:            # a NamedTuple iterates its fields
+            _walk(child, out)
+    elif node is not None:
+        out.append(node)
 
 
 def leaves(tree) -> list:
     """The leaves in ``flatten_with_paths`` order, without their paths
     (the per-step hot path of every server update)."""
     out: list = []
-
-    def walk(node):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k])
-        elif isinstance(node, (tuple, list)):
-            for child in node:        # a NamedTuple iterates its fields
-                walk(child)
-        elif node is not None:
-            out.append(node)
-
-    walk(tree)
+    _walk(tree, out)
     return out
+
+
+def _build(node, it):
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if _is_namedtuple(node):
+        return type(node)(*[_build(child, it) for child in node])
+    if isinstance(node, (tuple, list)):
+        return type(node)([_build(child, it) for child in node])
+    return None if node is None else next(it)
 
 
 def unflatten_like(like, new_leaves) -> Any:
     """Rebuild ``like``'s structure around ``new_leaves`` (same order)."""
     it = iter(new_leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if _is_namedtuple(node):
-            return type(node)(*[build(child) for child in node])
-        if isinstance(node, (tuple, list)):
-            return type(node)([build(child) for child in node])
-        return None if node is None else next(it)
-
-    out = build(like)
+    out = _build(like, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the structure holds")
     return out

@@ -267,18 +267,26 @@ def test_bf16_compute_loosely_matches_reference():
 
 
 def test_unported_round_features_raise_plan_error():
-    """``param_axes`` (sharding) is refused; ``secure`` is ported and a
-    ``SecureAggSpec`` is accepted."""
+    """``secure`` and ``param_axes`` are ported: a ``SecureAggSpec`` is
+    accepted, and a round with ``param_axes`` (identities outside a mesh)
+    is bit-equal to one without; the mesh, the one layer still to port,
+    raises ``PlanError``."""
     from repro_torch.core import SecureAggSpec
+    from repro_torch.launch.plan import ExecutionPlan
     spec = SecureAggSpec(masked=True, seed=1)
     assert tround.RoundConfig(2, 1, 0.1, secure=spec).secure == spec
     params, batches, weights = _setup()
     opt = tso.fedavg()
-    with pytest.raises(PlanError, match="param_axes"):
-        tround.round_step(tlinreg, opt,
-                          opt.init(tree_from_numpy(params, "cpu")), batches,
-                          weights, tround.RoundConfig(4, 3, 0.1),
-                          param_axes={"w": ("embed",)}, device="cpu")
+    runs = [tround.round_step(tlinreg, opt,
+                              opt.init(tree_from_numpy(params, "cpu")),
+                              batches, weights, tround.RoundConfig(4, 3, 0.1),
+                              param_axes=axes, device="cpu")[0]
+            for axes in ({"w": ("embed",), "b": ()}, None)]
+    for a, b in zip(tree_to_numpy(runs[0].w).values(),
+                    tree_to_numpy(runs[1].w).values()):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(PlanError, match="mesh"):
+        ExecutionPlan(mesh=object())
 
 
 def _tiers(seed, sizes=(3, 1, 2), H=3, b=5, d=6, masked=False):

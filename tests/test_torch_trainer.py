@@ -378,8 +378,21 @@ def test_streaming_plan_defaults_are_the_reference_defaults():
 
 @pytest.mark.parametrize("field", ["param_axes"])
 def test_unported_trainer_fields_raise_plan_error(world, field):
-    with pytest.raises(PlanError, match=field):
-        _torch_trainer(world, "fedavg-uniform", **{field: object()})
+    """``param_axes`` is ported: a trainer takes it, and its run (the
+    constraints are identities outside a mesh) is bit-equal to a run
+    without; the mesh it would shard over is what stays refused."""
+    with_axes = _torch_trainer(world, "fedavg-uniform",
+                               **{field: {k: () for k in world[1]}})
+    plain = _torch_trainer(world, "fedavg-uniform")
+    for tr in (with_axes, plain):
+        tr.run(2, verbose=False)
+    assert ([r["loss"] for r in with_axes.history]
+            == [r["loss"] for r in plain.history])
+    for a, b in zip(tree_to_numpy(with_axes.state.w).values(),
+                    tree_to_numpy(plain.state.w).values()):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(PlanError, match="mesh"):
+        with_axes.run(3, plan=ExecutionPlan(mesh=object()), verbose=False)
 
 
 def test_trainer_needs_a_card_unless_told_cpu(world, monkeypatch):
