@@ -242,11 +242,38 @@ Phases, each printed as it runs; any failure exits non-zero:
      of 3 (a first run with its captures, then a timed run): ms/round,
      final losses, one profiled FedMom chunk's ``fedmom_update`` launches;
      3 FedMom rounds on the card against the CPU (atol/rtol 1e-4);
- 22. one JSON line of kernels, then the result line.
+ 22. the data mesh at BENCH_10's configuration (``benchmarks/
+     perf_compare.py`` ``bench_mesh``: the BENCH_8 trainer, LeNet, M=8,
+     60 rounds, chunks of 25), under ``cudnn.deterministic``: (a)
+     ``mesh=None`` against ``MeshSpec(devices=1)`` on NCCL on the graphed
+     device plane and the padded and bucketed streaming lanes, a warm-up
+     run then runs in turns (none, mesh, mesh, none; 60 rounds on the
+     device plane, one chunk of 25 on a streaming lane): ms/round beside
+     each other, the mesh run's drift against none's (0 bits: a sum over
+     one rank), one profiled chunk of the device plane and 5 profiled
+     rounds of each streaming lane (device time a round, busy share, NCCL
+     ops, ``fedmom_update`` launches from the profiler), the counter's
+     launches on the streaming lanes, and the round's two collectives
+     captured alone (graph replays); (b) 2 and 4 gloo ranks sharing the
+     card (``launch.mesh.spawn``, both meshes at once), 12 rounds of each
+     lane (per-round, padded, bucketed, device with its chunks eager,
+     masked and open-ring per-round) on BENCH_10's LeNet and on the
+     reference's mesh-test linreg fleet (``tests/test_mesh_shard.py``: 8
+     clients, M=4) against one device: linreg within 1e-6 and masked
+     bit-equal, LeNet's final loss within ``bench_mesh``'s 1e-4 (a 1e-8
+     change of LeNet's state flips a ReLU / max-pool choice from round
+     3), masked bit-equal to the open ring, the ranks' parameters equal,
+     each rank's corpus bytes equal to ``per_device_nbytes``; (c) NCCL at
+     2 and 4 ranks on the device plane where as many cards are visible
+     (the linreg fleet within 1e-6 of one card, BENCH_10's LeNet timed
+     after a warm-up run and within 1e-4 in final loss), else why not;
+ 23. one JSON line of kernels, then the result line.
 
 Each phase's wall seconds print on a line of their own when it ends.
-``python3 chip_smoke.py --only-lm`` runs phases 1, 2 and 21 alone (a
-development run; it prints no result line).
+``python3 chip_smoke.py --only-lm`` runs phases 1, 2 and 21 alone,
+``--only-mesh`` phases 1, 2 and 22, and ``--only-mesh-nccl`` phases 1, 2
+and 22(c), for a machine with several cards (development runs; they print
+no result line).
 
 Without a card, or outside a checkout of the repo, it exits non-zero and
 prints no result.
@@ -379,6 +406,26 @@ S_WARM_PER_ROUND = 5               # warm-up rounds of the per-round plane
 S_QUANT_DRIFT = 1e-3               # plain vs open final loss (bench_secure)
 S_DROPOUT, S_DROP_ROUNDS = 0.3, 25
 S_CMP_ROUNDS = 3                   # masked card-against-CPU rounds
+# the data mesh (phase 22): BENCH_10.json's configuration
+# (benchmarks/perf_compare.py bench_mesh over _driver_setup: the BENCH_8
+# trainer above, LeNet, M=8, H=4, b=10, FedMom eta=2 through
+# fedmom_update, 60 rounds in chunks of 25 on the device plane)
+MS_ROUNDS, MS_CR = 60, 25
+MS_PROFILE_ROUNDS = 5              # an eager streaming lane's profiled run
+MS_SIZES = (2, 4)                  # spawned ranks: gloo sharing the card,
+                                   # NCCL where there are as many cards
+MS_RANK_ROUNDS, MS_RANK_CR = 12, 4   # the spawned meshes' runs: the length
+                                     # of tests/test_mesh_shard.py's
+MESH_ATOL = 1e-6                   # sharded vs single device: the
+                                   # reference's tests/test_mesh_shard.py,
+                                   # on its linreg fleet (8 clients, M=4)
+MS_LENET_LOSS_TOL = 1e-4           # LeNet's final-loss drift: bench_mesh's
+                                   # own bound.  From round 3 a 1e-8 change
+                                   # of LeNet's state flips a ReLU / max-pool
+                                   # choice and moves 23 parameters by
+                                   # 1.7e-5, so its parameters hold no 1e-6
+                                   # tolerance under any change of order
+MS_LINREG_M = 4
 S_BIG_M, S_BIG_ROUNDS = 32, 20     # the sizing point: K=60 at M=32
 # the federated LM path (phase 21): examples/federated_llm_torch.py's
 # defaults at full size (fed-llm-100m), gemma3-1b at full width through
@@ -3879,10 +3926,488 @@ def lm_phase(dev, fm_kernel, fm_ops, fm_ref):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the data mesh
+# ---------------------------------------------------------------------------
+def mesh_plan(lane, mesh, chunk_rounds, secure=None):
+    """The plan of a mesh lane: ``per_round``, ``device`` or a streaming
+    lane (``padded``, ``bucketed``; the hook lane runs ``bucketed``)."""
+    from repro_torch.launch.plan import CacheSpec, ExecutionPlan
+    if lane == "per_round":
+        return ExecutionPlan(plane="per_round", mesh=mesh, secure=secure)
+    return ExecutionPlan(
+        plane="device" if lane == "device" else "streaming",
+        chunk_rounds=chunk_rounds, mesh=mesh, secure=secure,
+        cache=CacheSpec(bucketed=lane == "bucketed"))
+
+
+def flat_params(state):
+    import numpy as np
+    from repro_torch.tree import leaves
+    return np.concatenate([x.detach().cpu().reshape(-1).numpy()
+                           for x in leaves(state.w)])
+
+
+# (name, lane, secure aggregation) of the spawned meshes' runs; "hook" is
+# the bucketed lane through client_step (linreg_tier_step), linreg only
+MESH_RANK_LANES = (("per_round", "per_round", None),
+                   ("padded", "padded", None),
+                   ("bucketed", "bucketed", None),
+                   ("hook", "bucketed", None),
+                   ("device", "device", None),
+                   ("masked", "per_round", "masked"),
+                   ("open", "per_round", "open"))
+
+
+def mesh_linreg_trainer(dev, hook=False):
+    """tests/test_mesh_shard.py's fixture: ``tests/_trajectory.py``
+    ``make_clients(n=8)`` (n_k ~ U[20, 40), d=5, seed 0), dataset seed 1,
+    the keyed sampler (seed 2) at M=4, H=4, b=4, lr 0.05, FedMom eta 1,
+    beta 0.9 through fedmom_update; ``hook``: each tier's local steps
+    through client_step."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.client_step.ops import linreg_tier_step
+    from repro_torch.core import DeviceUniformSampler, RoundConfig, fedmom
+    from repro_torch.data import FederatedDataset
+    from repro_torch.launch.train import FederatedTrainer
+    rng = np.random.default_rng(0)
+    clients = []
+    for _ in range(8):
+        m = int(rng.integers(20, 40))
+        x = rng.normal(size=(m, 5)).astype(np.float32)
+        y = (x @ np.arange(1, 6) / 5
+             + 0.1 * rng.normal(size=m)).astype(np.float32)
+        clients.append({"x": x, "y": y})
+    ds = FederatedDataset(clients, seed=1)
+    opt = fedmom(eta=1.0, beta=0.9, use_fused_kernel=True)
+    return FederatedTrainer(
+        loss_fn=linreg_loss, server_opt=opt,
+        rcfg=RoundConfig(MS_LINREG_M, 4, 0.05, compute_dtype="float32"),
+        dataset=ds, sampler=DeviceUniformSampler(ds.population(),
+                                                 MS_LINREG_M, seed=2),
+        state=opt.init({"w": torch.zeros(5, device=dev),
+                        "b": torch.zeros((), device=dev)}),
+        local_batch=4, device=dev,
+        client_step_fn=linreg_tier_step() if hook else None)
+
+
+def mesh_lane_runs(dev, lanes, n_rounds, chunk_rounds, n=None,
+                   fleet="lenet", warm=False):
+    """Each lane's run under ``cudnn.deterministic`` over a mesh of ``n``
+    ranks (``None``: no mesh), of BENCH_10's trainer (``fleet="lenet"``)
+    or of the reference's mesh-test fixture (``"linreg"``): its losses,
+    final parameters, host ms/round, ``fedmom_update`` and ``client_step``
+    launches (the eager lanes' counters), plan record and packed corpus
+    bytes.  The hook lane runs on the linreg fleet alone.  ``warm``: time
+    a second run of the trainer, after one that captures its graphs."""
+    import torch
+    from repro_torch.core import SecureAggSpec
+    from repro_torch.data import synthetic_femnist
+    from repro_torch.kernels.client_step import kernel as cs_kernel
+    from repro_torch.kernels.fedmom_update import kernel as fm_kernel
+    from repro_torch.launch.mesh import MeshSpec
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    clients = (synthetic_femnist(n_clients=S_K, seed=0)[0]
+               if fleet == "lenet" else None)
+    mesh = None if n is None else MeshSpec(devices=n)
+    out = {}
+    for name, lane, kind in lanes:
+        if name == "hook" and fleet != "linreg":
+            continue
+        spec = None if kind is None else SecureAggSpec(
+            masked=kind == "masked", seed=0, frac_bits=S_FRAC)
+        tr = (secure_trainer(clients, dev) if fleet == "lenet"
+              else mesh_linreg_trainer(dev, hook=name == "hook"))
+        plan = mesh_plan(lane, mesh, chunk_rounds, spec)
+        if warm:
+            init = tr.state
+            tr.run(n_rounds, plan=plan, verbose=False)
+            tr.state, tr.history = init, []
+        fm_kernel.launches = cs_kernel.launches = 0
+        t0 = time.perf_counter()
+        hist = [r for r in tr.run(n_rounds, plan=plan, verbose=False)
+                if "event" not in r]
+        sync(dev)
+        out[name] = {
+            "ms": (time.perf_counter() - t0) / n_rounds * 1e3,
+            "losses": [r["loss"] for r in hist],
+            "w": flat_params(tr.state), "launches": fm_kernel.launches,
+            "client_step_launches": cs_kernel.launches,
+            "plan": tr.session.plan_log[-1],
+            "nbytes": (None if tr.session.device_ds is None
+                       else tr.session.device_ds.nbytes)}
+    return out
+
+
+def mesh_rank(rank, n, dev, lanes, n_rounds, chunk_rounds,
+              fleets=("lenet",), warm=False):
+    """One spawned rank of phase 22: ``mesh_lane_runs`` of each fleet."""
+    return {fleet: mesh_lane_runs(dev, lanes, n_rounds, chunk_rounds, n,
+                                  fleet, warm) for fleet in fleets}
+
+
+def mesh_drift(a, b):
+    """(max abs difference of final parameters and losses, parameters
+    that differ in any bit) of two lane runs."""
+    import numpy as np
+    w = float(np.abs(a["w"] - b["w"]).max())
+    loss = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    bits = int((a["w"].view(np.int32) != b["w"].view(np.int32)).sum())
+    return max(w, loss), bits
+
+
+def mesh_phase(dev, fm_kernel, parts="abc"):
+    """Phase 22: (a) mesh=None against a 1-rank NCCL mesh on the graphed
+    device plane and the streaming lanes at BENCH_10's configuration, in
+    turns; (b) 2 and 4 gloo ranks sharing the card against one device; (c)
+    NCCL at 2 and 4 ranks where the cards allow.  ``parts`` picks them."""
+    out = {"part_s": {}, "a": {}, "b": {}, "c": {}, "ran": []}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["part_s"][name] = now - t_part
+        print(f"  ({name}: {now - t_part:.1f} s)", flush=True)
+        t_part = now
+
+    print(f"BENCH_10: LeNet on synthetic FEMNIST K={S_K}, M={S_M} H={S_H} "
+          f"b={S_B} lr={S_LR} FedMom eta={S_ETA} beta={S_BETA} through "
+          f"fedmom_update, DeviceUniformSampler; {MS_ROUNDS} rounds in "
+          f"chunks of {MS_CR}")
+    failures = []
+    if "a" in parts:
+        mesh_one_rank(dev, fm_kernel, out, part)
+    if "b" in parts:
+        mesh_gloo(dev, out, part, failures)
+    if "c" in parts:
+        mesh_nccl(dev, out, part, failures)
+    print(f"mesh sizes and backends run: {out['ran']}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def mesh_one_rank(dev, fm_kernel, out, part):
+    """Phase 22(a): mesh=None against a 1-rank NCCL mesh."""
+    import math as _math
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import synthetic_femnist
+    from repro_torch.launch.mesh import MeshSpec
+    clients, _ = synthetic_femnist(n_clients=S_K, seed=0)
+    one = MeshSpec(devices=1)
+    print(f"(a) mesh=None against MeshSpec(devices=1) on NCCL, "
+          f"cudnn.deterministic: a warm-up run of each (the device plane "
+          f"{MS_ROUNDS} rounds, its two chunk shapes captured; a streaming "
+          f"lane {MS_CR}), then runs in turns (none, mesh, mesh, none: the "
+          f"device plane {MS_ROUNDS} rounds, a streaming lane {MS_CR}), the "
+          f"last of each held against the other; one "
+          f"profiled chunk of the device plane, {MS_PROFILE_ROUNDS} "
+          f"profiled rounds of a streaming lane")
+    torch.backends.cudnn.deterministic = True
+    for lane in ("device", "padded", "bucketed"):
+        trs = {}
+        for tag, mesh in (("none", None), ("mesh1", one)):
+            tr = secure_trainer(clients, dev)
+            init, plan = tr.state, mesh_plan(lane, mesh, MS_CR)
+            t0 = time.perf_counter()
+            tr.run(MS_ROUNDS if lane == "device" else MS_CR, plan=plan,
+                   verbose=False)
+            sync(dev)
+            trs[tag] = (tr, init, plan, time.perf_counter() - t0)
+        times = {"none": [], "mesh1": []}
+        launches, last = {}, {}
+        # BENCH_10's 60 rounds on the device plane; one chunk of an eager
+        # streaming lane (25 of its rounds take what 60 take the graphs)
+        n_timed = MS_ROUNDS if lane == "device" else MS_CR
+        for tag in ("none", "mesh1", "mesh1", "none"):
+            tr, init, plan, _ = trs[tag]
+            tr.state, tr.history = init, []
+            fm_kernel.launches = 0
+            t0 = time.perf_counter()
+            hist = [r for r in tr.run(n_timed, plan=plan, verbose=False)
+                    if "event" not in r]
+            sync(dev)
+            times[tag].append((time.perf_counter() - t0) / n_timed * 1e3)
+            launches[tag] = fm_kernel.launches
+            losses = [r["loss"] for r in hist]
+            if len(losses) != n_timed or not all(_math.isfinite(x)
+                                                  for x in losses):
+                raise AssertionError(f"{lane} {tag}: losses {losses}")
+            last[tag] = {"losses": losses, "w": flat_params(tr.state)}
+        drift, bits = mesh_drift(last["mesh1"], last["none"])
+        row = {"ms_per_round": {k: statistics.fmean(v)
+                                for k, v in times.items()},
+               "ms_runs": times, "drift": drift, "drift_bits": bits,
+               "first_call_s": {k: v[3] for k, v in trs.items()}}
+        # one chunk of the graphed plane; a few rounds of an eager lane
+        # (the profiler's cost grows with the host's ops)
+        n_prof = MS_CR if lane == "device" else MS_PROFILE_ROUNDS
+        for tag in ("none", "mesh1"):
+            tr, init, plan, _ = trs[tag]
+            tr.state, tr.history = init, []
+            wall, rows = profile_rows(
+                lambda: tr.run(n_prof, plan=plan, verbose=False))
+            busy = sum(r[1] for r in rows)
+            nccl = [(k, sec, c) for k, sec, c in rows if "nccl" in k.lower()]
+            fm = kernel_launches(rows, FM_KERNEL_NAME)
+            if fm != n_prof:
+                raise AssertionError(
+                    f"{lane} {tag}: the profiler counts {fm} fedmom_update "
+                    f"launches in {n_prof} rounds, want one a round")
+            row[tag] = {"device_ms_per_round": busy / n_prof * 1e3,
+                        "busy_share": busy / wall,
+                        "ops_per_round": sum(r[2] for r in rows) / n_prof,
+                        "fedmom_update_launches": fm,
+                        "profiled_rounds": n_prof,
+                        "nccl_ms_per_round": sum(r[1] for r in nccl)
+                        / n_prof * 1e3,
+                        "nccl_ops_per_round": sum(r[2] for r in nccl)
+                        / n_prof,
+                        "nccl_names": sorted({k[:60] for k, _, _ in nccl})}
+        tr = trs["mesh1"][0]
+        rec = tr.session.plan_log[-1]
+        if rec.get("mesh_shape") != [1] or rec.get("eager_chunks"):
+            raise AssertionError(f"{lane}: mesh record {rec}")
+        if lane == "device" and dev.type == "cuda" and not all(
+                g.graph is not None for g in tr.session.graphs.values()):
+            raise AssertionError("device plane under the NCCL mesh: a "
+                                 "chunk was not captured")
+        row["mesh_launches"] = (row["mesh1"]["fedmom_update_launches"]
+                                if lane == "device" else launches["mesh1"])
+        if lane != "device" and launches["mesh1"] != n_timed:
+            raise AssertionError(f"{lane}: {launches['mesh1']} "
+                                 f"fedmom_update launches in {n_timed} "
+                                 f"rounds under the mesh")
+        if drift > MESH_ATOL:
+            raise AssertionError(f"{lane}: 1-rank mesh drift {drift}")
+        out["a"][lane] = row
+        m = row["ms_per_round"]
+        print(f"{lane:9s} none {m['none']:8.3f} ms/round, 1-rank NCCL mesh "
+              f"{m['mesh1']:8.3f} ms/round (host clock, runs in turns "
+              f"{times}); drift of the mesh run {drift:.3e} ({bits} "
+              f"parameters differ in a bit); one profiled chunk of "
+              f"{MS_CR}: device {row['none']['device_ms_per_round']:.3f} -> "
+              f"{row['mesh1']['device_ms_per_round']:.3f} ms/round, busy "
+              f"{100 * row['none']['busy_share']:.1f}% -> "
+              f"{100 * row['mesh1']['busy_share']:.1f}%, NCCL ops "
+              f"{row['mesh1']['nccl_names']} "
+              f"{row['mesh1']['nccl_ms_per_round']:.4f} ms a round; "
+              f"fedmom_update {fm} launches (profiler) in {n_prof} rounds, "
+              f"{launches['mesh1']} (counter) in {n_timed}")
+        part(f"a {lane}")
+        del trs, tr
+    # the round's collectives alone, captured: a graph of 100 calls, each
+    # of 20 replays timed between CUDA events
+    mesh = one.build(dev)
+    delta = torch.zeros(sum(x.numel() for x in secure_trainer(
+        clients, dev).state.w.values()), device=dev)
+    losses = torch.zeros(S_M, device=dev)
+    out["a"]["captured_all_reduce_ms"] = graph_ms(
+        lambda: mesh.all_reduce_(delta))
+    out["a"]["captured_all_gather_ms"] = graph_ms(
+        lambda: mesh.all_gather_blocks([(losses, S_M)]))
+    print(f"captured on the 1-rank NCCL mesh: all_reduce of the "
+          f"{delta.numel()}-float delta "
+          f"{out['a']['captured_all_reduce_ms'] * 1e3:.3f} us, all-gather of "
+          f"the {S_M} losses {out['a']['captured_all_gather_ms'] * 1e3:.3f} "
+          f"us (device time a call)")
+    torch.backends.cudnn.deterministic = False
+    dist.destroy_process_group()         # the 1-rank group build() began
+    out["ran"].append("1 rank on NCCL (in this process)")
+    torch.cuda.empty_cache()
+    part("a collectives")
+
+
+def mesh_gloo(dev, out, part, failures):
+    """Phase 22(b): 2 and 4 gloo ranks sharing the card."""
+    from repro_torch.launch.mesh import spawn
+    print(f"(b) {MS_SIZES} gloo ranks sharing the card (spawned, both "
+          f"meshes at once), "
+          f"{MS_RANK_ROUNDS} rounds in chunks of {MS_RANK_CR} a lane, "
+          f"against one device (cudnn.deterministic on both sides): "
+          f"BENCH_10's LeNet (the streaming and device lanes' final-loss "
+          f"drift within {MS_LENET_LOSS_TOL}, bench_mesh's bound; the "
+          f"secure per-round lanes flip ring quanta: masked held to the "
+          f"open ring) and the reference's mesh-test linreg fleet "
+          f"(M={MS_LINREG_M}; parameters and losses within {MESH_ATOL}, "
+          f"masked parameters bit-equal to one device's); ms/round of a "
+          f"rank's first runs include its process's CUDA set-up")
+    fleets = ("lenet", "linreg")
+    single = {fleet: mesh_lane_runs(dev, MESH_RANK_LANES, MS_RANK_ROUNDS,
+                                    MS_RANK_CR, fleet=fleet)
+              for fleet in fleets}
+    part("b single device")
+
+    def spawned(n):
+        t0 = time.perf_counter()
+        ranks = spawn(mesh_rank, n, dev.type, backend="gloo", timeout=600,
+                      args=(MESH_RANK_LANES, MS_RANK_ROUNDS, MS_RANK_CR,
+                            fleets))
+        return ranks, time.perf_counter() - t0
+
+    # both meshes at once (independent groups, 6 processes on the card)
+    with ThreadPoolExecutor(max_workers=len(MS_SIZES)) as pool:
+        meshes = dict(zip(MS_SIZES, pool.map(spawned, MS_SIZES)))
+    part("b gloo ranks")
+    for n in MS_SIZES:
+        ranks, spawn_s = meshes[n]
+        res = {"spawn_s": spawn_s}
+        for fleet in fleets:
+            for name, lane, kind in MESH_RANK_LANES:
+                if name not in single[fleet]:
+                    continue
+                r0 = ranks[0][fleet][name]
+                want = single[fleet][name]
+                drift, bits = mesh_drift(r0, want)
+                row = {"ms_per_round": r0["ms"], "drift": drift,
+                       "drift_bits": bits,
+                       "final_loss_drift": abs(r0["losses"][-1]
+                                               - want["losses"][-1]),
+                       "replicated": all(
+                           (r[fleet][name]["w"] == r0["w"]).all()
+                           for r in ranks[1:]),
+                       "launches": r0["launches"],
+                       "eager_chunks": bool(r0["plan"].get("eager_chunks"))}
+                tag = f"gloo {n} {fleet} {name}"
+                if name == "hook":
+                    # each rank trains its block of every tier through
+                    # client_step, one launch a non-empty block; rank 0's
+                    # block is never empty, so it launches as often as one
+                    # device does
+                    row["client_step_launches"] = [
+                        r[fleet][name]["client_step_launches"]
+                        for r in ranks]
+                    row["client_step_single"] = want["client_step_launches"]
+                    if dev.type == "cuda" and (
+                            not want["client_step_launches"]
+                            or row["client_step_launches"][0]
+                            != want["client_step_launches"]):
+                        failures.append(
+                            f"{tag}: client_step launches "
+                            f"{row['client_step_launches']} a rank, "
+                            f"{want['client_step_launches']} on one device")
+                if lane == "device":
+                    row["nbytes"] = [r[fleet][name]["nbytes"] for r in ranks]
+                    row["per_device_nbytes"] = r0["plan"][
+                        "per_device_nbytes"]
+                    if any(b != row["per_device_nbytes"]
+                           for b in row["nbytes"]):
+                        failures.append(
+                            f"{tag}: corpus bytes {row['nbytes']} vs "
+                            f"per_device_nbytes {row['per_device_nbytes']}")
+                    if dev.type == "cuda" and not row["eager_chunks"]:
+                        failures.append(f"{tag}: chunks not eager in the "
+                                        f"record {r0['plan']}")
+                if not row["replicated"]:
+                    failures.append(f"{tag}: the ranks' params differ")
+                if r0["launches"] != MS_RANK_ROUNDS:
+                    failures.append(f"{tag}: {r0['launches']} "
+                                    f"fedmom_update launches")
+                if fleet == "linreg" and drift > MESH_ATOL:
+                    failures.append(f"{tag}: drift {drift}")
+                if fleet == "lenet" and kind is None and (
+                        row["final_loss_drift"] > MS_LENET_LOSS_TOL):
+                    failures.append(f"{tag}: final-loss drift "
+                                    f"{row['final_loss_drift']}")
+                if fleet == "linreg" and name == "masked" and bits:
+                    failures.append(f"{tag}: masked differs from one "
+                                    f"device's in {bits} parameters")
+                res[f"{fleet}_{name}"] = row
+            bits = mesh_drift(ranks[0][fleet]["masked"],
+                              ranks[0][fleet]["open"])[1]
+            res[f"{fleet}_masked_vs_open_drift_bits"] = bits
+            if bits:
+                failures.append(f"gloo {n} {fleet}: masked differs from "
+                                f"the open ring in {bits} parameters")
+        out["b"][str(n)] = res
+        out["ran"].append(f"{n} ranks on gloo, sharing one card")
+        print(f"gloo x{n} (spawned and run in {res['spawn_s']:.1f} s):")
+        for k, v in res.items():
+            if isinstance(v, dict):
+                fl = v["final_loss_drift"]
+                print(f"  {k:16s} {v['ms_per_round']:8.2f} ms/round, drift "
+                      f"{v['drift']:.3e} (final loss {fl:.3e}; "
+                      f"{v['drift_bits']} params differ in a bit)"
+                      + (f", bytes/rank {v['nbytes']} = per_device_nbytes "
+                         f"{v['per_device_nbytes']}" if "nbytes" in v
+                         else ""))
+        print(f"  masked vs open ring: lenet "
+              f"{res['lenet_masked_vs_open_drift_bits']}, linreg "
+              f"{res['linreg_masked_vs_open_drift_bits']} drift bits")
+
+
+def mesh_nccl(dev, out, part, failures):
+    """Phase 22(c): NCCL at 2 and 4 ranks, one card a rank, where the
+    cards allow, on the device plane (chunks captured with their
+    collectives and the batch exchange): the reference's linreg mesh-test
+    fleet against one device (1e-6), and BENCH_10's LeNet timed after a
+    warm-up run (final loss within ``bench_mesh``'s 1e-4)."""
+    import torch
+    from repro_torch.launch.mesh import spawn
+    n_cards = torch.cuda.device_count()
+    print(f"(c) NCCL at {MS_SIZES} ranks on the device plane, one card a "
+          f"rank: {n_cards} card(s) visible")
+    lanes = (("device", "device", None),)
+    for n in MS_SIZES:
+        if n > n_cards:
+            why = (f"not run: {n} NCCL ranks need {n} cards and "
+                   f"{n_cards} are visible (NCCL runs one rank a card)")
+            out["c"][str(n)] = why
+            print(f"NCCL x{n}: {why}")
+            continue
+        t0 = time.perf_counter()
+        ranks = spawn(mesh_rank, n, "cuda", timeout=600,
+                      args=(lanes, MS_RANK_ROUNDS, MS_RANK_CR, ("linreg",)))
+        lin = ranks[0]["linreg"]["device"]
+        lin_drift, lin_bits = mesh_drift(lin, mesh_lane_runs(
+            dev, lanes, MS_RANK_ROUNDS, MS_RANK_CR, fleet="linreg")["device"])
+        ranks = spawn(mesh_rank, n, "cuda", timeout=600,
+                      args=(lanes, MS_ROUNDS, MS_CR, ("lenet",), True))
+        lenet = ranks[0]["lenet"]["device"]
+        want = mesh_lane_runs(dev, lanes, MS_ROUNDS, MS_CR, warm=True)[
+            "device"]
+        loss_drift = abs(lenet["losses"][-1] - want["losses"][-1])
+        row = {"linreg_drift": lin_drift, "linreg_drift_bits": lin_bits,
+               "lenet_ms_per_round": lenet["ms"],
+               "single_ms_per_round": want["ms"],
+               "lenet_final_loss_drift": loss_drift,
+               "lenet_launches": lenet["launches"],
+               "nbytes": [r["lenet"]["device"]["nbytes"] for r in ranks],
+               "per_device_nbytes": lenet["plan"]["per_device_nbytes"],
+               "replicated": all((r["lenet"]["device"]["w"]
+                                  == lenet["w"]).all() for r in ranks[1:]),
+               "eager_chunks": bool(lenet["plan"].get("eager_chunks")),
+               "wall_s": time.perf_counter() - t0}
+        out["c"][str(n)] = row
+        out["ran"].append(f"{n} ranks on NCCL")
+        print(f"NCCL x{n}: linreg drift {lin_drift:.3e} ({lin_bits} params "
+              f"differ in a bit); BENCH_10 LeNet device plane "
+              f"{lenet['ms']:.3f} ms/round against {want['ms']:.3f} on one "
+              f"card (a second run each, host clock), final-loss drift "
+              f"{loss_drift:.3e}, bytes/rank {row['nbytes']} = "
+              f"per_device_nbytes {row['per_device_nbytes']}; "
+              f"{row['wall_s']:.1f} s")
+        if lin_drift > MESH_ATOL:
+            failures.append(f"NCCL {n}: linreg drift {lin_drift}")
+        if loss_drift > MS_LENET_LOSS_TOL:
+            failures.append(f"NCCL {n}: LeNet final-loss drift {loss_drift}")
+        if row["eager_chunks"] or not row["replicated"] or any(
+                b != row["per_device_nbytes"] for b in row["nbytes"]):
+            failures.append(f"NCCL {n}: record, replication or bytes {row}")
+    part("c")
+
 def main(argv=None) -> int:
     import torch
     argv = sys.argv[1:] if argv is None else argv
     only_lm = "--only-lm" in argv
+    only_mesh = "--only-mesh" in argv
+    only_nccl = "--only-mesh-nccl" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false — this "
               "script needs a CUDA card", file=sys.stderr)
@@ -3945,6 +4470,17 @@ def main(argv=None) -> int:
         phase(None)
         print(json.dumps({"card": card, "lm": lm}, default=str))
         print("--only-lm: phases 1, 2 and 21 only; no result line")
+        return 0
+    if only_mesh or only_nccl:
+        # a development run of the mesh phase (or of its NCCL ranks) alone:
+        # no result line
+        phase("22. data mesh (alone)")
+        mesh = mesh_phase(torch.device("cuda"), fm_kernel,
+                          "c" if only_nccl else "abc")
+        phase(None)
+        print(json.dumps({"card": card, "mesh": mesh}, default=str))
+        print("--only-mesh / --only-mesh-nccl: phases 1, 2 and 22 (or 22(c)) "
+              "only; no result line")
         return 0
 
     # ------------------------------------------------------------------
@@ -4215,7 +4751,13 @@ def main(argv=None) -> int:
     lm = lm_phase(dev, fm_kernel, fm_ops, fm_ref)
 
     # ------------------------------------------------------------------
-    phase("22. kernels")
+    phase("22. data mesh: BENCH_10's configuration without a mesh and on a "
+          "1-rank NCCL mesh, 2 and 4 gloo ranks sharing the card, NCCL "
+          "ranks where the cards allow")
+    mesh = mesh_phase(dev, fm_kernel)
+
+    # ------------------------------------------------------------------
+    phase("23. kernels")
     bound_ms = timing[("fedmom", n_main)][2]
     large_ms, _, large_bound_ms = timing[("fedmom", 2 ** 26 + 3)]
     cs_ms, cs_plain_ms, cs_bound_ms, cs_v1_ms, cs_ring = cs_timing[cs_top]
@@ -4259,6 +4801,7 @@ def main(argv=None) -> int:
                for lane in ("plain", "open", "masked")}
             for plane, res in secure["planes"].items()},
         "zipf_device_plane": zipf_device,
+        "mesh": mesh,
         "serving": serving,
         "rwkv6_7b": rwkv,
         "recurrentgemma_9b": rglru,
@@ -4297,6 +4840,12 @@ def main(argv=None) -> int:
                 "fedmom_update_launches"]},
         "lm_trees": {"fed_llm_100m": lm["fed_llm_tree"],
                      "gemma3_1b": lm["gemma_tree"]},
+        "mesh_launches": dict(
+            {f"nccl1_{lane}": mesh["a"][lane]["mesh_launches"]
+             for lane in ("device", "padded", "bucketed")},
+            **{f"gloo{n}_{key}": mesh["b"][str(n)][key]["launches"]
+               for n in MS_SIZES for key in mesh["b"][str(n)]
+               if isinstance(mesh["b"][str(n)][key], dict)}),
         "max_abs_err": max_err,
         "ms": fm_tree["ms"],
         "plain_ms": fm_tree["plain_ms"],
@@ -4323,6 +4872,10 @@ def main(argv=None) -> int:
         "secure_launches": {
             lane: secure["hook"][lane]["launches"]["client_step"]
             for lane in ("open", "masked")},
+        "mesh_launches": {
+            f"gloo{n}_hook": mesh["b"][str(n)]["linreg_hook"][
+                "client_step_launches"]
+            for n in MS_SIZES if str(n) in mesh["b"]},
         "max_abs_err": cs_err,
         "ms": cs_ms,
         "plain_ms": cs_plain_ms,

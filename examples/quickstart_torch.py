@@ -43,8 +43,23 @@ clipped to L2 norm C, seeded Gaussian noise of stddev C*Z):
 
     PYTHONPATH=src python examples/quickstart_torch.py --device cpu \
         --rounds 20 --plan device --secure-agg --dp-clip 1.0 --dp-noise 0.1
+
+``--mesh-devices N`` runs the plan over a data mesh of N ranks
+(``ExecutionPlan(mesh=MeshSpec(devices=N))``): ``launch/mesh.py`` spawns
+N processes, each round's cohort splits over them and one ``all_reduce``
+sums the weighted deltas, on every plane.  The same trajectory within fp32
+reduction order (bit for bit under ``--secure-agg``).  Rank 0 prints the
+log, with each run's plan record (``mesh_shape``, ``per_device_nbytes``).
+NCCL ranks take one card each; ``--mesh-backend gloo`` lets the ranks
+share one card, or run on the CPU (gloo's default there):
+
+    PYTHONPATH=src python examples/quickstart_torch.py --device cpu \
+        --rounds 30 --plan device --m 4 --mesh-devices 4
+    PYTHONPATH=src python examples/quickstart_torch.py --plan streaming \
+        --m 4 --mesh-devices 2 --mesh-backend gloo
 """
 import argparse
+import json
 
 import numpy as np
 import torch
@@ -56,6 +71,7 @@ from repro_torch.core import (DeviceUniformSampler, RoundConfig,
 from repro_torch.data import (DiskShardProvider, FederatedDataset,
                               StreamingFederatedDataset, synthetic_femnist)
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import MeshSpec, spawn
 from repro_torch.launch.plan import CacheSpec, ExecutionPlan
 from repro_torch.launch.train import FederatedTrainer
 from repro_torch.models import small
@@ -146,10 +162,35 @@ def main():
                     help="central DP noise multiplier: Gaussian stddev "
                          "C*Z added to the clipped aggregate (needs "
                          "--dp-clip; seeded per round)")
+    ap.add_argument("--mesh-devices", type=int, default=None, metavar="N",
+                    help="split every round's cohort over a data mesh of N "
+                         "ranks (N processes)")
+    ap.add_argument("--mesh-backend", default=None, choices=("nccl", "gloo"),
+                    help="the mesh's torch.distributed backend (default: "
+                         "nccl on a card, one card a rank; gloo on the CPU; "
+                         "gloo ranks may share one card)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run on the "
                          "CPU)")
     args = ap.parse_args()
+    if args.mesh_devices is None:
+        train(args, resolve_device(args.device))
+        return
+    device = resolve_device(args.device)
+    spawn(_mesh_rank, args.mesh_devices,
+          device="cuda" if device.type == "cuda" else str(device),
+          args=(args,), backend=args.mesh_backend, timeout=24 * 3600)
+
+
+def _mesh_rank(rank, n, device, args):
+    """One rank of ``--mesh-devices``: the same training, rank 0 printing."""
+    train(args, device, MeshSpec(devices=n), quiet=rank != 0)
+
+
+def train(args, device, mesh=None, quiet=False):
+    """Train FedAvg and FedMom under the plan ``args`` declare (over
+    ``mesh`` when given), printing the log unless ``quiet``."""
+    say = (lambda *a, **k: None) if quiet else print
     plane = args.plan or ("streaming" if args.stream_data or args.provider
                           or args.leaf_dir
                           else "device" if args.device_data
@@ -178,8 +219,7 @@ def main():
                                          tiers=args.cache_tiers,
                                          bucketed=args.bucketed),
                          memory_budget_bytes=budget, scenario=scenario,
-                         secure=secure)
-    device = resolve_device(args.device)
+                         secure=secure, mesh=mesh)
     if device.type == "cuda":
         # fp32 convolutions in full fp32, as the reference computes them
         torch.backends.cudnn.allow_tf32 = False
@@ -244,8 +284,8 @@ def main():
                            else ScenarioSpec(seed=args.scenario_seed),
                            DeviceUniformSampler(pop, M, seed=2),
                            args.rounds, args.local_steps)
-        out = rec.save(args.record_trace)
-        print(f"recorded fleet trace: {rec.n_rounds} rounds x m={M} "
+        out = args.record_trace if quiet else rec.save(args.record_trace)
+        say(f"recorded fleet trace: {rec.n_rounds} rounds x m={M} "
               f"({rec.n_events} events, peak m={rec.peak_m}) -> {out}")
 
     hetero_fn = None
@@ -284,8 +324,8 @@ def main():
                        privatize(fedmom(eta=K / M, beta=0.9,
                                         use_fused_kernel=args.fused_server))
                        )]:
-        print(f"\n=== {name} [plan={plan.plane}] [device={device}]"
-              f"{' [hetero H_k]' if args.hetero else ''}{scen_tag} ===")
+        say(f"\n=== {name} [plan={plan.plane}] [device={device}]"
+            f"{' [hetero H_k]' if args.hetero else ''}{scen_tag} ===")
         # the per-round plane works with the paper's stateful sampler; the
         # chunked planes (and auto, which may resolve to one) take the
         # keyed sampler, whose draws are pure functions of (seed, t), as
@@ -301,10 +341,12 @@ def main():
             device=device)
         hist = trainer.run(args.rounds, plan=plan, log_every=25,
                            eval_fn=eval_fn)
+        if mesh is not None:
+            say(f"plan record: {json.dumps(trainer.session.plan_log[-1])}")
         cache = trainer.stream_cache
         if cache is not None:
             sds = trainer.streaming_dataset()
-            print(f"shard cache: {len(cache.resident())}/{K} clients "
+            say(f"shard cache: {len(cache.resident())}/{K} clients "
                   f"resident in {cache.slots} slots over "
                   f"{len(cache.tier_sizes)} size tier(s) "
                   f"{list(cache.tier_sizes)} "
@@ -317,7 +359,7 @@ def main():
                    else f"acc={final['eval_acc']:.3f}")
         done = (f" completed={final['completed']}/{M}"
                 if "completed" in final else "")
-        print(f"final: loss={final['loss']:.4f} {quality}{done}")
+        say(f"final: loss={final['loss']:.4f} {quality}{done}")
 
 
 if __name__ == "__main__":

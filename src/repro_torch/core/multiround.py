@@ -48,7 +48,8 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.round import RoundConfig, bucketed_round_step, round_step
+from repro_torch.core.round import (RoundConfig, _client_mesh,
+                                    bucketed_round_step, round_step)
 from repro_torch.core.server_opt import ServerOpt, ServerState
 from repro_torch.data.federated import minibatch_indices
 from repro_torch.device import resolve_device
@@ -165,19 +166,26 @@ def scan_rounds_ondevice(loss_fn: Callable, server_opt: ServerOpt,
     Returns ``(state, metrics)`` with [n_rounds] ``loss`` / ``delta_norm``
     / ``completed``, ``round``, and ``clients`` [n_rounds, C]: the ids the
     device draw picked, which the streaming plane holds against its host
-    replay.
+    replay.  Under a live data mesh every rank draws the whole cohort and
+    gathers its own block of it (``gather_round_block``).
     """
     dev = resolve_device(device)
+
+    mesh = _client_mesh() if rcfg.placement == "mesh" else None
 
     def one_round(st, r, lr, mask):
         t = _round_of(t0, r)
         idx, w = sampler.sample_device(sample_key, t)
-        batches = dataset.gather_round_batch(data_key, t, idx,
-                                             rcfg.local_steps,
-                                             local_batch_size)
+        if mesh is None:
+            batches = dataset.gather_round_batch(
+                data_key, t, idx, rcfg.local_steps, local_batch_size)
+        else:
+            batches = dataset.gather_round_block(
+                data_key, t, idx, rcfg.local_steps, local_batch_size, mesh)
         st, metrics = round_step(loss_fn, server_opt, st, batches, w, rcfg,
                                  param_axes=param_axes, lr=lr,
-                                 step_mask=mask, device=dev)
+                                 step_mask=mask, device=dev,
+                                 cohort_block=mesh is not None)
         metrics["clients"] = idx
         return st, metrics
 

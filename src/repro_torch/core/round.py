@@ -8,12 +8,19 @@ A round:
   4. aggregate the *biased gradient* delta_t = sum_k (n_k/n)(w_t - w^k);
   5. the server optimizer (FedAvg / FedMom / ...) consumes delta_t.
 
-Two placements with identical algorithm semantics (tests assert equality),
-both on one device:
+Two placements with identical algorithm semantics (tests assert equality):
 
   * ``mesh``: step 3 is a ``torch.func.vmap`` over the clients, step 4 one
     fp32 weighted reduction of the per-client differences, rounded once to
-    ``delta_dtype``;
+    ``delta_dtype``.  Under a live data mesh (``sharding.axis_rules`` with
+    a ``launch.mesh.Mesh``, as ``ExecutionPlan(mesh=...)`` sets up) the
+    cohort splits over the ranks: rank r vmaps the r-th contiguous block
+    of ceil(C/n) clients (blocks may be uneven, a rank may hold none),
+    reduces its fp32 weighted-delta partial, and one ``all_reduce(SUM)``
+    makes the delta replicated, so the server update runs identically on
+    every rank; the per-client losses come back in cohort order through
+    one all-gather.  The reassociated sum is tolerance-equal to one
+    device's, as the reference's ``psum`` is;
   * ``scan``: clients run one after another into an fp32 accumulator —
     one client replica alive at a time.
 
@@ -21,14 +28,18 @@ both on one device:
 bucketed streaming plane).  Under secure aggregation (``RoundConfig.secure``,
 a ``core.secure_agg.SecureAggSpec``) step 4 runs through the uint32-ring
 masking layer instead of the fp32 reduction: the masked aggregate is
-bit-equal to the open ring's, on every plane.  Logical-axis sharding
-(``param_axes``, the twin tree of logical-axis tuples that a model's
-``init`` returns) is accepted and constrains the per-client replicas and
-the scan accumulator where the reference does, through
-``sharding.shard_tree``; outside a mesh, which is all the port has yet,
-those constraints are identities, so a round with ``param_axes`` is
-bit-equal to one without.  The live mesh comes with the mesh slice
-(ROADMAP Queue 1); ``ExecutionPlan(mesh=...)`` raises ``PlanError``.
+bit-equal to the open ring's, on every plane.  Under a mesh each rank
+encodes and masks its own block's rows (it draws only the pair masks that
+touch them, keyed as everywhere) and one integer ``all_reduce`` of the ring
+words follows: the ring sum is exact in any order, so a masked round under
+a mesh is bit-equal to one device's, and no rank sees another's plain
+client updates.  (The reference keeps secure rounds on one GSPMD program
+instead.)  Logical-axis sharding (``param_axes``, the twin tree of
+logical-axis tuples that a model's ``init`` returns) constrains the
+per-client replicas and the scan accumulator where the reference does,
+through ``sharding.shard_tree``; those constraints place nothing the split
+has not already placed, so a round with ``param_axes`` is bit-equal to one
+without.
 """
 from __future__ import annotations
 
@@ -38,14 +49,15 @@ from typing import Any, Optional
 import torch
 from torch.func import vmap
 
+from repro_torch import random as prng
 from repro_torch.core import client as client_lib
 from repro_torch.core import secure_agg
 from repro_torch.core.secure_agg import SecureAggSpec
 from repro_torch.core.server_opt import ServerOpt, ServerState
 from repro_torch.device import resolve_device
 from repro_torch.optim import local as local_opt_lib
-from repro_torch.sharding import shard_tree
-from repro_torch.tree import leaves, tree_map
+from repro_torch.sharding import current_mesh, shard_tree, spmd_client_axes
+from repro_torch.tree import leaves, tree_map, unflatten_like
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -105,6 +117,98 @@ def _secure_delta(spec, w_c, final, weights, step_mask, t, ddt):
         secure_agg.secure_weighted_sum(y, _survivors(step_mask), spec, t))
 
 
+def _client_mesh_axes() -> tuple:
+    """The live mesh axes the cohort tiles, as a tuple (() outside a mesh)."""
+    entry = spmd_client_axes()
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _client_mesh():
+    """The live ``Mesh`` when the rules map the cohort onto it, else None
+    (no mesh, or 'clients' mapped to no live axis: every rank then runs
+    the whole cohort, as the reference's replicated GSPMD fallback)."""
+    return current_mesh() if _client_mesh_axes() else None
+
+
+def _block(tree, lo: int, hi: int):
+    return tree_map(lambda x: x[lo:hi], tree)
+
+
+def _all_reduce_tree(mesh, tree):
+    """One ``all_reduce(SUM)`` of every leaf of ``tree`` (one dtype),
+    flattened into one buffer."""
+    flat = [x.reshape(-1) for x in leaves(tree)]
+    buf = mesh.all_reduce_(torch.cat(flat))
+    out, start = [], 0
+    for x, f in zip(leaves(tree), flat):
+        out.append(buf[start:start + f.numel()].reshape(x.shape))
+        start += f.numel()
+    return unflatten_like(tree, out)
+
+
+def _block_partial(w_c, final, weights_b, dev):
+    """This rank's fp32 weighted-delta partial over its block (zeros for
+    an empty block)."""
+    if final is None:
+        return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                              device=dev), w_c)
+    return tree_map(lambda w0, wk: torch.einsum("c,c...->...", weights_b,
+                                                _f32(w0[None] - wk)),
+                    w_c, final)
+
+
+def _secure_block_ring(spec, w_c, final, weights_b, survivors, key, C,
+                       lo, dev):
+    """This rank's share of the cohort's ring total: its block's rows
+    encoded, masked and summed, less its share of the dropout recovery
+    (``secure_agg.block_ring_sum``)."""
+    if final is None:
+        return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.int64,
+                                              device=dev), w_c)
+    return secure_agg.block_ring_sum(
+        _weighted_delta_stack(w_c, final, weights_b), survivors, spec, key,
+        C, lo)
+
+
+def _mesh_round(mesh, one_client, rcfg, w_c, batches, weights, mask, t,
+                param_axes, ddt, dev, cohort_block):
+    """Step 3+4 over the mesh: this rank's block of the cohort, vmapped;
+    its fp32 partial (or, under secure aggregation, its ring words) summed
+    over the ranks by one ``all_reduce``; the losses all-gathered back to
+    cohort order.  ``batches`` holds the whole cohort, or with
+    ``cohort_block`` this rank's block already (the device planes'
+    gathers)."""
+    C = weights.shape[0]
+    lo, hi = mesh.block(C)
+    if not cohort_block:
+        batches = _block(batches, lo, hi)
+    batches = tree_map(lambda x: torch.as_tensor(x, device=dev), batches)
+    w_b = weights[lo:hi]
+    m_b = None if mask is None else mask[lo:hi]
+    final, losses_b = None, torch.zeros((0,), dtype=torch.float32, device=dev)
+    if hi > lo:
+        final, losses_b = (vmap(one_client)(batches) if m_b is None
+                           else vmap(one_client)(batches, m_b))
+        if param_axes is not None:
+            final = shard_tree(final, param_axes, prefix=("clients",))
+    if rcfg.secure is not None:
+        spec = rcfg.secure
+        key = secure_agg.round_mask_key(spec, t, dev) if spec.masked \
+            else None
+        ring = _secure_block_ring(spec, w_c, final, w_b, _survivors(mask),
+                                  key, C, lo, dev)
+        ring = tree_map(lambda r: r & secure_agg.RING_MASK,
+                        _all_reduce_tree(mesh, ring))
+        delta = tree_map(lambda d: d.to(ddt), secure_agg.decode(ring, spec))
+    else:
+        delta = tree_map(lambda d: d.to(ddt), _all_reduce_tree(
+            mesh, _block_partial(w_c, final, w_b, dev)))
+    return delta, mesh.all_gather_blocks([(losses_b.to(torch.float32),
+                                            C)])[0]
+
+
 def _check_state_device(state: ServerState, dev: torch.device):
     for x in leaves((state.w, state.extra)):
         if x.device != dev:
@@ -117,7 +221,8 @@ def _check_state_device(state: ServerState, dev: torch.device):
 def round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
                batches: Any, weights, rcfg: RoundConfig,
                param_axes: Optional[Any] = None,
-               lr=None, step_mask=None, device=None) -> tuple:
+               lr=None, step_mask=None, device=None,
+               cohort_block: bool = False) -> tuple:
     """One federated round.
 
     ``batches``: tree with leading axes [C, H, ...] (C clients x H local
@@ -130,6 +235,9 @@ def round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
     ``device``: where the round runs (``None`` = ``cuda``); batches, weights
     and mask may be numpy arrays or tensors and are moved there, the server
     state must already lie there.
+    Under a live data mesh (placement ``"mesh"``) this rank trains its
+    block of the cohort; ``cohort_block=True`` says ``batches`` holds that
+    block only (weights and mask always cover the whole cohort).
     Returns (new_state, metrics).
     """
     if rcfg.secure is not None and rcfg.placement != "mesh":
@@ -140,7 +248,9 @@ def round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
             "cannot even hold the [C, ...] cohort stack")
     dev = resolve_device(device)
     _check_state_device(state, dev)
-    batches = tree_map(lambda x: torch.as_tensor(x, device=dev), batches)
+    mesh = _client_mesh() if rcfg.placement == "mesh" else None
+    if mesh is None:
+        batches = tree_map(lambda x: torch.as_tensor(x, device=dev), batches)
     weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
     mask = (None if step_mask is None else
             torch.as_tensor(step_mask, dtype=torch.float32, device=dev))
@@ -154,7 +264,11 @@ def round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
     def one_client(b, m=None):
         return client_lib.local_update(loss_fn, w_c, b, lr, opt, step_mask=m)
 
-    if rcfg.placement == "mesh":
+    if mesh is not None:
+        delta, losses = _mesh_round(mesh, one_client, rcfg, w_c, batches,
+                                    weights, mask, state.t, param_axes, ddt,
+                                    dev, cohort_block)
+    elif rcfg.placement == "mesh":
         if mask is None:
             final, losses = vmap(one_client)(batches)
         else:
@@ -234,7 +348,10 @@ def bucketed_round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
     sub-cohort under ``fold_in(round_key, i)`` (i its position in
     ``tier_data``, with or without ``tier_update_fn``), and the tiers'
     ring totals add exactly and decode once, bit-equal to the padded
-    secure round.
+    secure round.  Under a live data mesh each tier splits over the ranks
+    as ``round_step``'s cohort does: one ``all_reduce`` a round sums the
+    partials (fp32, or the ring words), and one all-gather brings every
+    tier's losses back.
     Returns ``(new_state, metrics)`` with ``round_step``'s keys minus the
     per-client ``losses``.
     """
@@ -264,16 +381,18 @@ def bucketed_round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
 
     update = tier_update_fn or run_tier
     secure = rcfg.secure
+    mesh = _client_mesh()
+    round_key = grids = None
     if secure is not None:
         acc = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.int64,
                                              device=dev), w_c)
-        grids = None
         if secure.masked:
+            round_key = secure_agg.round_mask_key(secure, state.t, dev)
+        if secure.masked and mesh is None:
             # every tier's pair draw in one pass, tier i's under
             # fold_in(round_key, i)
             grids = secure_agg.sub_cohort_grids(
-                secure_agg.round_mask_key(secure, state.t, dev),
-                [len(w) for w in tier_weights],
+                round_key, [len(w) for w in tier_weights],
                 max(x.numel() for x in leaves(w_c)))
     else:
         acc = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
@@ -281,27 +400,60 @@ def bucketed_round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
     loss_num = torch.zeros((), dtype=torch.float32, device=dev)
     loss_den = torch.zeros((), dtype=torch.float32, device=dev)
     completed = torch.zeros((), dtype=torch.int32, device=dev)
+    mesh_losses = []                    # (block losses, C_i, eff_w) a tier
     for i, (data, weights) in enumerate(zip(tier_data, tier_weights)):
         weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
         mask = (None if tier_masks is None else torch.as_tensor(
             tier_masks[i], dtype=torch.float32, device=dev))
-        final, losses = update(w_c, i, data, mask)
-        if secure is not None:
-            ring = secure_agg.masked_ring_sum(
-                _weighted_delta_stack(w_c, final, weights), _survivors(mask),
-                secure, None, grid=None if grids is None else grids[i])
-            acc = secure_agg.ring_add(acc, ring)
-        else:
-            acc = tree_map(
-                lambda d, w0, wk: d + torch.einsum("c,c...->...", weights,
-                                                   _f32(w0[None] - wk)),
-                acc, w_c, final)
         eff_w = weights
         if mask is not None:
             eff_w = weights * (torch.sum(mask, dim=1) > 0).to(torch.float32)
-        loss_num = loss_num + torch.sum(eff_w * losses)
+        if mesh is None:
+            final, losses = update(w_c, i, data, mask)
+            if secure is not None:
+                ring = secure_agg.masked_ring_sum(
+                    _weighted_delta_stack(w_c, final, weights),
+                    _survivors(mask), secure, None,
+                    grid=None if grids is None else grids[i])
+                acc = secure_agg.ring_add(acc, ring)
+            else:
+                acc = tree_map(
+                    lambda d, w0, wk: d + torch.einsum(
+                        "c,c...->...", weights, _f32(w0[None] - wk)),
+                    acc, w_c, final)
+            loss_num = loss_num + torch.sum(eff_w * losses)
+        else:
+            # this rank's block of the tier, as round_step splits a cohort
+            C_i = weights.shape[0]
+            lo, hi = mesh.block(C_i)
+            final = None
+            losses = torch.zeros((0,), dtype=torch.float32, device=dev)
+            if hi > lo:
+                final, losses = update(
+                    w_c, i, _block(data, lo, hi),
+                    None if mask is None else mask[lo:hi])
+            mesh_losses.append((losses.to(torch.float32), C_i, eff_w))
+            if secure is not None:
+                key = (None if round_key is None
+                       else prng.fold_in(round_key, i))
+                acc = secure_agg.ring_add(acc, _secure_block_ring(
+                    secure, w_c, final, weights[lo:hi], _survivors(mask),
+                    key, C_i, lo, dev))
+            else:
+                acc = tree_map(torch.add, acc, _block_partial(
+                    w_c, final, weights[lo:hi], dev))
         loss_den = loss_den + torch.sum(eff_w)
         completed = completed + torch.sum(eff_w > 0).to(torch.int32)
+    if mesh is not None:
+        # one all_reduce of the partials (an integer one for ring words),
+        # and one all-gather of every tier's losses, summed in tier order
+        # as one device sums them
+        acc = _all_reduce_tree(mesh, acc)
+        if secure is not None:
+            acc = tree_map(lambda r: r & secure_agg.RING_MASK, acc)
+        wholes = mesh.all_gather_blocks([(x, c) for x, c, _ in mesh_losses])
+        for losses, (_, _, eff_w) in zip(wholes, mesh_losses):
+            loss_num = loss_num + torch.sum(eff_w * losses)
     if secure is not None:
         acc = secure_agg.decode(acc, secure)
     delta = tree_map(lambda d: d.to(ddt), acc)

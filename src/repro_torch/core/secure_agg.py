@@ -50,6 +50,7 @@ from repro_torch import random as prng
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
 _M32 = 0xFFFFFFFF
+RING_MASK = _M32             # a sum of ring words, reduced into the ring
 _I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
 
 
@@ -334,6 +335,70 @@ def masked_ring_sum(y: Any, survivors: Optional[torch.Tensor],
     if grid is None:
         grid = _grid_for(key, leaves(q)[0].shape[0], q)
     return _survivor_sum(grid, _mask_with(grid, q), survivors, spec)
+
+
+def _block_pairs(C: int, lo: int, hi: int, device) -> tuple:
+    """The pairs i < j of a C-cohort that touch rows [lo, hi), in the
+    row-major order of ``_pairs``, as ``(i, j, pos_i, row_i, pos_j,
+    row_j)``: ``pos_i`` the positions among them whose i lies in the block
+    (the pairs the block owns), ``row_i`` that i's row in the block, and
+    likewise for j.  Made once per (C, block, device)."""
+    key = ("block", C, lo, hi, str(device))
+    if key not in _PAIRS:
+        i, j = torch.triu_indices(C, C, 1)
+        in_i, in_j = (i >= lo) & (i < hi), (j >= lo) & (j < hi)
+        touch = in_i | in_j
+        i, j, in_i, in_j = i[touch], j[touch], in_i[touch], in_j[touch]
+        pos_i = torch.nonzero(in_i).reshape(-1)
+        pos_j = torch.nonzero(in_j).reshape(-1)
+        _PAIRS[key] = tuple(x.to(device) for x in (
+            i, j, pos_i, i[pos_i] - lo, pos_j, j[pos_j] - lo))
+    return _PAIRS[key]
+
+
+def block_ring_sum(y_block: Any, survivors: Optional[torch.Tensor],
+                   spec: SecureAggSpec, key: Optional[torch.Tensor], C: int,
+                   lo: int) -> Any:
+    """One block's share of ``masked_ring_sum(y, survivors, spec, key)``
+    over a ``[C, ...]`` cohort of which ``y_block`` holds rows ``[lo, lo +
+    len)``: the block's rows encoded and blinded with their pairwise masks
+    (only the pairs that touch the block are drawn, each under its
+    canonical key, so the words are those of the whole cohort's draw),
+    the reporting ones summed, less the dropout recovery of the pairs
+    whose lower row the block holds.  ``survivors`` covers the whole
+    cohort.  Ring-summed over blocks that partition the cohort, the shares
+    are the cohort's total bit for bit: the data mesh's secure round, one
+    block a rank."""
+    q = encode(y_block, spec)
+    first = leaves(q)[0]
+    Cb, dev = first.shape[0], first.device
+    s_all = None if survivors is None else survivors.to(device=dev,
+                                                        dtype=torch.int64)
+    if spec.masked:
+        i, j, pos_i, row_i, pos_j, row_j = _block_pairs(C, lo, lo + Cb, dev)
+        bits = prng.random_bits(prng.fold_in(prng.fold_in(key, i), j),
+                                (_max_numel(q),))
+        if s_all is not None:
+            coef = (torch.take(s_all, i[pos_i])
+                    - torch.take(s_all, j[pos_i]))[:, None]
+
+    def leaf(ql):
+        n = ql[0].numel()
+        if spec.masked:
+            rows = torch.zeros((Cb, n), dtype=torch.int64, device=dev)
+            rows.index_add_(0, row_i, bits[pos_i, :n])
+            rows.index_add_(0, row_j, -bits[pos_j, :n])
+            ql = (ql + rows.reshape(ql.shape)) & _M32
+        if s_all is None:
+            return torch.sum(ql, dim=0) & _M32
+        s_b = s_all[lo:lo + Cb].reshape((Cb,) + (1,) * (ql.dim() - 1))
+        total = torch.sum(s_b * ql, dim=0)
+        if spec.masked:
+            total = total - torch.sum(coef * bits[pos_i, :n], dim=0
+                                      ).reshape(ql.shape[1:])
+        return total & _M32
+
+    return tree_map(leaf, q)
 
 
 def round_mask_key(spec: SecureAggSpec, t, device=None) -> torch.Tensor:

@@ -8,6 +8,7 @@ from repro_torch.data.federated import (  # noqa: F401
 from repro_torch.data.stream import (  # noqa: F401
     CacheView,
     DiskShardProvider,
+    MeshShardedCache,
     ShardCache,
     ShardProvider,
     StreamingFederatedDataset,

@@ -16,6 +16,9 @@ tensor per field and tier and a per-tier LRU: a 3-sample client costs a
 * ``ShardCache`` — per-tier device tensors with per-tier LRU eviction;
   ``ensure(client_ids)`` uploads the missing shards, ``view()`` snapshots
   the client -> (tier, slot) tables as a ``CacheView``.
+* ``MeshShardedCache`` — the data mesh's cache: one full-capacity
+  ``ShardCache`` per shard, clients routed ``cid % n_shards``, one composed
+  view (every rank of a mesh holds the same one).
 * ``DiskShardProvider`` — a ``ShardProvider`` over an on-disk corpus
   (``write_disk_corpus`` in the ``npy-packed`` or ``npz-per-client``
   layout, ``leaf_to_corpus`` from a LEAF json directory), read through
@@ -367,6 +370,14 @@ class CacheView:
                 for name, r in rows.items()}
         return out
 
+    def gather_round_block(self, key: torch.Tensor, t, client_ids,
+                           local_steps: int, batch_size: int, mesh):
+        """This rank's ``mesh.block(C)`` rows of ``gather_round_batch``
+        (every rank holds the whole view)."""
+        lo, hi = mesh.block(len(client_ids))
+        return self.gather_round_batch(key, t, client_ids[lo:hi],
+                                       local_steps, batch_size)
+
     def gather_tier_batch(self, tier: int, key: torch.Tensor, t, client_ids,
                           local_steps: int, batch_size: int):
         """Gather for clients known to live in ``tier``: one direct row
@@ -406,31 +417,18 @@ class ShardCache:
     def __init__(self, dataset: StreamingFederatedDataset,
                  capacity_clients: Optional[int] = None,
                  capacity_bytes: Optional[int] = None,
-                 tiers: Optional[int] = None, device=None):
-        if capacity_clients is None and capacity_bytes is None:
-            raise ValueError(
-                "ShardCache needs capacity_clients or capacity_bytes")
-        layout = dataset.tier_layout(tiers)
-        cap = dataset.n_clients
-        if capacity_clients is not None:
-            cap = min(cap, max(1, int(capacity_clients)))
-        if capacity_bytes is not None:
-            by_bytes = layout.capacity_for_bytes(int(capacity_bytes))
-            if by_bytes is None:
-                raise ValueError(
-                    f"capacity_bytes={int(capacity_bytes)} is below the "
-                    f"minimum viable cache budget: one slot in each of the "
-                    f"{layout.n_tiers} occupied size tier(s) (rows "
-                    f"{layout.sizes}) needs {layout.min_viable_bytes} B — "
-                    f"raise capacity_bytes to at least that, or declare "
-                    f"capacity_clients instead")
-            cap = min(cap, by_bytes)
+                 tiers: Optional[int] = None, device=None,
+                 storage: Optional[list] = None):
+        layout, cap = _cache_capacity(dataset, capacity_clients,
+                                      capacity_bytes, tiers)
         self.device = resolve_device(device)
         self.capacity = cap
         self.layout = layout
         self.tier_slots = tuple(min(k_t, cap) for k_t in layout.tier_counts)
         self.dataset = dataset
-        self.tier_arrays = [
+        # storage: per-tier dicts of [slots_t, n_tier, ...] tensors to hold
+        # the slots in (a MeshShardedCache's views into one buffer)
+        self.tier_arrays = storage if storage is not None else [
             {name: torch.zeros((slots_t, size_t) + tail,
                                dtype=_torch_dtype(dtype), device=self.device)
              for name, (tail, dtype) in dataset.fields.items()}
@@ -546,6 +544,176 @@ class ShardCache:
 
 def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros((), np.dtype(dtype))).dtype
+
+
+def _cache_capacity(dataset: StreamingFederatedDataset,
+                    capacity_clients: Optional[int],
+                    capacity_bytes: Optional[int],
+                    tiers: Optional[int]) -> Tuple[TierLayout, int]:
+    """A cache declaration's tier layout and distinct-client guarantee
+    (the tighter of ``capacity_clients`` and ``capacity_bytes`` wins)."""
+    if capacity_clients is None and capacity_bytes is None:
+        raise ValueError(
+            "ShardCache needs capacity_clients or capacity_bytes")
+    layout = dataset.tier_layout(tiers)
+    cap = dataset.n_clients
+    if capacity_clients is not None:
+        cap = min(cap, max(1, int(capacity_clients)))
+    if capacity_bytes is not None:
+        by_bytes = layout.capacity_for_bytes(int(capacity_bytes))
+        if by_bytes is None:
+            raise ValueError(
+                f"capacity_bytes={int(capacity_bytes)} is below the "
+                f"minimum viable cache budget: one slot in each of the "
+                f"{layout.n_tiers} occupied size tier(s) (rows "
+                f"{layout.sizes}) needs {layout.min_viable_bytes} B — "
+                f"raise capacity_bytes to at least that, or declare "
+                f"capacity_clients instead")
+        cap = min(cap, by_bytes)
+    return layout, cap
+
+
+class MeshShardedCache:
+    """Per-shard ``ShardCache`` composition for the mesh-sharded planes.
+
+    Clients are assigned to data shards by ``cid % n_shards`` (static, so
+    the assignment never depends on LRU history), and each shard owns a
+    full-capacity ``ShardCache`` over its own client subset: per-device
+    capacity semantics, the declared ``capacity_clients`` /
+    ``capacity_bytes`` budget is what one shard's cache may hold, matching
+    the auto rule's per-device pricing (splitting one budget n ways would
+    let an unlucky assignment evict mid-chunk).
+
+    ``ensure`` routes each shard its own sub-sequence (order preserved, so
+    per-shard LRU recency still lands in last-use order); ``view`` is ONE
+    ``CacheView`` over the per-shard tiers laid end to end along the slot
+    axis, each shard's client->slot entries offset by the slots of the
+    shards before it, so the gathers consume it as they consume a single
+    cache's and the trajectory is the single-cache plane's.  The shards'
+    slots are views into one buffer a tier, so the composed view is that
+    buffer and costs no copy (the reference concatenates a tier's shards
+    for each view).  Every rank of a mesh holds the same composed cache,
+    as the reference's replicated 'cache_slots' rule places it.
+
+    Counter properties aggregate across shards, so the trainer's
+    ``cache_*`` chunk metrics read it like a plain ``ShardCache``.
+    """
+
+    def __init__(self, dataset: StreamingFederatedDataset, n_shards: int,
+                 capacity_clients: Optional[int] = None,
+                 capacity_bytes: Optional[int] = None,
+                 tiers: Optional[int] = None, device=None):
+        if int(n_shards) < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards!r}")
+        self.dataset = dataset
+        self.n_shards = n = int(n_shards)
+        self.device = resolve_device(device)
+        layout, cap = _cache_capacity(dataset, capacity_clients,
+                                      capacity_bytes, tiers)
+        slots = [min(k_t, cap) for k_t in layout.tier_counts]
+        self.tier_arrays = [
+            {name: torch.zeros((n * slots_t, size_t) + tail,
+                               dtype=_torch_dtype(dtype), device=self.device)
+             for name, (tail, dtype) in dataset.fields.items()}
+            for slots_t, size_t in zip(slots, layout.sizes)]
+        self.shards = tuple(
+            ShardCache(dataset, capacity_clients=capacity_clients,
+                       capacity_bytes=capacity_bytes, tiers=tiers,
+                       device=self.device,
+                       storage=[{name: a[s * slots_t:(s + 1) * slots_t]
+                                 for name, a in arrs.items()}
+                                for arrs, slots_t in zip(self.tier_arrays,
+                                                         slots)])
+            for s in range(n))
+        self.layout = layout
+        self._counts_dev = self.shards[0]._counts_dev
+        self._tiers_dev = self.shards[0]._tiers_dev
+
+    # -- aggregate inspection (ShardCache-compatible) -------------------
+    @property
+    def capacity(self) -> int:
+        """Total distinct-client guarantee across shards: exact only for
+        a shard-balanced request; the per-shard guarantee is what
+        ``ensure`` enforces."""
+        return sum(s.capacity for s in self.shards)
+
+    @property
+    def slots(self) -> int:
+        return sum(s.slots for s in self.shards)
+
+    @property
+    def tier_slots(self) -> Tuple[int, ...]:
+        return tuple(sum(s.tier_slots[t] for s in self.shards)
+                     for t in range(self.layout.n_tiers))
+
+    @property
+    def tier_sizes(self) -> Tuple[int, ...]:
+        return self.layout.sizes
+
+    @property
+    def nbytes(self) -> int:
+        return sum(s.nbytes for s in self.shards)
+
+    @property
+    def hits(self) -> int:
+        return sum(s.hits for s in self.shards)
+
+    @property
+    def misses(self) -> int:
+        return sum(s.misses for s in self.shards)
+
+    @property
+    def evictions(self) -> int:
+        return sum(s.evictions for s in self.shards)
+
+    @property
+    def tier_hits(self) -> List[int]:
+        return [sum(s.tier_hits[t] for s in self.shards)
+                for t in range(self.layout.n_tiers)]
+
+    @property
+    def tier_misses(self) -> List[int]:
+        return [sum(s.tier_misses[t] for s in self.shards)
+                for t in range(self.layout.n_tiers)]
+
+    @property
+    def tier_evictions(self) -> List[int]:
+        return [sum(s.tier_evictions[t] for s in self.shards)
+                for t in range(self.layout.n_tiers)]
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hits / max(self.hits + self.misses, 1)
+
+    def resident(self) -> set:
+        return set().union(*(s.resident() for s in self.shards))
+
+    # -- population -----------------------------------------------------
+    def ensure(self, client_ids) -> None:
+        """Route each client to its shard's cache (sub-sequences keep the
+        chunk's raw order, so per-shard LRU recency refresh stays in
+        last-use order)."""
+        per_shard: List[list] = [[] for _ in range(self.n_shards)]
+        for cid in client_ids:
+            per_shard[int(cid) % self.n_shards].append(int(cid))
+        for shard, seq in zip(self.shards, per_shard):
+            if seq:
+                shard.ensure(seq)
+
+    def view(self) -> CacheView:
+        """The composed ``CacheView``: the per-tier buffers, and each
+        shard's client->slot entries shifted by the slots of the shards
+        before it in that tier."""
+        client_slots = np.full(self.dataset.n_clients, -1, np.int32)
+        for s, shard in enumerate(self.shards):
+            for t, slot_of in enumerate(shard._slot_of):
+                offset = s * shard.tier_slots[t]
+                for cid, slot in slot_of.items():
+                    client_slots[cid] = slot + offset
+        return CacheView(tuple(dict(arrs) for arrs in self.tier_arrays),
+                         self._counts_dev, self._tiers_dev,
+                         torch.as_tensor(client_slots, device=self.device),
+                         self.dataset.seed)
 
 
 # ---------------------------------------------------------------------------

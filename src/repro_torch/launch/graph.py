@@ -26,7 +26,15 @@ the state, so the trajectory does not move (the warm-up loads the kernels,
 fills the per-device caches such as the samplers' weight tables, and sizes
 cuDNN's workspaces), then captures.  A capture that fails raises; nothing
 falls back to the eager loop.  On the CPU the same inputs are filled and
-the body runs eagerly on every call.
+the body runs eagerly on every call, and so it does on a card with
+``capture=False``: the trainer's choice when the body's collectives run on
+the host (gloo ranks of a data mesh), which a graph cannot capture.
+
+Under an NCCL mesh the body's collectives (the delta's ``all_reduce``,
+the losses' all-gather, the device plane's batch exchange) are captured
+with the rest: NCCL enqueues them on the capturing stream, every rank
+captures the same sequence, and the warm-up's first collective sets up the
+communicator before the capture begins.
 """
 from __future__ import annotations
 
@@ -69,12 +77,15 @@ def _buffer(value, device) -> torch.Tensor:
 
 class ChunkGraph:
     """``body`` over static inputs, captured on the card at its first
-    ``run`` and replayed on every later one (see the module note)."""
+    ``run`` and replayed on every later one, or run eagerly over them
+    (``capture=False``; see the module note)."""
 
-    def __init__(self, body: Callable, n_rounds: int, device):
+    def __init__(self, body: Callable, n_rounds: int, device,
+                 capture: bool = True):
         self.body = body
         self.n_rounds = int(n_rounds)
         self.device = torch.device(device)
+        self.capture = capture
         self.inputs: Optional[dict] = None
         self.graph = None
         self.static = None        # (w, extra) the graph reads and updates
@@ -126,7 +137,7 @@ class ChunkGraph:
         first call) and return ``(state, metrics)``."""
         self._fill({"t0": int(t0), **values})
         t_end = int(t0) + self.n_rounds
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.capture:
             out, metrics = self.body(
                 ServerState(state.w, state.extra, self.inputs["t0"]),
                 self.inputs)

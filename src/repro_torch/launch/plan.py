@@ -35,14 +35,19 @@ on every plane; on the device plane it needs a ``KeyedReplayable`` sampler,
 since its masks are staged against the host replay of the in-chunk draw.
 ``secure`` takes a ``repro_torch.core.SecureAggSpec`` (masked or open-ring
 secure aggregation) and runs on every plane with ``placement="mesh"``.
-The field that belongs to a layer not yet ported (``mesh``) raises a
-structured ``PlanError`` with ``nearest`` set; a plan is never silently
-run as something else.
+``mesh`` takes a ``repro_torch.launch.mesh.MeshSpec``: the run's cohorts
+split over the ranks of a ``torch.distributed`` group, on every plane,
+and the decision records ``mesh_shape``, ``axis_names`` and the bytes of
+data one rank holds (``per_device_nbytes``).  Where the mesh's collectives
+cannot be captured in a CUDA graph (gloo ranks on a card), the scanned
+and device planes run their chunks eagerly and the record says so
+(``eager_chunks``).  A plan is never silently run as something else.
 
-A ``TrainSession`` holds what outlives one ``run()`` call: the packed and
-the streaming datasets, the persistent ``ShardCache`` (a second run
-re-uploads nothing for resident clients), the chunk graphs, the measured
-dispatch overhead and the ``plan_log`` of every resolution.
+A ``TrainSession`` holds what outlives one ``run()`` call: the built
+meshes, the packed and the streaming datasets, the persistent
+``ShardCache`` (a second run re-uploads nothing for resident clients), the
+chunk graphs, the measured dispatch overhead and the ``plan_log`` of every
+resolution.
 
 This module imports the rest of the package lazily: ``core.round`` imports
 ``PlanError`` from here.
@@ -116,17 +121,12 @@ class CkptSpec:
     path: Optional[str] = None
 
 
-def _not_ported(what: str, plane: str) -> PlanError:
-    nearest = "per_round" if plane == "auto" else plane
-    return PlanError(
-        f"{what} is not yet ported to repro_torch (this port runs the "
-        f"planes {PLANES} and 'auto', with scenarios and secure "
-        f"aggregation, but without a mesh); nearest viable plane: "
-        f"{nearest!r}", plane=plane, nearest=nearest)
-
-
-# the layer this field drives (the device mesh) is not ported yet
-_UNPORTED_FIELDS = ("mesh",)
+def _check_mesh_spec(mesh, plane: Optional[str] = None) -> None:
+    from repro_torch.launch.mesh import MeshSpec
+    if mesh is not None and not isinstance(mesh, MeshSpec):
+        raise PlanError(
+            f"mesh must be a repro_torch.launch.mesh.MeshSpec, got "
+            f"{type(mesh).__name__}", plane=plane)
 
 
 @dataclass(frozen=True)
@@ -145,7 +145,12 @@ class ExecutionPlan:
     ``repro_torch.scenario.ScenarioSpec`` (``None`` or a null spec runs
     exactly as no scenario).  ``secure``: a
     ``repro_torch.core.SecureAggSpec`` (the masked or open-ring transport,
-    scoped to the run).  Defaults and checks are the reference's."""
+    scoped to the run).  ``mesh``: a ``repro_torch.launch.mesh.MeshSpec``,
+    the data mesh of ``torch.distributed`` ranks the resolved plane's
+    cohorts split over (``core/round.py``), with the auto rule pricing the
+    device plane per rank; ``None`` is the single-device engine, bit for
+    bit, and a sharded run equals it within fp32 reduction order.
+    Defaults and checks are the reference's."""
     plane: str = "auto"
     chunk_rounds: Union[int, str] = 25
     prefetch: int = 2
@@ -217,9 +222,7 @@ class ExecutionPlan:
                 raise PlanError(
                     f"secure must be a repro_torch.core.SecureAggSpec, got "
                     f"{type(self.secure).__name__}", plane=plane)
-        for name in _UNPORTED_FIELDS:
-            if getattr(self, name) is not None:
-                raise _not_ported(f"ExecutionPlan.{name}", plane)
+        _check_mesh_spec(self.mesh, plane)
 
 
 def as_plan(plan: Union[None, str, ExecutionPlan]) -> ExecutionPlan:
@@ -259,18 +262,29 @@ class PlanDecision:
     bucketed: bool = False
     scenario: bool = False
     secure: bool = False
+    # the mesh audit trail (set when the plan carries a MeshSpec): the
+    # mesh's shape and axes, and the bytes of data one rank holds
+    mesh_shape: Optional[tuple] = None
+    axis_names: Optional[tuple] = None
+    per_device_nbytes: Optional[int] = None
+    eager_chunks: bool = False     # a graphed plane run without its graphs
 
     def record(self) -> dict:
         rec = {"event": "plan", "plane": self.plane, "auto": self.auto,
                "reason": self.reason}
         for k in ("packed_nbytes", "budget_bytes", "working_set_nbytes",
-                  "chunk_rounds"):
+                  "chunk_rounds", "per_device_nbytes"):
             v = getattr(self, k)
             if v is not None:
                 rec[k] = int(v)
         if self.dispatch_overhead_s is not None:
             rec["dispatch_overhead_s"] = round(
                 float(self.dispatch_overhead_s), 9)
+        if self.mesh_shape is not None:
+            rec["mesh_shape"] = list(int(n) for n in self.mesh_shape)
+            rec["axis_names"] = list(self.axis_names or ())
+        if self.eager_chunks:
+            rec["eager_chunks"] = True
         if self.bucketed:
             rec["bucketed"] = True
         if self.scenario:
@@ -477,15 +491,77 @@ def resolve(plan: ExecutionPlan, trainer, n_rounds: int) -> PlanDecision:
             f"; secure aggregation "
             f"({'masked' if plan.secure.masked else 'open ring'}, "
             f"frac_bits={plan.secure.frac_bits})")
+    if plan.mesh is not None:
+        _stamp_mesh(decision, plan, trainer)
     return decision
+
+
+def _stamp_mesh(decision: PlanDecision, plan: ExecutionPlan,
+                trainer) -> None:
+    """The mesh audit on every resolution (explicit planes too): the
+    built mesh's shape and axis, the bytes one rank holds, and what a
+    mesh whose collectives a CUDA graph cannot capture does to the
+    graphed planes."""
+    mesh = trainer.session.mesh_for(plan.mesh, trainer.device)
+    n = mesh.size
+    decision.mesh_shape = (n,)
+    decision.axis_names = (mesh.axis,)
+    if decision.per_device_nbytes is None:
+        sds = trainer.session.streaming_dataset(trainer.dataset) \
+            if _dataset_supports("streaming", trainer.dataset) else None
+        if decision.plane == "device" and sds is not None:
+            decision.per_device_nbytes = _per_rank_packed(sds, n)
+        elif decision.plane == "streaming" and sds is not None:
+            # every rank holds the composed MeshShardedCache: n shards of
+            # one full-capacity cache each (one cache without a split)
+            cache = plan.cache
+            layout = sds.tier_layout(cache.tiers)
+            cap = _declared_capacity(
+                sds, layout, cache,
+                trainer.rcfg.clients_per_round * decision.chunk_rounds)
+            if cap is not None:
+                decision.per_device_nbytes = \
+                    n * layout.bytes_for_capacity(cap)
+    decision.reason += \
+        f"; mesh-sharded over {n} device(s) on axis {mesh.axis!r}"
+    if decision.plane in ("scanned", "device") \
+            and trainer.device.type == "cuda" and not mesh.capturable:
+        decision.eager_chunks = True
+        decision.reason += (
+            f"; chunks run eagerly: {mesh.backend}'s collectives run on "
+            f"the host, where a CUDA graph cannot capture them")
+
+
+def _per_rank_packed(sds, n: int) -> int:
+    """The packed corpus bytes of the largest rank's block of ceil(K/n)
+    clients (ceil(packed/n) when n divides K, the reference's figure)."""
+    return -(-sds.n_clients // n) * sds.slot_nbytes
+
+
+def _declared_capacity(sds, layout, cache: CacheSpec,
+                       default_clients: int) -> Optional[int]:
+    """The distinct-client guarantee a ``CacheSpec`` gives ``ShardCache``
+    (tighter declaration wins; one chunk's worst case when neither is
+    declared); ``None`` when the byte budget is below one slot a tier."""
+    if cache.clients is None and cache.bytes is None:
+        return min(default_clients, sds.n_clients)
+    cap = sds.n_clients
+    if cache.clients is not None:
+        cap = min(cap, cache.clients)
+    if cache.bytes is not None:
+        by_bytes = layout.capacity_for_bytes(cache.bytes)
+        cap = None if by_bytes is None else min(cap, by_bytes)
+    return cap
 
 
 def _resolve_plane(plan: ExecutionPlan, trainer,
                    chunk_rounds: int) -> PlanDecision:
-    """The plane half of ``resolve``: the reference's ``_resolve_plane``
-    on one device (no mesh).  The streaming working set is priced at
-    ``chunk_rounds``, the resolved size (the reference multiplies the
-    literal ``"auto"`` there)."""
+    """The plane half of ``resolve``: the reference's ``_resolve_plane``.
+    Under a mesh the budget is per rank and the packed corpus shards its
+    client axis n ways, so a corpus that overflows one device may fit the
+    mesh and flip auto back to the device plane.  The streaming working
+    set is priced at ``chunk_rounds``, the resolved size (the reference
+    multiplies the literal ``"auto"`` there)."""
     from repro_torch.core.sampling import DeviceSampleable, KeyedReplayable
     from repro_torch.data.device import DeviceFederatedDataset
     from repro_torch.data.stream import StreamingFederatedDataset
@@ -516,31 +592,31 @@ def _resolve_plane(plan: ExecutionPlan, trainer,
               else device_memory_budget(trainer.device))
     sds = trainer.session.streaming_dataset(dataset)   # host metadata only
     packed = sds.packed_nbytes
+    n_shards = 1 if plan.mesh is None else plan.mesh.n_devices()
+    per_rank = _per_rank_packed(sds, n_shards)
     if isinstance(sampler, DeviceSampleable) and (budget is None
-                                                  or packed <= budget):
+                                                  or per_rank <= budget):
+        sharded = ("" if n_shards == 1 else
+                   f", {per_rank} B/device over {n_shards} shards")
         return PlanDecision(
             "device", True,
-            f"packed corpus ({packed} B) fits the device memory "
+            f"packed corpus ({packed} B{sharded}) fits the device memory "
             f"budget ({'unbounded' if budget is None else f'{budget} B'})",
-            packed_nbytes=packed, budget_bytes=budget)
+            packed_nbytes=packed, budget_bytes=budget,
+            per_device_nbytes=per_rank if n_shards > 1 else None)
     # the streaming working set: the tiered cache footprint the declared
-    # CacheSpec would allocate, not a uniform slot_nbytes multiple
+    # CacheSpec would allocate, not a uniform slot_nbytes multiple (mirror
+    # ShardCache exactly; None when the declared byte budget is below one
+    # slot per occupied tier)
     layout = sds.tier_layout(plan.cache.tiers)
-    if plan.cache.clients is None and plan.cache.bytes is None:
-        cap = min(trainer.rcfg.clients_per_round * chunk_rounds,
-                  sds.n_clients)
-    else:
-        # mirror ShardCache exactly (tighter declaration wins); None when
-        # the declared byte budget is below one slot per occupied tier
-        cap = sds.n_clients
-        if plan.cache.clients is not None:
-            cap = min(cap, plan.cache.clients)
-        if plan.cache.bytes is not None:
-            by_bytes = layout.capacity_for_bytes(plan.cache.bytes)
-            cap = None if by_bytes is None else min(cap, by_bytes)
+    cap = _declared_capacity(sds, layout, plan.cache,
+                             trainer.rcfg.clients_per_round * chunk_rounds)
     working_set = None if cap is None else layout.bytes_for_capacity(cap)
+    # under a mesh each rank holds the composed MeshShardedCache: n_shards
+    # full-capacity caches (_stamp_mesh records the same figure)
+    rank_set = None if cap is None else n_shards * working_set
     if (cap is not None and isinstance(sampler, KeyedReplayable)
-            and (budget is None or working_set <= budget)):
+            and (budget is None or rank_set <= budget)):
         # say what ruled the device plane out: the budget only when there
         # IS one and the corpus exceeds it, the missing capability otherwise
         if not isinstance(sampler, DeviceSampleable):
@@ -551,11 +627,13 @@ def _resolve_plane(plan: ExecutionPlan, trainer,
                        f"({budget} B)")
         fits = ("the unbounded budget" if budget is None
                 else f"the budget ({budget} B)")
+        sharded = ("" if n_shards == 1 else
+                   f"; {rank_set} B/device in {n_shards} cache shards")
         return PlanDecision(
             "streaming", True,
             f"{blocked} but one chunk's participant working set ({cap} "
             f"clients over {layout.n_tiers} size tier(s), {working_set} B "
-            f"tiered) fits {fits}",
+            f"tiered{sharded}) fits {fits}",
             packed_nbytes=packed, budget_bytes=budget,
             working_set_nbytes=working_set)
     if not isinstance(sampler, DeviceSampleable):
@@ -573,8 +651,10 @@ def _resolve_plane(plan: ExecutionPlan, trainer,
                f"B: one slot in each of {layout.n_tiers} occupied size "
                f"tier(s)), so streaming is out")
     else:
+        sharded = ("" if n_shards == 1 else
+                   f"; {rank_set} B/device in {n_shards} cache shards")
         why = (f"even one chunk's participant working set ({working_set} B "
-               f"tiered) exceeds the budget ({budget} B)")
+               f"tiered{sharded}) exceeds the budget ({budget} B)")
     check_plane("scanned", sampler, dataset)   # structured error, never a
     return PlanDecision(                       # raw crash downstream
         "scanned", True, f"host prefetch-queue fallback: {why}",
@@ -621,7 +701,18 @@ class TrainSession:
     _device_key: Any = None
     _stream_src: Any = None
     _cache_key: Any = None
+    _mesh_cache: dict = field(default_factory=dict)
     _dispatch_overhead_s: Optional[float] = None
+
+    def mesh_for(self, spec, device=None):
+        """This rank's ``launch.mesh.Mesh`` for a ``MeshSpec`` on
+        ``device``, built once per (spec, device): a spec names the same
+        ranks for the life of the process group."""
+        key = (spec, str(device))
+        mesh = self._mesh_cache.get(key)
+        if mesh is None:
+            mesh = self._mesh_cache[key] = spec.build(device)
+        return mesh
 
     def dispatch_overhead(self, device=None) -> float:
         """The measured per-chunk dispatch overhead (seconds), measured
@@ -643,12 +734,13 @@ class TrainSession:
     def device_dataset(self, dataset, shard_clients: bool = True,
                        mesh=None, device=None):
         """The packed corpus of ``dataset`` on ``device``, built once per
-        (dataset, device); a ``DeviceFederatedDataset`` is taken as it
-        is.  A mesh is refused: the mesh layer is not ported yet."""
+        (dataset, mesh spec, device); a ``DeviceFederatedDataset`` is taken
+        as it is.  Packing places the client axis under the live mesh
+        context, so a corpus packed for one mesh (or none) is never reused
+        for another: ``mesh`` is the run's ``MeshSpec`` and keys it."""
         from repro_torch.data.device import DeviceFederatedDataset
-        if mesh is not None:
-            raise _not_ported("a mesh-sharded device corpus", "device")
-        key = (dataset, str(device))
+        _check_mesh_spec(mesh, "device")
+        key = (dataset, mesh, str(device))
         if self.device_ds is None or not _same_key(self._device_key, key):
             if isinstance(dataset, DeviceFederatedDataset):
                 self.device_ds = dataset
@@ -671,18 +763,31 @@ class TrainSession:
 
     def shard_cache_for(self, sds, capacity_clients: Optional[int],
                         capacity_bytes: Optional[int],
-                        tiers: Optional[int] = None, device=None):
+                        tiers: Optional[int] = None, device=None,
+                        mesh=None):
         """The persistent cache, rebuilt only when the dataset, the
-        declared capacity/tiering or the device changes (same declaration
-        => warm reuse).  The dataset is keyed by identity with a strong
-        reference held in the key, so a rebuilt dataset can never inherit
-        another corpus's resident shards through a recycled ``id``."""
-        from repro_torch.data.stream import ShardCache
-        key = (sds, capacity_clients, capacity_bytes, tiers, str(device))
+        declared capacity/tiering, the mesh or the device changes (same
+        declaration => warm reuse).  The dataset is keyed by identity with
+        a strong reference held in the key, so a rebuilt dataset can never
+        inherit another corpus's resident shards through a recycled
+        ``id``.  Under a ``MeshSpec`` of n > 1 ranks the cache is a
+        ``MeshShardedCache``: one full-capacity ``ShardCache`` per data
+        shard, clients assigned ``cid % n``."""
+        from repro_torch.data.stream import MeshShardedCache, ShardCache
+        n_shards = 1 if mesh is None else mesh.n_devices()
+        key = (sds, capacity_clients, capacity_bytes, tiers, str(device),
+               n_shards)
         if self.shard_cache is None or not _same_key(self._cache_key, key):
-            self.shard_cache = ShardCache(
-                sds, capacity_clients=capacity_clients,
-                capacity_bytes=capacity_bytes, tiers=tiers, device=device)
+            if n_shards > 1:
+                self.shard_cache = MeshShardedCache(
+                    sds, n_shards, capacity_clients=capacity_clients,
+                    capacity_bytes=capacity_bytes, tiers=tiers,
+                    device=device)
+            else:
+                self.shard_cache = ShardCache(
+                    sds, capacity_clients=capacity_clients,
+                    capacity_bytes=capacity_bytes, tiers=tiers,
+                    device=device)
             self._cache_key = key
         return self.shard_cache
 

@@ -72,10 +72,19 @@ the open ring's, with scenario dropouts recovered.
 
 ``param_axes`` (the logical-axes twin of the parameter tree, from a model's
 ``init``) reaches the round engine on every plane, where it constrains the
-per-client replicas as in the reference; outside a mesh those constraints
-are identities (``sharding.shard_tree``), so a run with it equals a run
-without.  ``ExecutionPlan(mesh=...)`` raises ``PlanError`` until the mesh
-slice (ROADMAP Queue 1).
+per-client replicas as in the reference (``sharding.shard_tree``); a run
+with it equals a run without.
+
+The data mesh (``ExecutionPlan(mesh=MeshSpec(...))``): every rank of a
+``torch.distributed`` group runs the same trainer (``launch/mesh.py``
+``spawn``), and ``run`` makes the mesh and ``FED_MESH_RULES`` live around
+the plane it dispatches, so every round's cohort splits over the ranks
+(``core/round.py``), the device plane packs each rank's block of the
+corpus, and the streaming plane's cache is a ``MeshShardedCache``.
+``mesh=None`` makes nothing live: the single-device code path, bit for
+bit.  Checkpoints and the metrics log are written by rank 0 alone; the
+ranks meet at a barrier when a run's writes are done, and every rank
+reads the checkpoint on resume.  Progress lines print on rank 0.
 """
 from __future__ import annotations
 
@@ -109,6 +118,7 @@ from repro_torch.launch.graph import ChunkGraph, detach_state, pin_inputs
 from repro_torch.launch.plan import (CacheSpec, ExecutionPlan, PlanError,
                                      TrainSession, _IdKey, as_plan, resolve)
 from repro_torch.scenario.spec import ScenarioRuntime
+from repro_torch.sharding import FED_MESH_RULES, axis_rules
 from repro_torch.tree import tree_map
 
 
@@ -236,6 +246,9 @@ class FederatedTrainer:
         # the active ScenarioRuntime, scoped to one run() call (set when the
         # resolved plan carries a non-null ScenarioSpec, cleared after)
         self._scenario: Optional[ScenarioRuntime] = None
+        # the run's MeshSpec and this rank's Mesh, scoped like _scenario
+        self._mesh_spec = None
+        self._mesh = None
         self._replay_stream = None
         self.device = resolve_device(self.device)
         self.state = tree_map(
@@ -349,7 +362,19 @@ class FederatedTrainer:
 
     def _sig(self):
         return (_IdKey(self.loss_fn), _IdKey(self.server_opt),
-                _IdKey(self.param_axes), self.rcfg, str(self.device))
+                _IdKey(self.param_axes), self._mesh_spec, self.rcfg,
+                str(self.device))
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes the run's files: always without a
+        mesh, rank 0 alone under one."""
+        return self._mesh is None or self._mesh.rank == 0
+
+    def _capture(self) -> bool:
+        """Whether the chunk graphs capture: not under a mesh whose
+        collectives run on the host."""
+        return self._mesh is None or self._mesh.capturable
 
     def _resume_round(self, resume: bool) -> int:
         """First round this run should execute: 0 normally; with
@@ -373,7 +398,7 @@ class FederatedTrainer:
         if t_ck < 0:
             return self._scenario_start(0)
         self.state, _ = restore_state(self.ckpt_path, self.state)
-        if self.metrics_path:
+        if self.metrics_path and self._writes:
             prune_metrics(self.metrics_path, t_ck)
         return self._scenario_start(t_ck + 1)
 
@@ -391,8 +416,11 @@ class FederatedTrainer:
     def _writer(self):
         """Async checkpoint writer scoped to one run call: joined and
         flushed on normal exit; on an in-flight exception the writer is
-        retired but its own failures never mask the primary error."""
-        writer = AsyncCheckpointWriter() if self.ckpt_path else None
+        retired but its own failures never mask the primary error.  Under
+        a mesh only rank 0 gets one, and on normal exit every rank waits
+        at a barrier until rank 0's checkpoints and metrics are durable."""
+        writer = (AsyncCheckpointWriter()
+                  if self.ckpt_path and self._writes else None)
         try:
             yield writer
         except BaseException:
@@ -402,6 +430,8 @@ class FederatedTrainer:
         else:
             if writer:
                 writer.close()
+            if self._mesh is not None:
+                self._mesh.barrier()
 
     # ------------------------------------------------------------------
     # the entry point
@@ -426,7 +456,9 @@ class FederatedTrainer:
         per round, after any such record).  ``plan.secure`` is scoped the
         same way as ``local_batch`` / ``ckpt``: it lands on ``self.rcfg``
         for this call only (``rcfg`` keys the chunk graphs, so an open and
-        a masked run never share a graph).
+        a masked run never share a graph).  ``plan.mesh`` is scoped so too:
+        this rank's mesh and ``FED_MESH_RULES`` are live for the plane's
+        dispatch, and every rank of the group must make the same call.
         """
         plan = as_plan(plan)
         saved = (self.local_batch, self.ckpt_path, self.ckpt_every,
@@ -440,9 +472,13 @@ class FederatedTrainer:
                 self.ckpt_every = plan.ckpt.every
         if plan.secure is not None:
             self.rcfg = dataclasses.replace(self.rcfg, secure=plan.secure)
+        self._mesh_spec = plan.mesh
         try:
             self._check_client_extent()
             decision = resolve(plan, self, n_rounds)
+            if plan.mesh is not None:
+                self._mesh = self.session.mesh_for(plan.mesh, self.device)
+                verbose = verbose and self._writes
             self._scenario = (
                 ScenarioRuntime(plan.scenario, self.rcfg.local_steps)
                 if decision.scenario else None)
@@ -450,41 +486,55 @@ class FederatedTrainer:
             if decision.auto:
                 rec = decision.record()
                 self.history.append(rec)
-                if self.metrics_path:
+                if self.metrics_path and self._writes:
                     append_metrics(self.metrics_path, [rec])
                 if verbose:
                     print(f"  plan: auto -> {decision.plane} "
                           f"({decision.reason})")
             cadence = (log_every if log_every is not None
                        else plan.eval.cadence)
-            if decision.plane == "per_round":
-                return self._run_per_round(n_rounds, cadence, eval_fn,
-                                           verbose, resume)
-            # chunked planes take the resolved chunk size
-            chunk_rounds = decision.chunk_rounds
-            eval_every = cadence if eval_fn is not None else None
-            if decision.plane == "streaming":
-                return self._run_streaming(
-                    n_rounds, chunk_rounds, plan.cache.clients,
-                    plan.cache.bytes, plan.cache.tiers, decision.bucketed,
-                    bool(plan.prefetch), eval_fn, eval_every, verbose,
-                    resume)
-            try:
-                if decision.plane == "scanned":
-                    return self._run_scanned(n_rounds, chunk_rounds,
-                                             int(plan.prefetch), eval_fn,
-                                             eval_every, verbose, resume)
-                return self._run_device(n_rounds, chunk_rounds, eval_fn,
-                                        eval_every, verbose, resume)
-            finally:
-                if self.device.type == "cuda":
-                    # the state must not alias a graph's static tensors
-                    # past this run: a later replay overwrites them
-                    self.state = detach_state(self.state)
+            # a plan-carried mesh makes its rules live for the whole plane
+            # dispatch: packing, cache uploads and every round see the same
+            # mesh.  mesh=None makes nothing live: the single-device code
+            # path, bit for bit
+            mesh_ctx = (axis_rules(self._mesh, FED_MESH_RULES)
+                        if self._mesh is not None
+                        else contextlib.nullcontext())
+            with mesh_ctx:
+                return self._dispatch(decision, plan, n_rounds, cadence,
+                                      eval_fn, verbose, resume)
         finally:
             (self.local_batch, self.ckpt_path, self.ckpt_every,
              self.rcfg) = saved
             self._scenario = None
+            self._mesh_spec = self._mesh = None
+
+    def _dispatch(self, decision, plan: ExecutionPlan, n_rounds: int,
+                  cadence: int, eval_fn, verbose: bool, resume: bool):
+        """Run the resolved plane."""
+        if decision.plane == "per_round":
+            return self._run_per_round(n_rounds, cadence, eval_fn, verbose,
+                                       resume)
+        # chunked planes take the resolved chunk size
+        chunk_rounds = decision.chunk_rounds
+        eval_every = cadence if eval_fn is not None else None
+        if decision.plane == "streaming":
+            return self._run_streaming(
+                n_rounds, chunk_rounds, plan.cache.clients, plan.cache.bytes,
+                plan.cache.tiers, decision.bucketed, bool(plan.prefetch),
+                eval_fn, eval_every, verbose, resume)
+        try:
+            if decision.plane == "scanned":
+                return self._run_scanned(n_rounds, chunk_rounds,
+                                         int(plan.prefetch), eval_fn,
+                                         eval_every, verbose, resume)
+            return self._run_device(n_rounds, chunk_rounds, eval_fn,
+                                    eval_every, verbose, resume)
+        finally:
+            if self.device.type == "cuda":
+                # the state must not alias a graph's static tensors past
+                # this run: a later replay overwrites them
+                self.state = detach_state(self.state)
 
     # ------------------------------------------------------------------
     # plane: per_round — one round per loop iteration
@@ -509,7 +559,7 @@ class FederatedTrainer:
                                             or t == n_rounds - 1):
                     rec.update(eval_fn(self.state))
                 self.history.append(rec)
-                if self.metrics_path:
+                if self.metrics_path and self._writes:
                     append_metrics(self.metrics_path, [rec])
                 if verbose and (t % log_every == 0 or t == n_rounds - 1):
                     extra = " ".join(f"{k}={v:.4f}" for k, v in rec.items()
@@ -539,7 +589,7 @@ class FederatedTrainer:
 
         key = ("scan_chunk", n_rounds, masked, batch_sig) + self._sig()
         return self.session.chunk_graph(
-            key, lambda: ChunkGraph(body, n_rounds, dev))
+            key, lambda: ChunkGraph(body, n_rounds, dev, self._capture()))
 
     def _device_chunk_graph(self, n_rounds: int, masked: bool,
                             dds: DeviceFederatedDataset) -> ChunkGraph:
@@ -560,7 +610,7 @@ class FederatedTrainer:
                     lrs=inp["lrs"],
                     step_masks=inp.get("masks"), device=dev)
 
-            return ChunkGraph(body, n_rounds, dev)
+            return ChunkGraph(body, n_rounds, dev, self._capture())
 
         key = (("ondevice_chunk", n_rounds, masked, b, _IdKey(sampler),
                 _IdKey(dds)) + self._sig())
@@ -629,9 +679,12 @@ class FederatedTrainer:
     def device_dataset(self, shard_clients: bool = True
                        ) -> DeviceFederatedDataset:
         """The packed corpus on the trainer's device (built once, owned by
-        the session; see data/device.py for the K * n_max ceiling)."""
+        the session; see data/device.py for the K * n_max ceiling).  Keyed
+        by the run's mesh spec: under a mesh each rank packs its block of
+        the clients."""
         return self.session.device_dataset(self.dataset,
                                            shard_clients=shard_clients,
+                                           mesh=self._mesh_spec,
                                            device=self.device)
 
     def _sample_key(self) -> torch.Tensor:
@@ -691,7 +744,8 @@ class FederatedTrainer:
         if cache_clients is None and cache_bytes is None:
             cache_clients = self.rcfg.clients_per_round * chunk_rounds
         cache = self.session.shard_cache_for(sds, cache_clients, cache_bytes,
-                                             cache_tiers, device=self.device)
+                                             cache_tiers, device=self.device,
+                                             mesh=self._mesh_spec)
         spans = _eval_spans(t0, n_rounds, chunk_rounds, eval_every)
         if bucketed:
             return self._run_streaming_bucketed(spans, n_rounds, sds, cache,
@@ -972,7 +1026,7 @@ class FederatedTrainer:
         if chunk.cstats is not None:
             recs[-1].update(chunk.cstats)
         self.history.extend(recs)
-        if self.metrics_path:
+        if self.metrics_path and self._writes:
             append_metrics(self.metrics_path, recs)
         if verbose:
             print(f"  rounds {chunk.s:5d}..{chunk.e - 1:5d}  "

@@ -1,7 +1,9 @@
 """The port's counterpart of ``tests/_trajectory.py``: the same linreg
 fleet, dataset and sampler seeds, optimizers and plan knobs, built from
 ``repro_torch`` on the CPU, so that a torch run and the JAX package's
-``run_trajectory`` of one config can be held against each other.
+``run_trajectory`` of one config can be held against each other.  It
+imports JAX only where a function compares with it, so the spawned ranks
+of ``tests/_mesh_cases_torch.py`` can use it without JAX.
 
     hist, state = run_torch("streaming-bucketed", "fedmom", rcfg, clients, 8)
     assert_matches_jax((hist, state), run_trajectory(...))
@@ -11,7 +13,6 @@ import os
 import numpy as np
 import torch
 
-from _trajectory import flat_w
 from repro_torch.core import (DeviceDiurnalSampler, DeviceUniformSampler,
                               RoundConfig, fedavg, fedmom)
 from repro_torch.data import FederatedDataset
@@ -121,6 +122,7 @@ def torch_flat_w(state):
 def assert_matches_jax(got, want):
     """A torch (history, state) against a JAX one: equal round ids, losses
     within LOSS_RTOL, final parameters within W_RTOL / W_ATOL."""
+    from _trajectory import flat_w
     (t_hist, t_state), (j_hist, j_state) = got, want
     t_hist, j_hist = strip_events(t_hist), strip_events(j_hist)
     assert [r["round"] for r in t_hist] == [r["round"] for r in j_hist]

@@ -48,7 +48,10 @@ pageable copy, a chunk's metrics outliving the next replay, ``plan=None``
 staying per-round on the card; fed-llm-100m at full width cut to 2
 layers, one FedMom round with the fused server against the plain one
 within 1e-5 (the embedding's backward scatters with atomics), and remat's
-peak memory below the same grads' without it.
+peak memory below the same grads' without it; the data mesh: a 1-rank
+NCCL mesh's device plane captured with its collectives and bit-equal to
+no mesh, and two gloo ranks sharing the card on the streaming plane
+within 1e-6 of one device.
 """
 import numpy as np
 import pytest
@@ -1645,3 +1648,58 @@ def test_remat_lowers_peak_memory_on_card(cuda, policy):
         del g
     assert peak[True] < peak[False], peak
     assert torch.allclose(loss[True], loss[False], atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the data mesh on the card
+# ---------------------------------------------------------------------------
+def test_one_rank_nccl_mesh_captures_the_device_plane(cuda):
+    """A 1-rank NCCL mesh on the device plane: every chunk captured with
+    its collectives (the delta's all_reduce, the losses' all-gather), and
+    the run bit-equal to no mesh (a sum over one rank)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import MeshSpec
+    ref = _plane_trainer(cuda, C=4)
+    ref.run(11, plan=ExecutionPlan(plane="device", chunk_rounds=4),
+            verbose=False)
+    tr = _plane_trainer(cuda, C=4)
+    try:
+        tr.run(11, plan=ExecutionPlan(plane="device", chunk_rounds=4,
+                                      mesh=MeshSpec(devices=1)),
+               verbose=False)
+        rec = tr.session.plan_log[-1]
+        assert dist.get_backend() == "nccl"
+    finally:
+        dist.destroy_process_group()
+    assert rec["mesh_shape"] == [1] and "eager_chunks" not in rec
+    assert len(tr.session.graphs) == 2
+    assert all(g.graph is not None for g in tr.session.graphs.values())
+    _same_run(tr, ref)
+
+
+def _gloo_streaming_rank(rank, n, device):
+    from repro_torch.launch.mesh import MeshSpec
+    tr = _plane_trainer(device, C=4)
+    tr.run(8, plan=ExecutionPlan(plane="streaming", chunk_rounds=4,
+                                 mesh=MeshSpec(devices=n)), verbose=False)
+    return ([r["loss"] for r in tr.history if "event" not in r],
+            {k: v.cpu() for k, v in tr.state.w.items()})
+
+
+def test_two_gloo_ranks_share_the_card_on_streaming(cuda):
+    """Two gloo ranks on one card (collectives staged through the host):
+    the streaming plane within 1e-6 of one device, the ranks equal."""
+    from repro_torch.launch.mesh import spawn
+    ranks = spawn(_gloo_streaming_rank, 2, "cuda", backend="gloo",
+                  timeout=300)
+    ref = _plane_trainer(cuda, C=4)
+    ref.run(8, plan=ExecutionPlan(plane="streaming", chunk_rounds=4),
+            verbose=False)
+    want = [r["loss"] for r in ref.history if "event" not in r]
+    for losses, w in ranks:
+        np.testing.assert_allclose(losses, want, atol=1e-6)
+        for k in ("w", "b"):
+            np.testing.assert_allclose(w[k].numpy(),
+                                       ref.state.w[k].cpu().numpy(),
+                                       atol=1e-6)
+            assert torch.equal(w[k], ranks[0][1][k])

@@ -223,7 +223,7 @@ def test_remat_policy_is_checked():
 
 
 # ---------------------------------------------------------------------------
-# param_axes outside a mesh; the mesh stays refused
+# param_axes outside a mesh; a mesh that is not a MeshSpec is refused
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("placement", ["mesh", "scan"])
 def test_param_axes_changes_nothing(placement):

@@ -501,7 +501,9 @@ def test_dispatch_overhead_is_measured_once_per_session():
 
 
 def test_a_mesh_corpus_is_refused():
-    with pytest.raises(tplan.PlanError, match="not yet ported"):
+    """A corpus is packed for a ``MeshSpec`` (or none); anything else as
+    its mesh is refused.  The sharded corpus itself: test_torch_mesh.py."""
+    with pytest.raises(tplan.PlanError, match="MeshSpec"):
         tplan.TrainSession().device_dataset(
             FederatedDataset([dict(c) for c in CLIENTS], seed=1),
             mesh=object(), device="cpu")

@@ -282,14 +282,20 @@ def test_chunked_planes_train_the_per_round_trajectory(world, jax_runs,
 
 @pytest.mark.parametrize("field", ["mesh"])
 def test_unported_plan_fields_raise_plan_error(field):
-    """``mesh`` belongs to a layer not yet ported: it raises a
-    ``PlanError`` naming the nearest plane that runs."""
-    with pytest.raises(PlanError, match="not yet ported") as err:
-        ExecutionPlan(plane="per_round", **{field: object()})
-    assert err.value.nearest == "per_round"
-    with pytest.raises(PlanError) as err:
-        ExecutionPlan(plane="streaming", **{field: object()})
-    assert err.value.nearest == "streaming"
+    """No plan field is left unported: ``mesh`` takes a ``MeshSpec`` on
+    every plane, and a value of another kind raises a ``PlanError`` on
+    the plane it names, as the reference's does."""
+    from repro.launch.plan import ExecutionPlan as JPlan
+    from repro.launch.plan import PlanError as JPlanError
+    from repro_torch.launch.mesh import MeshSpec
+    for plane in ("per_round", "streaming", "auto"):
+        with pytest.raises(PlanError, match="must be a .*MeshSpec") as err:
+            ExecutionPlan(plane=plane, **{field: object()})
+        assert err.value.plane == plane
+        with pytest.raises(JPlanError, match="must be a .*MeshSpec"):
+            JPlan(plane=plane, **{field: object()})
+        assert getattr(ExecutionPlan(plane=plane, **{
+            field: MeshSpec(devices=2)}), field) == MeshSpec(devices=2)
 
 
 @pytest.mark.parametrize("field,value", [
