@@ -21,10 +21,12 @@ recurrent state caches; and recurrentgemma-9b at full width: the
 ``rglru_scan`` kernel's own path (its wrapper on the gates of a layer of
 the model, as the reference drives it) and ``serve.generate`` over its
 RG-LRU and ring caches (every LOCAL layer of prefill through
-``flash_attention``); and federated training of language models:
+``flash_attention``); federated training of language models:
 fed-llm-100m at full size, gemma3-1b at full width through ``round_step``
 and the paper's Shakespeare LSTM, the server step through
-``fedmom_update``.
+``fedmom_update``; and the rest of the zoo: MoE (granite-moe-1b-a400m at
+full width, grok-1-314b cut in depth), the encoder-decoder whisper-medium
+and the VLM qwen2-vl-72b (cut in depth), served, scored and trained.
 Phases, each printed as it runs; any failure exits non-zero:
 
   1. card and settings: ``nvidia-smi`` name and power limit; TF32 off;
@@ -267,13 +269,43 @@ Phases, each printed as it runs; any failure exits non-zero:
      2 and 4 ranks on the device plane where as many cards are visible
      (the linreg fleet within 1e-6 of one card, BENCH_10's LeNet timed
      after a warm-up run and within 1e-4 in final loss), else why not;
- 23. one JSON line of kernels, then the result line.
+ 23. the rest of the zoo (keyed random weights at the published widths,
+     bf16, ``attention_impl="pallas"``): (a) granite-moe-1b-a400m, nothing
+     cut (24 layers, 32 experts top-8): ``generate`` of B=8 prompts of
+     1024 tokens, 32 new (2 MoE groups of 4,096 tokens a prefill layer;
+     24 ``flash_attention`` launches over exactly one call), prefill ms,
+     decode ms/token, tokens/s, peak memory, the busy share of a profiled
+     call; ``loss_fn`` at B=8 x 1024 in ms with its top kernels; 3 FedMom
+     rounds of ``round_step`` in fp32 at full size (M=2, H=2, b=2, seq
+     256, remat with the aux as an output of the remat node): the loss
+     finite, the server (router included) moved, ``fedmom_update``
+     launches one a table a round; reduced granite through
+     ``FederatedTrainer`` on ``plane="auto"`` (-> device, chunks
+     captured) against the per-round plane, the drift printed; (b)
+     whisper-medium, nothing cut: ``generate`` over stubbed frames [8,
+     1536, 1024], prompt 1024, 32 new, 48 launches (24 non-causal encoder,
+     24 causal decoder prefill), and the kernel at the encoder's shape
+     (B=8, S=1536, 16/16 heads, d=64, non-causal) against its plain
+     version, timed beside its bound and SDPA; (c) qwen2-vl-72b at full
+     width cut to 8 of 80 layers: ``generate`` of B=8 x 1024 with 256
+     stubbed patches and their t/h/w M-RoPE grid, 8 launches; (d)
+     grok-1-314b at full width cut to 2 of 64 layers: a prefill of B=8 x
+     1024 (2 MoE groups), 8 decode tokens, 2 launches, and the kernel at
+     its 48/8 head layout (6 query heads a KV head, d=128, causal) against
+     its plain version, timed; (e) card against CPU in fp32 (granite cut
+     to 2 layers, whisper to 2 + 2, qwen2-vl to 1, at full width): the
+     forward's logits within atol/rtol 1e-3 on the rows whose MoE routes
+     agree everywhere (the flipped (token, slot) routes counted and
+     reported, with the smallest top-k margin among them), then greedy
+     ``generate`` and prefill + 3 decode logits along the CPU's tokens,
+     greedy tokens equal past near-ties;
+ 24. one JSON line of kernels, then the result line.
 
 Each phase's wall seconds print on a line of their own when it ends.
 ``python3 chip_smoke.py --only-lm`` runs phases 1, 2 and 21 alone,
-``--only-mesh`` phases 1, 2 and 22, and ``--only-mesh-nccl`` phases 1, 2
-and 22(c), for a machine with several cards (development runs; they print
-no result line).
+``--only-mesh`` phases 1, 2 and 22, ``--only-mesh-nccl`` phases 1, 2
+and 22(c), for a machine with several cards, and ``--only-zoo`` phases 1,
+2 and 23 (development runs; they print no result line).
 
 Without a card, or outside a checkout of the repo, it exits non-zero and
 prints no result.
@@ -440,6 +472,20 @@ GT_M, GT_H, GT_B, GT_S = 2, 2, 2, 256   # gemma3-1b: clients, steps, b, seq
 GT_ROUNDS, GT_LR = 3, 0.05
 SH_K, SH_ROUNDS, SH_CR = 40, 30, 3      # Shakespeare clients, rounds, chunk
 SH_CMP_ROUNDS, SH_CMP_TOL = 3, 1e-4     # its card-vs-CPU FedMom rounds
+# the rest of the zoo (phase 23) at its published widths
+# (configs/granite_moe_1b_a400m.py, whisper_medium.py, qwen2_vl_72b.py,
+# grok_1_314b.py), keyed random weights, bf16 and attention_impl="pallas"
+ZOO_MOE, ZOO_ENCDEC = "granite-moe-1b-a400m", "whisper-medium"
+ZOO_VLM, ZOO_GROK = "qwen2-vl-72b", "grok-1-314b"
+ZOO_B, ZOO_S0, ZOO_NEW = 8, 1024, 32      # prompts, prompt length, new
+ZOO_VLM_LAYERS = 8                        # of 80: 21.6 GB of weights
+ZOO_GROK_LAYERS, ZOO_GROK_NEW = 2, 8      # of 64: 24.5 GB; decode tokens
+ZOO_ROUNDS, ZOO_M, ZOO_H = 3, 2, 2        # granite fp32 round_step
+ZOO_RB, ZOO_RS = 2, 256                   # its local batch and seq
+ZOO_TR_ROUNDS, ZOO_CR = 4, 2              # reduced granite, auto vs
+                                          # per-round
+ZOO_CMP_TOL = 1e-3                        # card vs CPU logits, fp32
+ZOO_CMP_S0, ZOO_CMP_VLM_S0, ZOO_CMP_NEW = 256, 128, 4
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # H100 SXM fp32 (CUDA cores) peak
 
@@ -535,13 +581,16 @@ def profile_rows(fn):
     as (name, s, count), most time first).  The window opens 0.1 s before
     ``fn`` and closes 0.1 s after its work ends: the profiler drops device
     events whose converted timestamps fall outside it, and a window that
-    opens just as the first kernels run lost some of them on the card."""
+    opens just as the first kernels run lost some of them on the card.
+    Only the card's activity is traced, and its raw events are read:
+    tracing the host's operators too slowed the profiled call, and
+    building ``FunctionEvent``s of a ``generate``'s ~90,000 kernels and
+    their host operators took several times as long as the call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(0.1)
         t0 = time.perf_counter()
         fn()
@@ -549,11 +598,12 @@ def profile_rows(fn):
         wall = time.perf_counter() - t0
         time.sleep(0.1)
     by_name = {}
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != DeviceType.CUDA:
             continue
-        s, c = by_name.get(evt.name, (0.0, 0))
-        by_name[evt.name] = (s + evt.time_range.elapsed_us() / 1e6, c + 1)
+        name = evt.name()
+        s, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (s + evt.duration_ns() / 1e9, c + 1)
     return wall, sorted(((k, s, c) for k, (s, c) in by_name.items()),
                         key=lambda r: -r[1])
 
@@ -1525,18 +1575,21 @@ def flash_bound_ms(B, S, Hq, Hkv, d, window, causal, itemsize):
 
 
 def sdpa_call(q, k, v, causal, window):
-    """``scaled_dot_product_attention`` over the same boolean mask (the
-    library yardstick; the port never calls it)."""
+    """``scaled_dot_product_attention`` over the same mask (the library
+    yardstick; the port never calls it): no mask, or ``is_causal``, where
+    there is no window, so that the library may take its flash backend;
+    an explicit boolean mask for a window."""
     import torch
     import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window <= 0:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
     S = q.shape[1]
     i = torch.arange(S, device=q.device)
-    keep = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    keep = i[None, :] > i[:, None] - window
     if causal:
         keep &= i[None, :] <= i[:, None]
-    if window > 0:
-        keep &= i[None, :] > i[:, None] - window
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
     def call():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
@@ -1779,23 +1832,41 @@ def serving_phase(dev, fa_kernel, fa_ops, card):
     return out
 
 
-def teacher_forced_logits(params, cfg, seq, s0, n_new, device):
-    """Prefill of ``seq[:, :s0]`` and decode along ``seq``: the logits of
-    each of the ``n_new`` positions, [n_new, V] on the host."""
+def teacher_forced_logits(params, cfg, seq, s0, n_new, device, extras=None,
+                          routes=None):
+    """Prefill of ``seq[:, :s0]`` (with a family's ``extras``: frames,
+    patches, M-RoPE positions) and decode along ``seq``: the logits of
+    each of the ``n_new`` positions, [n_new, V] on the host.  Given a list
+    as ``routes``, each step's MoE routings (``RouteRecorder.routes``) are
+    appended to it."""
+    import contextlib
     import torch
     from repro_torch.models import transformer as T
     cache, _ = T.init_cache(cfg, 1, s0 + n_new, device=device)
     t = torch.as_tensor(seq, device=device)
-    steps = [T.prefill(params, cfg, {"tokens": t[:, :s0]}, cache)[0]]
+    batch = {"tokens": t[:, :s0]}
+    batch.update({k: torch.as_tensor(v, device=device)
+                  for k, v in (extras or {}).items()})
+
+    def step(fn):
+        with (RouteRecorder() if routes is not None
+              else contextlib.nullcontext()) as rec, torch.no_grad():
+            out = fn()
+        if routes is not None:
+            routes.append(rec.routes)
+        return out
+    steps = [step(lambda: T.prefill(params, cfg, batch, cache)[0])]
     for i in range(s0, s0 + n_new - 1):
-        steps.append(T.decode_step(params, cfg, cache, t[:, i:i + 1], i)[0])
+        steps.append(step(lambda: T.decode_step(params, cfg, cache,
+                                                t[:, i:i + 1], i)[0]))
     return torch.stack(steps)[:, 0].cpu()
 
 
 def held_greedy_tokens(gen, logits_cpu, s0, n_new, tol):
     """The greedy tokens of the CPU and the card must be equal wherever the
     CPU's top-2 logit margin exceeds ``tol``, up to the first near-tie that
-    went either way.  Returns (cpu tokens, card tokens, count held)."""
+    went either way, over the first ``n_new`` new tokens.  Returns (cpu
+    tokens, card tokens, count held)."""
     import numpy as np
     import torch
     new_cpu = gen["cpu"].tokens[0, s0:]
@@ -4402,12 +4473,684 @@ def mesh_nccl(dev, out, part, failures):
             failures.append(f"NCCL {n}: record, replication or bytes {row}")
     part("c")
 
+# ---------------------------------------------------------------------------
+# phase 23: the rest of the zoo (MoE, encoder-decoder, VLM)
+# ---------------------------------------------------------------------------
+class RouteRecorder:
+    """Records every MoE routing (``layers.moe_routes``) of the calls made
+    inside it, in call order: (expert ids [G,k], slots [G,k], keep [G,k],
+    the top-k margin [G]) on the host."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.layers, self.routes = layers, []
+
+    def __enter__(self):
+        import torch
+        inner = self.original = self.layers.moe_routes
+
+        def recording(xf, router, **kw):
+            out = inner(xf, router, **kw)
+            probs, idx, _, pos, keep = out[:5]
+            k = idx.shape[-1]
+            top = torch.sort(probs, dim=-1, descending=True).values
+            margin = (top[:, k - 1] - top[:, k]) if top.shape[-1] > k \
+                else torch.full_like(top[:, 0], float("inf"))
+            self.routes.append(tuple(t.cpu() for t in (idx, pos, keep,
+                                                       margin)))
+            return out
+        self.layers.moe_routes = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_routes = self.original
+
+
+def route_flips(a, b, batch):
+    """Routes of two runs (``RouteRecorder.routes``) compared call by call:
+    (the (token, slot) routes whose expert, slot or keep differ, the batch
+    rows holding none of them, the smallest top-k margin among flipped
+    tokens).  A call's G tokens are ``batch`` rows of G / batch."""
+    import torch
+    flips, bad, margin = 0, set(), float("inf")
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} against {len(b)} MoE routings")
+    for (ia, pa, ka, ma), (ib, pb, kb, _) in zip(a, b):
+        diff = (ia != ib) | (pa != pb) | (ka != kb)          # [G, k]
+        flips += int(diff.sum())
+        tok = diff.any(-1)
+        per_row = tok.shape[0] // batch
+        bad |= {int(i) // per_row for i in torch.nonzero(tok).flatten()}
+        if bool(tok.any()):
+            margin = min(margin, float(ma[tok].min()))
+    return flips, sorted(set(range(batch)) - bad), margin
+
+
+def zoo_init(name, cfg, dev):
+    """Keyed random weights on the card; (params, seconds, bytes)."""
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _ = T.init(cfg, prng.PRNGKey(0), device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n = sum(x.numel() for x in leaves(params))
+    nbytes = sum(x.numel() * x.element_size() for x in leaves(params))
+    print(f"{name}: {cfg.n_layers} layers (+{cfg.n_enc_layers} encoder), "
+          f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+          f"d_head {cfg.d_head}, d_ff {cfg.d_ff}"
+          + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}"
+             if cfg.moe else "")
+          + f", vocab {cfg.vocab}, {cfg.dtype}; keyed init {n} params, "
+          f"{nbytes / 1e9:.3f} GB, {init_s:.2f} s")
+    return params, init_s, n
+
+
+def flash_calls(fa_ops):
+    """A recorder of ``flash_attention``'s calls through the model (the
+    blocks look it up on ``ops`` at each call): (S, causal) a call."""
+    seen = []
+    inner = fa_ops.flash_attention
+
+    def recording(q, k, v, *, causal, window):
+        seen.append((q.shape[1], causal))
+        return inner(q, k, v, causal=causal, window=window)
+
+    class Ctx:
+        def __enter__(self):
+            fa_ops.flash_attention = recording
+            return seen
+
+        def __exit__(self, *exc):
+            fa_ops.flash_attention = inner
+    return Ctx()
+
+
+def zoo_serve(name, params, cfg, prompts, extras, n_new, fa_kernel, fa_ops,
+              want_calls, profile=False):
+    """Warm-up, then one timed ``generate`` with the kernel's launches
+    counted over exactly that call: (record, result)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import generate
+    dev = params["embed"].device
+    generate(params, cfg, prompts, 2, extras=extras)           # warm-up
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    fa_kernel.launches = 0
+    with flash_calls(fa_ops) as calls:
+        t0 = time.perf_counter()
+        res = generate(params, cfg, prompts, n_new, extras=extras)
+        sync(dev)
+        total_s = time.perf_counter() - t0
+    launches = fa_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != len(want_calls) or sorted(calls) != sorted(want_calls):
+        raise AssertionError(f"{name}: flash_attention launched {launches} "
+                             f"times ({calls}), want {want_calls}")
+    B, S0 = prompts.shape
+    if res.tokens.shape != (B, S0 + n_new) or not np.isfinite(
+            res.logprobs).all() or not (res.logprobs[:, :-1] <= 0).all():
+        raise AssertionError(f"{name} generate: tokens {res.tokens.shape}, "
+                             f"logprobs {res.logprobs}")
+    if not ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
+        raise AssertionError(f"{name} generate: token ids out of range")
+    # the prefill alone (cache allocation included) for time to first token
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    cache, _ = T.init_cache(cfg, B, S0 + n_new, device=dev)
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    batch.update({k: torch.as_tensor(v, device=dev)
+                  for k, v in extras.items()})
+    with torch.no_grad():
+        T.prefill(params, cfg, batch, cache)
+    sync(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    del cache
+    decode_ms = (total_s * 1e3 - prefill_ms) / max(n_new - 1, 1)
+    row = {"generate_ms": total_s * 1e3, "prefill_ms": prefill_ms,
+           "decode_ms_per_token": decode_ms,
+           "tokens_per_s": B * n_new / total_s, "peak_memory_gb": peak / 1e9,
+           "launches": launches,
+           "launches_causal": sum(1 for _, c in calls if c),
+           "launches_noncausal": sum(1 for _, c in calls if not c)}
+    line = (f"{name} generate B={B} S0={S0} new={n_new} greedy: "
+            f"{row['generate_ms']:.1f} ms (host clock, synced); prefill "
+            f"{prefill_ms:.1f} ms; decode {decode_ms:.2f} ms/token; "
+            f"{row['tokens_per_s']:.1f} tokens/s; peak {peak / 1e9:.2f} GB; "
+            f"flash_attention {launches} launches ({row['launches_causal']} "
+            f"causal, {row['launches_noncausal']} non-causal)")
+    if profile:
+        wall, busy, n_ops, top = profile_device(
+            lambda: generate(params, cfg, prompts, n_new, extras=extras))
+        row.update(device_busy_share=busy / wall, device_ops=n_ops,
+                   top=[(k[:90], round(s * 1e3, 3), c) for k, s, c in top])
+        line += (f"; profiled call: busy {100 * busy / wall:.1f}%, {n_ops} "
+                 f"device ops; top {row['top'][:4]}")
+    print(line)
+    return row, res
+
+
+def flash_at(fa_ops, fa_kernel, card, tag, B, S, Hq, Hkv, d, causal):
+    """The kernel against its plain version at one of this phase's shapes
+    (bf16, no window), SDPA held to the plain version too, then device
+    times of the kernel, the plain version and SDPA (graph replays) beside
+    the bound."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(S + Hq)
+    q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, d)).astype(
+        np.float32), device=dev).to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    call_k = lambda: fa_ops.flash_attention(  # noqa: E731
+        q, k, v, causal=causal, window=0)
+    call_p = lambda: fa_ops.flash_attention(  # noqa: E731
+        q, k, v, causal=causal, window=0, use_kernel=False)
+    out, ref = call_k(), call_p()
+    sync(dev)
+    err = float((out.float() - ref.float()).abs().max())
+    if not (err <= FA_ATOL["bfloat16"] and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"flash_attention at {tag}: kernel differs from "
+                             f"the plain version by {err:.3e}")
+    call_l = sdpa_call(q, k, v, causal, 0)
+    lib_err = float((call_l().transpose(1, 2).float()
+                     - ref.float()).abs().max())
+    if not lib_err <= FA_ATOL["bfloat16"]:
+        raise AssertionError(f"sdpa at {tag} differs from the plain version "
+                             f"by {lib_err:.3e}: not the same function")
+    ms = graph_ms(call_k, iters=10, replays=10)
+    plain_ms = graph_ms(call_p, iters=3, replays=3)
+    lib_ms = graph_ms(call_l, iters=10, replays=10)
+    bytes_ms, ops_ms = flash_bound_ms(B, S, Hq, Hkv, d, 0, causal, 2)
+    bound_ms = max(bytes_ms, ops_ms)
+    row = {"shape": [B, S, Hq, Hkv, d], "causal": causal,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    print(f"flash_attention at {tag} (B={B} S={S} Hq={Hq} Hkv={Hkv} d={d} "
+          f"bf16 causal={causal}): max abs err {err:.3e} (atol "
+          f"{FA_ATOL['bfloat16']}); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, sdpa {lib_ms:.4f} ms (device; sdpa vs plain {lib_err:.2e}), "
+          f"bound {bound_ms:.4f} ms "
+          f"({row['bound_by']}), {100 * bound_ms / ms:.1f}% of it [{card}]")
+    del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_breakdown(p, cfg, card):
+    """Device times (graph replays) of one MoE group's stages at granite's
+    prefill group (4,096 bf16 tokens, unit-normal, layer 0's weights): the
+    routing (fp32 router, softmax, top-k, slot counts), the dense dispatch
+    and combine tensors and their casts, the dispatch product, the
+    experts, the combine product, and the whole ``layers._moe_group``,
+    beside the stages' flops."""
+    import torch
+    from repro_torch.models import layers as L
+    dev = p["router"].device
+    G, D, E, k = L.MOE_GROUP, cfg.d_model, cfg.moe.n_experts, cfg.moe.top_k
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xf = torch.randn((G, D), generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(n_experts=E, top_k_=k, capacity_factor=cfg.moe.capacity_factor)
+    routes = L.moe_routes(xf, p["router"], **kw)
+    _, _, gv, pos, keep, cap, onehot = routes
+    dispatch, combine = L.moe_dispatch(onehot, gv, pos, keep, cap)
+    d16, c16 = dispatch.to(xf.dtype), combine.to(xf.dtype)
+    xe = torch.einsum("gec,gd->ecd", d16, xf)
+    ye = L.moe_experts(p, xe, cfg.act)
+    stages = {
+        "routing": lambda: L.moe_routes(xf, p["router"], **kw),
+        "dispatch_tensors": lambda: [t.to(xf.dtype) for t in L.moe_dispatch(
+            onehot, gv, pos, keep, cap)],
+        "dispatch_product": lambda: torch.einsum("gec,gd->ecd", d16, xf),
+        "experts": lambda: L.moe_experts(p, xe, cfg.act),
+        "combine_product": lambda: torch.einsum("gec,ecd->gd", c16, ye),
+        "group": lambda: L._moe_group(p, xf, act=cfg.act, **kw)}
+    out = {name: graph_ms(fn, iters=5, replays=5)
+           for name, fn in stages.items()}
+    n_w = 3 if cfg.act in ("swiglu", "geglu") else 2
+    out["flops"] = {"dispatch_and_combine_products": 2 * 2 * G * E * cap * D,
+                    "experts": 2 * n_w * E * cap * D * cfg.d_ff,
+                    "capacity": cap}
+    parts = sum(v for key, v in out.items() if key not in ("group", "flops"))
+    dense = sum(out[key] for key in ("dispatch_tensors", "dispatch_product",
+                                     "combine_product"))
+    out["dispatch_share"] = dense / parts
+    out["experts_share"] = out["experts"] / parts
+    print(f"MoE group stages at G={G}, E={E}, top-{k}, C={cap}, D={D}, "
+          f"F={cfg.d_ff}, bf16 (device ms, graph replays): "
+          + ", ".join(f"{key} {out[key]:.3f}" for key in stages)
+          + f"; the stages sum to {parts:.3f}; dispatch + combine "
+          f"(tensors and products) {100 * out['dispatch_share']:.1f}% of "
+          f"it, experts {100 * out['experts_share']:.1f}%; flops: "
+          f"products {out['flops']['dispatch_and_combine_products']:.3e}, "
+          f"experts {out['flops']['experts']:.3e} [{card}]")
+    del xf, routes, dispatch, combine, d16, c16, xe, ye
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_extras(cfg, B, S0, rng):
+    sys.path.insert(0, str(ROOT / "examples"))
+    import serve_demo_torch
+    return serve_demo_torch.extras_for(cfg, B, S0, rng)
+
+
+def granite_phase(dev, fa_kernel, fa_ops, fm_kernel, fm_ops, fm_ref, card):
+    """(a): granite-moe-1b-a400m, nothing cut: ``generate``, ``loss_fn``,
+    the kernel at its 16/8 head layout against its plain version, 3 FedMom
+    rounds of ``round_step`` in fp32 with ``fedmom_update`` on the rounds'
+    expert-stack tree held bit-equal to the plain server step, and reduced
+    granite through ``FederatedTrainer`` on ``auto`` (captured chunks)
+    against the per-round plane."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import (DeviceUniformSampler, RoundConfig, fedmom,
+                                  round_step)
+    from repro_torch import random as prng
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+    cfg = get_config(ZOO_MOE).replace(attention_impl="pallas")
+    params, init_s, n = zoo_init(ZOO_MOE, cfg, dev)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (ZOO_B, ZOO_S0))
+    out = {"n_params": n, "init_s": init_s}
+    out["generate"], _ = zoo_serve(
+        ZOO_MOE, params, cfg, prompts, {}, ZOO_NEW, fa_kernel, fa_ops,
+        [(ZOO_S0, True)] * cfg.n_layers, profile=True)
+    tokens = torch.as_tensor(prompts, device=dev)
+    batch = {"tokens": tokens, "labels": tokens}
+    with torch.no_grad():
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            loss, m = T.loss_fn(params, cfg, batch)
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"{ZOO_MOE} loss_fn: {float(loss)}")
+    out["loss_ms"] = statistics.median(times) * 1e3
+    out["loss"], out["aux"] = float(loss), float(m["aux"])
+    with torch.no_grad():
+        wall, rows = profile_rows(lambda: T.loss_fn(params, cfg, batch))
+    busy = sum(r[1] for r in rows)
+    out["loss_busy_share"] = busy / wall
+    from repro_torch.models.layers import MOE_GROUP
+    print(f"{ZOO_MOE} loss_fn B={ZOO_B} x {ZOO_S0} (MoE groups of "
+          f"{MOE_GROUP} tokens): {out['loss_ms']:.1f} ms (median of 3, "
+          f"synced), "
+          f"loss {out['loss']:.4f}, aux {out['aux']:.4f}; profiled: busy "
+          f"{100 * busy / wall:.1f}%; top kernels:")
+    for kname, secs, count in rows[:8]:
+        print(f"  {secs * 1e3:8.3f} ms  {count:6d}x  {kname[:100]}")
+    out["loss_top"] = [(k[:90], round(s * 1e3, 3), c) for k, s, c in rows[:8]]
+    out["moe_stages_ms"] = moe_breakdown(
+        {k: v[0] for k, v in params["groups"]["b0"]["mlp"].items()}, cfg,
+        card)
+    del params, batch, tokens
+    torch.cuda.empty_cache()
+    out["flash_heads"] = flash_at(
+        fa_ops, fa_kernel, card, f"{ZOO_MOE}'s head layout", ZOO_B, ZOO_S0,
+        cfg.n_heads, cfg.n_kv_heads, cfg.d_head, True)
+
+    # 3 FedMom rounds at full size in fp32
+    fcfg = dc.replace(cfg, dtype="float32", attention_impl="xla")
+    params, axes = T.init(fcfg, prng.PRNGKey(0), device=dev)
+    toks = rng.integers(0, cfg.vocab,
+                        (ZOO_ROUNDS, ZOO_M, ZOO_H, ZOO_RB, ZOO_RS + 1))
+    batches = [{"tokens": torch.as_tensor(t[..., :-1], dtype=torch.int32,
+                                          device=dev),
+                "labels": torch.as_tensor(t[..., 1:], dtype=torch.int32,
+                                          device=dev)} for t in toks]
+    weights = torch.full((ZOO_M,), 1.0 / ZOO_M, device=dev)
+    opt = fedmom(eta=1.0, beta=BETA, use_fused_kernel=True)
+    rcfg = RoundConfig(clients_per_round=ZOO_M, local_steps=ZOO_H, lr=GT_LR,
+                       placement="mesh", compute_dtype="float32")
+    state = opt.init(params)
+    router0 = params["groups"]["b0"]["mlp"]["router"].clone()
+    torch.cuda.reset_peak_memory_stats()
+    fm_kernel.launches = 0
+    times, losses = [], []
+    for r in range(ZOO_ROUNDS):
+        t0 = time.perf_counter()
+        state, m = round_step(lambda p, b: T.loss_fn(p, fcfg, b), opt, state,
+                              batches[r], weights, rcfg, param_axes=axes,
+                              device=dev)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    launches = fm_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{ZOO_MOE} rounds: losses {losses}")
+    if torch.equal(state.w["groups"]["b0"]["mlp"]["router"], router0):
+        raise AssertionError(f"{ZOO_MOE} rounds: the router did not move")
+    sizes = [x.numel() for x in leaves(state.w)]
+    tables = len(fm_kernel.tree_plan(sizes, [True] * len(sizes)))
+    if launches != ZOO_ROUNDS * tables:
+        raise AssertionError(f"{ZOO_MOE} rounds: fedmom_update {launches} "
+                             f"launches, want {tables} a round")
+    out["rounds"] = {"ms_per_round": statistics.median(times[1:]) * 1e3,
+                     "first_round_ms": times[0] * 1e3, "losses": losses,
+                     "peak_gb": peak / 1e9, "fedmom_update_launches":
+                         launches, "tree_leaves": len(sizes),
+                     "tree_elements": sum(sizes)}
+    print(f"{ZOO_MOE} fp32, {ZOO_ROUNDS} FedMom rounds of round_step "
+          f"(M={ZOO_M} "
+          f"H={ZOO_H} b={ZOO_RB} seq {ZOO_RS}, fused server): "
+          f"{out['rounds']['ms_per_round']:.1f} ms/round (median of rounds "
+          f"2-{ZOO_ROUNDS}; first {times[0] * 1e3:.1f} ms), peak "
+          f"{peak / 1e9:.2f} GB, losses {losses}, the server moved (router "
+          f"included); fedmom_update {launches} launches ({tables} a round "
+          f"over {len(sizes)} leaves, {sum(sizes)} elements)")
+    del params, batches
+    torch.cuda.empty_cache()
+    out["tree"] = lm_tree_check(ZOO_MOE, state.w, state.extra["v"],
+                                fm_kernel, fm_ops, fm_ref, 1.0, 5)
+    del state
+    torch.cuda.empty_cache()
+
+    # reduced granite on auto (captured chunks) against the per-round plane
+    from repro_torch.data import lm_clients_to_dataset, synthetic_token_clients
+    from repro_torch.launch.plan import ExecutionPlan
+    from repro_torch.launch.train import FederatedTrainer
+    rcfg_ = get_config(ZOO_MOE).reduced().replace(dtype="float32")
+    w0, axes = T.init(rcfg_, prng.PRNGKey(0), device=dev)
+    ds = lm_clients_to_dataset(synthetic_token_clients(
+        16, rcfg_.vocab, tokens_per_client=20_000, seed=0), 128, seed=1)
+    pop = ds.population()
+    runs = {}
+    for plane in ("per_round", "auto"):
+        o = fedmom(eta=pop.n_clients / 4, beta=BETA, use_fused_kernel=True)
+        tr = FederatedTrainer(
+            loss_fn=lambda p, b: T.loss_fn(p, rcfg_, b), server_opt=o,
+            rcfg=RoundConfig(clients_per_round=4, local_steps=2, lr=0.05,
+                             placement="mesh", compute_dtype="float32"),
+            dataset=ds, sampler=DeviceUniformSampler(pop, 4, seed=2),
+            state=o.init(clone_tree(w0)), param_axes=axes, local_batch=4,
+            device=dev)
+        plan = (None if plane == "per_round"
+                else ExecutionPlan(plane="auto", chunk_rounds=ZOO_CR))
+        t0 = time.perf_counter()
+        tr.run(ZOO_TR_ROUNDS, plan=plan, verbose=False)
+        sync(dev)
+        runs[plane] = (tr, time.perf_counter() - t0)
+    tr = runs["auto"][0]
+    resolved = tr.session.plan_log[-1]["plane"]
+    graphs = sum(1 for g in tr.session.graphs.values()
+                 if g.graph is not None)
+    if resolved != "device" or graphs < 1:
+        raise AssertionError(f"reduced {ZOO_MOE} auto: {resolved}, {graphs} "
+                             f"captured chunk shapes")
+    la = [r["loss"] for r in tr.history if "loss" in r]
+    lp = [r["loss"] for r in runs["per_round"][0].history if "loss" in r]
+    drift = tree_max_abs(tr.state.w, runs["per_round"][0].state.w)
+    if not (all(math.isfinite(x) for x in la) and len(la) == len(lp)):
+        raise AssertionError(f"reduced {ZOO_MOE}: losses {la} / {lp}")
+    out["trainer"] = {"resolved": resolved, "captured": graphs,
+                      "drift": drift, "loss_drift": max(
+                          abs(a - b) for a, b in zip(la, lp)),
+                      "auto_s": runs["auto"][1],
+                      "per_round_s": runs["per_round"][1]}
+    print(f"reduced {ZOO_MOE} through FederatedTrainer, {ZOO_TR_ROUNDS} "
+          f"rounds "
+          f"(M=4 H=2 b=4 seq 128, chunks of {ZOO_CR}): auto -> {resolved}, "
+          f"{graphs} chunk shape(s) captured, {runs['auto'][1]:.2f} s; "
+          f"per-round {runs['per_round'][1]:.2f} s; final params drift "
+          f"{drift:.3e}, losses drift {out['trainer']['loss_drift']:.3e} "
+          f"(the embedding's backward scatters with atomics)")
+    del runs, tr, w0
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_phase(dev, fa_kernel, fa_ops, card):
+    """(b): whisper-medium, nothing cut: ``generate`` over stubbed frames
+    (24 non-causal encoder and 24 causal decoder prefill launches), and
+    the kernel alone at the encoder's shape."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(ZOO_ENCDEC).replace(attention_impl="pallas")
+    params, init_s, n = zoo_init(ZOO_ENCDEC, cfg, dev)
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab, (ZOO_B, ZOO_S0))
+    extras = zoo_extras(cfg, ZOO_B, ZOO_S0, rng)
+    want = ([(T.ENC_LEN, False)] * cfg.n_enc_layers
+            + [(ZOO_S0, True)] * cfg.n_layers)
+    out = {"n_params": n, "init_s": init_s}
+    out["generate"], _ = zoo_serve(ZOO_ENCDEC, params, cfg, prompts, extras,
+                                   ZOO_NEW, fa_kernel, fa_ops, want)
+    del params
+    torch.cuda.empty_cache()
+    out["flash_encoder"] = flash_at(
+        fa_ops, fa_kernel, card, f"{ZOO_ENCDEC}'s encoder", ZOO_B, T.ENC_LEN,
+        cfg.n_heads, cfg.n_kv_heads, cfg.d_head, False)
+    return out
+
+
+def qwen2_vl_phase(dev, fa_kernel, fa_ops, card):
+    """(c): qwen2-vl-72b at full width cut to ZOO_VLM_LAYERS layers:
+    ``generate`` with 256 stubbed patches and their M-RoPE grid, and the
+    kernel at its 64/8 head layout against its plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(ZOO_VLM).replace(attention_impl="pallas",
+                                    n_layers=ZOO_VLM_LAYERS)
+    params, init_s, n = zoo_init(f"{ZOO_VLM} cut to {ZOO_VLM_LAYERS} layers",
+                                 cfg, dev)
+    rng = np.random.default_rng(2)
+    prompts = rng.integers(0, cfg.vocab, (ZOO_B, ZOO_S0))
+    extras = zoo_extras(cfg, ZOO_B, ZOO_S0, rng)
+    out = {"n_params": n, "init_s": init_s,
+           "patches": int(extras["patches"].shape[1])}
+    out["generate"], _ = zoo_serve(ZOO_VLM, params, cfg, prompts, extras,
+                                   ZOO_NEW, fa_kernel, fa_ops,
+                                   [(ZOO_S0, True)] * cfg.n_layers)
+    del params
+    torch.cuda.empty_cache()
+    out["flash_heads"] = flash_at(
+        fa_ops, fa_kernel, card, f"{ZOO_VLM}'s head layout", ZOO_B, ZOO_S0,
+        cfg.n_heads, cfg.n_kv_heads, cfg.d_head, True)
+    return out
+
+
+def grok_phase(dev, fa_kernel, fa_ops, card):
+    """(d): grok-1-314b at full width cut to ZOO_GROK_LAYERS layers: a
+    prefill of B=8 x 1024 (2 MoE groups), 8 decode tokens; and the kernel
+    at its 48/8 head layout against its plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(ZOO_GROK).replace(attention_impl="pallas",
+                                     n_layers=ZOO_GROK_LAYERS)
+    params, init_s, n = zoo_init(f"{ZOO_GROK} cut to {ZOO_GROK_LAYERS} layers",
+                                 cfg, dev)
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (ZOO_B, ZOO_S0 + ZOO_GROK_NEW)), device=dev)
+    out = {"n_params": n, "init_s": init_s}
+    with torch.no_grad():
+        for timed in (False, True):
+            cache, _ = T.init_cache(cfg, ZOO_B, ZOO_S0 + ZOO_GROK_NEW,
+                                    device=dev)
+            fa_kernel.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            logits, cache = T.prefill(params, cfg,
+                                      {"tokens": tokens[:, :ZOO_S0]}, cache)
+            sync(dev)
+            t1 = time.perf_counter()
+            for i in range(ZOO_S0, ZOO_S0 + ZOO_GROK_NEW):
+                logits, cache = T.decode_step(params, cfg, cache,
+                                              tokens[:, i:i + 1], i)
+            sync(dev)
+            t2 = time.perf_counter()
+            del cache
+    finite = bool(torch.isfinite(logits).all())
+    if fa_kernel.launches != cfg.n_layers or not finite:
+        raise AssertionError(f"{ZOO_GROK}: {fa_kernel.launches} launches, "
+                             f"finite logits {finite}")
+    out.update(prefill_ms=(t1 - t0) * 1e3,
+               decode_ms_per_token=(t2 - t1) * 1e3 / ZOO_GROK_NEW,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=fa_kernel.launches)
+    print(f"{ZOO_GROK} cut to {ZOO_GROK_LAYERS} layers: prefill B={ZOO_B} x "
+          f"{ZOO_S0} {out['prefill_ms']:.1f} ms, {ZOO_GROK_NEW} decode tokens "
+          f"{out['decode_ms_per_token']:.2f} ms/token (host clock, synced), "
+          f"peak {out['peak_memory_gb']:.2f} GB, flash_attention "
+          f"{fa_kernel.launches} launches")
+    del params, logits
+    torch.cuda.empty_cache()
+    out["flash_heads"] = flash_at(
+        fa_ops, fa_kernel, card, f"{ZOO_GROK}'s head layout", ZOO_B, ZOO_S0,
+        cfg.n_heads, cfg.n_kv_heads, cfg.d_head, True)
+    return out
+
+
+def zoo_card_vs_cpu(dev, name, cfg, batch_rows, s0, n_new, rng):
+    """(e): one cut of a zoo model at full width in fp32, weights drawn on
+    the card and copied to the host: the forward's logits of
+    ``batch_rows`` rows on both, held within ZOO_CMP_TOL on the rows whose
+    MoE routes agree everywhere (the flipped routes counted); then greedy
+    ``generate`` of one row and the prefill + decode logits along the
+    CPU's tokens, held likewise up to the first step with a flipped route
+    (at least the prefill must be held), greedy tokens equal past
+    near-ties over those steps."""
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import generate
+    from repro_torch.tree import tree_map
+    params = {"cuda": T.init(cfg, prng.PRNGKey(1), device=dev)[0]}
+    params["cpu"] = tree_map(lambda x: x.cpu(), params["cuda"])
+    devices = {"cpu": torch.device("cpu"), "cuda": dev}
+    toks = rng.integers(0, cfg.vocab, (batch_rows, s0))
+    extras = zoo_extras(cfg, batch_rows, s0, rng)
+    logits, routes = {}, {}
+    for d, device in devices.items():
+        b = {"tokens": torch.as_tensor(toks, device=device)}
+        b.update({k: torch.as_tensor(v, device=device)
+                  for k, v in extras.items()})
+        with RouteRecorder() as rec, torch.no_grad():
+            logits[d] = T.apply(params[d], cfg, b)[0].cpu()
+        routes[d] = rec.routes
+    flips, rows, margin = route_flips(routes["cpu"], routes["cuda"],
+                                      batch_rows)
+    if not rows:
+        raise AssertionError(f"{name}: every row has a flipped route "
+                             f"({flips} routes)")
+    a, b = logits["cuda"][rows], logits["cpu"][rows]
+    diff = float((a - b).abs().max())
+    if not torch.allclose(a, b, atol=ZOO_CMP_TOL, rtol=ZOO_CMP_TOL):
+        raise AssertionError(f"{name}: card and CPU forward logits differ "
+                             f"by {diff:.3e} (atol/rtol {ZOO_CMP_TOL})")
+    out = {"forward_max_abs_diff": diff, "route_flips": flips,
+           "rows_held": len(rows), "rows": batch_rows}
+    line = (f"{name} fp32 card vs CPU: forward B={batch_rows} x {s0} logits "
+            f"within {diff:.3e} on {len(rows)} of {batch_rows} rows "
+            f"(atol/rtol {ZOO_CMP_TOL})")
+    if cfg.moe:
+        line += (f"; {flips} (token, slot) MoE routes flipped"
+                 + (f" (smallest top-k margin among them {margin:.2e})"
+                    if flips else ""))
+    # greedy generate of the first row, teacher-forced logits along it
+    ex1 = {k: v[:, :1] if k == "mrope_positions" else v[:1]
+           for k, v in extras.items()}
+    gen, tf, steps = {}, {}, {}
+    for d, device in devices.items():
+        with torch.no_grad():
+            gen[d] = generate(params[d], cfg, toks[:1], n_new, extras=ex1)
+    for d, device in devices.items():
+        steps[d] = []
+        tf[d] = teacher_forced_logits(params[d], cfg, gen["cpu"].tokens, s0,
+                                      n_new, device, extras=ex1,
+                                      routes=steps[d])
+    # the steps held: those before the first with a flipped route
+    held, gflips = n_new, 0
+    for i, (a, b) in enumerate(zip(steps["cpu"], steps["cuda"])):
+        gflips = route_flips(a, b, 1)[0]
+        if gflips:
+            held = i
+            break
+    if held == 0:
+        raise AssertionError(f"{name}: the prefill's MoE routes flipped "
+                             f"({gflips}); no step of the decode held")
+    gdiff = float((tf["cuda"][:held] - tf["cpu"][:held]).abs().max())
+    if not torch.allclose(tf["cuda"][:held], tf["cpu"][:held],
+                          atol=ZOO_CMP_TOL, rtol=ZOO_CMP_TOL):
+        raise AssertionError(f"{name}: prefill/decode logits differ by "
+                             f"{gdiff:.3e} over the {held} steps held")
+    new_cpu, new_card, checked = held_greedy_tokens(
+        gen, tf["cpu"], s0, held, ZOO_CMP_TOL)
+    out.update(decode_max_abs_diff=gdiff, decode_steps_held=held,
+               decode_route_flips=gflips, greedy_held=checked)
+    line += (f"; prefill + decode logits within {gdiff:.3e} over {held} of "
+             f"{n_new} steps"
+             + (f" (step {held} has {gflips} flipped routes)"
+                if held < n_new else "")
+             + f", greedy tokens cpu {new_cpu.tolist()} card "
+             f"{new_card.tolist()} ({checked} of {held} held, the rest "
+             f"near-ties)")
+    print(line)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_phase(dev, fa_kernel, fa_ops, fm_kernel, fm_ops, fm_ref, card):
+    """Phase 23: the MoE, encoder-decoder and VLM families on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    out = {"part_s": {}}
+    t0 = time.perf_counter()
+
+    def part(key, fn, *args):
+        t = time.perf_counter()
+        out[key] = fn(*args)
+        out["part_s"][key] = time.perf_counter() - t
+        print(f"  ({key}: {out['part_s'][key]:.1f} s)")
+
+    part("granite", granite_phase, dev, fa_kernel, fa_ops, fm_kernel, fm_ops,
+         fm_ref, card)
+    part("whisper", whisper_phase, dev, fa_kernel, fa_ops, card)
+    part("qwen2_vl", qwen2_vl_phase, dev, fa_kernel, fa_ops, card)
+    part("grok", grok_phase, dev, fa_kernel, fa_ops, card)
+    rng = np.random.default_rng(5)
+    cmp = {}
+    for key, arch, kw, rows, s0 in (
+            ("granite", ZOO_MOE, dict(n_layers=2), 4, ZOO_CMP_S0),
+            ("whisper", ZOO_ENCDEC, dict(n_layers=2, n_enc_layers=2), 2,
+             ZOO_CMP_S0),
+            ("qwen2_vl", ZOO_VLM, dict(n_layers=1), 2, ZOO_CMP_VLM_S0)):
+        cfg = get_config(arch).replace(dtype="float32",
+                                       attention_impl="pallas", **kw)
+        t = time.perf_counter()
+        cmp[key] = zoo_card_vs_cpu(dev, f"{arch} cut to {kw}", cfg, rows,
+                                   s0, ZOO_CMP_NEW, rng)
+        out["part_s"][f"cmp_{key}"] = time.perf_counter() - t
+        print(f"  (card vs CPU, {key}: {out['part_s'][f'cmp_{key}']:.1f} s)")
+    out["card_vs_cpu"] = cmp
+    out["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     import torch
     argv = sys.argv[1:] if argv is None else argv
     only_lm = "--only-lm" in argv
     only_mesh = "--only-mesh" in argv
     only_nccl = "--only-mesh-nccl" in argv
+    only_zoo = "--only-zoo" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false — this "
               "script needs a CUDA card", file=sys.stderr)
@@ -4470,6 +5213,15 @@ def main(argv=None) -> int:
         phase(None)
         print(json.dumps({"card": card, "lm": lm}, default=str))
         print("--only-lm: phases 1, 2 and 21 only; no result line")
+        return 0
+    if only_zoo:
+        # a development run of the zoo's phase alone: no result line
+        phase("23. the rest of the zoo (alone)")
+        zoo = zoo_phase(torch.device("cuda"), fa_kernel, fa_ops, fm_kernel,
+                        fm_ops, fm_ref, card)
+        phase(None)
+        print(json.dumps({"card": card, "zoo": zoo}, default=str))
+        print("--only-zoo: phases 1, 2 and 23 only; no result line")
         return 0
     if only_mesh or only_nccl:
         # a development run of the mesh phase (or of its NCCL ranks) alone:
@@ -4757,7 +5509,13 @@ def main(argv=None) -> int:
     mesh = mesh_phase(dev, fm_kernel)
 
     # ------------------------------------------------------------------
-    phase("23. kernels")
+    phase("23. the rest of the zoo: granite-moe-1b-a400m and whisper-medium "
+          "at full width, qwen2-vl-72b and grok-1-314b cut in depth, card "
+          "against CPU")
+    zoo = zoo_phase(dev, fa_kernel, fa_ops, fm_kernel, fm_ops, fm_ref, card)
+
+    # ------------------------------------------------------------------
+    phase("24. kernels")
     bound_ms = timing[("fedmom", n_main)][2]
     large_ms, _, large_bound_ms = timing[("fedmom", 2 ** 26 + 3)]
     cs_ms, cs_plain_ms, cs_bound_ms, cs_v1_ms, cs_ring = cs_timing[cs_top]
@@ -4780,6 +5538,7 @@ def main(argv=None) -> int:
         "card": card, "phase_seconds": _PHASE["seconds"],
         "main_path_ms_per_round": ms_round,
         "lm": lm,
+        "zoo": zoo,
         "fedmom_update_tree": fm_tree,
         "torch_streaming_ms_and_bound_ms": {
             name: t for (k, name), t in timing.items() if k == "stream"},
@@ -4839,7 +5598,11 @@ def main(argv=None) -> int:
             "shakespeare_fedmom_profiled": lm["shakespeare"]["FedMom"][
                 "fedmom_update_launches"]},
         "lm_trees": {"fed_llm_100m": lm["fed_llm_tree"],
-                     "gemma3_1b": lm["gemma_tree"]},
+                     "gemma3_1b": lm["gemma_tree"],
+                     "granite_moe_1b_a400m": zoo["granite"]["tree"]},
+        "zoo_launches": {
+            "granite_moe_rounds": zoo["granite"]["rounds"][
+                "fedmom_update_launches"]},
         "mesh_launches": dict(
             {f"nccl1_{lane}": mesh["a"][lane]["mesh_launches"]
              for lane in ("device", "padded", "bucketed")},
@@ -4895,7 +5658,18 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:94",
         "launches": serving["launches"],
-        "max_abs_err": fa_err,
+        "zoo_launches": {
+            "granite_moe_generate": zoo["granite"]["generate"]["launches"],
+            "whisper_generate": zoo["whisper"]["generate"]["launches"],
+            "qwen2_vl_generate": zoo["qwen2_vl"]["generate"]["launches"],
+            "grok_prefill": zoo["grok"]["launches"]},
+        "zoo_shapes": {"whisper_encoder": zoo["whisper"]["flash_encoder"],
+                       "granite_heads": zoo["granite"]["flash_heads"],
+                       "qwen2_vl_heads": zoo["qwen2_vl"]["flash_heads"],
+                       "grok_heads": zoo["grok"]["flash_heads"]},
+        "max_abs_err": max(fa_err, zoo["whisper"]["flash_encoder"][
+            "max_abs_err"], *(zoo[k]["flash_heads"]["max_abs_err"]
+                              for k in ("granite", "qwen2_vl", "grok"))),
         "ms": per_launch(0),
         "plain_ms": per_launch(1),
         "bound_ms": per_launch(2),

@@ -4,7 +4,9 @@ on the server (eta = K/M, beta 0.9) and SGD on the clients.
 
 The port's counterpart of ``examples/federated_llm.py``, with its flags and
 defaults (16 clients x 20,000 tokens, M=4, H=2, b=4, seq 128, lr 0.05, 30
-rounds).  ``--arch`` trains a reduced zoo architecture in fp32 instead.
+rounds).  ``--arch`` trains a reduced zoo architecture in fp32 instead
+(a text family: dense, MoE, RG-LRU or RWKV6; the token corpora carry no
+frames or patches for the encoder-decoder or the VLM).
 Runs on the card by default; ``--device cpu`` runs on the CPU:
 
     PYTHONPATH=src python examples/federated_llm_torch.py --rounds 30
@@ -12,6 +14,8 @@ Runs on the card by default; ``--device cpu`` runs on the CPU:
         --fused-server
     PYTHONPATH=src python examples/federated_llm_torch.py --device cpu \
         --arch gemma3-1b --rounds 5 --seq 32
+    PYTHONPATH=src python examples/federated_llm_torch.py --device cpu \
+        --arch granite-moe-1b-a400m --rounds 5 --seq 32 --plan auto
 
 ``--plan`` picks the execution plane (per-round by default; ``scanned``,
 ``device`` and ``auto`` run chunks of ``--chunk-rounds`` rounds, each one

@@ -1,22 +1,22 @@
-"""Residual blocks of the zoo's ported families (ATTN / LOCAL / RGLRU / RWKV)
-with the reference's ``init_block`` / ``apply_block`` / ``init_block_cache``
+"""Residual blocks of the zoo (ATTN / LOCAL / RGLRU / RWKV) with the
+reference's ``init_block`` / ``apply_block`` / ``init_block_cache``
 interface.
 
 The port's counterpart of the JAX package's ``models/blocks.py`` for global
-and sliding-window attention blocks, the RG-LRU recurrent block (conv1d +
-RG-LRU mixing) and the RWKV6 block (time mix + channel mix).
-``apply_block(p, cfg, kind, x, ctx)`` returns ``(x, cache, aux)`` where
-``ctx`` carries mode ('train' | 'prefill' | 'decode'), rope tables, the
-per-block cache and the decode position.  Caches are updated in place
-(slice assignment or ``copy_`` into the tensors ``init_block_cache``
-allocated, which may be views of a stacked cache) and returned, where the
-reference returns new arrays from ``dynamic_update_slice`` on a donated
-cache.
+and sliding-window attention blocks (with a dense or MoE MLP, and with
+cross-attention in an encoder-decoder's decoder), the RG-LRU recurrent
+block (conv1d + RG-LRU mixing) and the RWKV6 block (time mix + channel
+mix).  ``apply_block(p, cfg, kind, x, ctx)`` returns ``(x, cache, aux)``
+where ``ctx`` carries mode ('train' | 'prefill' | 'decode'), rope tables,
+the per-block cache, the decode position and (enc-dec) the encoder output
+(``enc_vk``, see ``_cross_mix``); aux is the MoE load-balance loss (a
+tensor) or 0.0.  Caches are updated in place (slice assignment or
+``copy_`` into the tensors ``init_block_cache`` allocated, which may be
+views of a stacked cache) and returned, where the reference returns new
+arrays from ``dynamic_update_slice`` on a donated cache.
 
-Cross-attention, MoE and learned positions raise ``NotImplementedError``
-naming the ROADMAP item that brings them; nothing falls back.  Abstract
-mode (``KeyGen(None)``) belongs with the dry-run tools (ROADMAP Queue 1,
-tooling and benchmarks).
+Abstract mode (``KeyGen(None)``) belongs with the dry-run tools (ROADMAP
+Queue 1, tooling and benchmarks) and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -112,14 +112,22 @@ def split_pt(pairs: dict):
 
 
 # ---------------------------------------------------------------------------
-# MLP params
+# MLP / MoE params
 # ---------------------------------------------------------------------------
 def init_mlp(kg: KeyGen, cfg: ModelConfig, dtype):
-    if cfg.moe:
-        raise NotImplementedError(
-            "MoE MLPs come with the MoE slice (ROADMAP Queue 1, the rest of "
-            "the zoo: MoE)")
     D, F = cfg.d_model, cfg.d_ff
+    if cfg.moe:
+        E = cfg.moe.n_experts
+        ed, ef = ("expert", "embed", "expert_mlp"), ("expert", "expert_mlp",
+                                                     "embed")
+        pairs = {
+            "router": _dense(kg, (D, E), ("embed", "expert"), torch.float32),
+            "wi_up": _dense(kg, (E, D, F), ed, dtype),
+            "wo": _dense(kg, (E, F, D), ef, dtype),
+        }
+        if cfg.act in ("swiglu", "geglu"):
+            pairs["wi_gate"] = _dense(kg, (E, D, F), ed, dtype)
+        return split_pt(pairs)
     pairs = {
         "wi_up": _dense(kg, (D, F), ("embed", "mlp"), dtype),
         "wo": _dense(kg, (F, D), ("mlp", "embed"), dtype),
@@ -131,14 +139,15 @@ def init_mlp(kg: KeyGen, cfg: ModelConfig, dtype):
 
 def apply_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor):
     if cfg.moe:
-        raise NotImplementedError(
-            "MoE MLPs come with the MoE slice (ROADMAP Queue 1, the rest of "
-            "the zoo: MoE)")
+        return L.moe_apply(p, x, n_experts=cfg.moe.n_experts,
+                           top_k=cfg.moe.top_k,
+                           capacity_factor=cfg.moe.capacity_factor,
+                           act=cfg.act, dispatch=cfg.moe_dispatch)
     return L.mlp_apply(p, x, cfg.act), 0.0
 
 
 # ---------------------------------------------------------------------------
-# attention blocks (global + sliding window)
+# attention blocks (global + sliding window, optional cross-attention)
 # ---------------------------------------------------------------------------
 def init_attn_params(kg: KeyGen, cfg: ModelConfig, dtype, *, kv_heads=None):
     D, Hq, Dh = cfg.d_model, cfg.n_heads, cfg.d_head
@@ -229,12 +238,11 @@ def init_rglru_block(kg: KeyGen, cfg: ModelConfig, dtype):
 
 def init_block(kg: KeyGen, cfg: ModelConfig, kind: str, dtype, *,
                cross: bool = False):
+    """One block's parameters, drawn in the reference's order; ``cross``
+    adds an ATTN / LOCAL block's cross-attention (``lnx``, then ``xattn``
+    with as many KV heads as query heads) after its MLP."""
     if kind not in (ATTN, LOCAL, RGLRU, RWKV):
         raise ValueError(kind)
-    if cross:
-        raise NotImplementedError(
-            "cross-attention (encoder-decoder) comes with the enc-dec slice "
-            "(ROADMAP Queue 1, the rest of the zoo: encoder-decoder)")
     if kind == RWKV:
         return init_rwkv_block(kg, cfg, dtype)
     if kind == RGLRU:
@@ -246,6 +254,9 @@ def init_block(kg: KeyGen, cfg: ModelConfig, kind: str, dtype, *,
         "ln2": _zeros((D,), ("embed",), torch.float32, kg=kg),
         "mlp": init_mlp(kg, cfg, dtype),
     }
+    if cross:
+        sub["lnx"] = _zeros((D,), ("embed",), torch.float32, kg=kg)
+        sub["xattn"] = init_attn_params(kg, cfg, dtype, kv_heads=cfg.n_heads)
     return split_pt(sub)
 
 
@@ -324,6 +335,40 @@ def _attn_mix(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     cache["pos"][slot] = pos
     out = L.attention(q, ck.to(q.dtype), cv.to(q.dtype), causal=True,
                       q_offset=pos, window=window, k_positions=cache["pos"])
+    return out, cache
+
+
+def _cross_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict):
+    """Encoder-decoder cross-attention (full heads, no rope, non-causal),
+    on the plain attention path as in the reference.  Train and prefill
+    project the encoder's output, ``ctx['enc_vk']``: the same tensor
+    once for the V and once for the K projection.  A remat node takes
+    them as two inputs, in that order, so their grads reach the encoder
+    one at a time in the order they do without remat (V's first: it was
+    projected last), and fp32 sums them alike.  Prefill writes those K/V
+    into the cache (sized to the encoder's length by
+    ``transformer.prefill``), decode reads them.  Returns (out, cache),
+    the cache None in train mode."""
+    mode = ctx["mode"]
+    cache = ctx.get("cache")
+    q = L.proj(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    if mode == "decode":
+        out = L.attention(q, cache["xk"].to(q.dtype), cache["xv"].to(q.dtype),
+                          causal=False)
+        return out, cache
+    enc_v, enc_k = ctx["enc_vk"]
+    k = L.proj(enc_k, p["wk"])
+    v = L.proj(enc_v, p["wv"])
+    if cfg.qkv_bias:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    out = L.attention(q, k, v, causal=False)
+    if mode == "train":
+        return out, None
+    cache["xk"].copy_(k)
+    cache["xv"].copy_(v)
     return out, cache
 
 
@@ -475,6 +520,13 @@ def apply_block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     new_cache = {}
     if self_cache is not None:
         new_cache["self"] = self_cache
+    if "xattn" in p:
+        h = L.rms_norm(x, p["lnx"], cfg.norm_eps)
+        sub_ctx = dict(ctx, cache=cache.get("cross"))
+        mix, cross_cache = _cross_mix(p["xattn"], cfg, h, sub_ctx)
+        x = x + L.proj(mix, p["xattn"]["wo"], 2)
+        if cross_cache is not None:
+            new_cache["cross"] = cross_cache
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = apply_mlp(p["mlp"], cfg, h)
     x = x + y
@@ -486,11 +538,9 @@ def apply_block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, *, cross_len: int = 0, device=None):
-    """Returns (cache, axes) twin trees for one block, on ``device``."""
-    if cross_len:
-        raise NotImplementedError(
-            "cross-attention caches come with the enc-dec slice "
-            "(ROADMAP Queue 1, the rest of the zoo: encoder-decoder)")
+    """Returns (cache, axes) twin trees for one block, on ``device``;
+    ``cross_len`` adds the cross-attention K/V [batch, cross_len, n_heads,
+    d_head]."""
     Hkv, Dh = cfg.n_kv_heads, cfg.d_head
     kv_axes = ("batch", "seq", "kv_heads", "head_dim")
     if kind == ATTN:
@@ -542,4 +592,9 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         }
     else:
         raise ValueError(kind)
+    if cross_len:
+        shape = (batch, cross_len, cfg.n_heads, Dh)
+        axes = ("batch", "seq", "heads", "head_dim")
+        c["cross"] = {"xk": _zeros(shape, axes, dtype, device=device),
+                      "xv": _zeros(shape, axes, dtype, device=device)}
     return split_pt(c)

@@ -1,19 +1,20 @@
-"""Primitive layers of the zoo's ported families, over explicit tensors.
+"""Primitive layers of the zoo's families, over explicit tensors.
 
-The port's counterpart of the JAX package's ``models/layers.py``, for what
-the dense, RG-LRU and RWKV6 paths use: the norms, 1-D rotary embeddings,
-the q-chunked masked attention (the plain path that
-``attention_impl="xla"`` selects, and decode at any setting), the dense
-MLP, the RG-LRU layer (gates, the log-depth ``rglru_scan`` for forward and
-prefill, ``rglru_step`` for decode, the depthwise ``causal_conv1d``) and
-the RWKV6 recurrence (``rwkv6_chunked`` for forward and prefill, the plain
-path that ``rwkv_impl="xla"`` selects; ``rwkv6_step`` for decode).  Every
-product of an activation with a weight goes through ``proj``, which
+The port's counterpart of the JAX package's ``models/layers.py``: the
+norms, 1-D rotary embeddings and M-RoPE (``mrope_tables``), the q-chunked
+masked attention (the plain path that ``attention_impl="xla"`` selects,
+and decode and cross-attention at any setting), the dense MLP, the
+capacity-based token-choice MoE (``moe_apply``), the RG-LRU layer (gates,
+the log-depth ``rglru_scan`` for forward and prefill, ``rglru_step`` for
+decode, the depthwise ``causal_conv1d``) and the RWKV6 recurrence
+(``rwkv6_chunked`` for forward and prefill, the plain path that
+``rwkv_impl="xla"`` selects; ``rwkv6_step`` for decode).  Every product of
+an activation with a dense weight goes through ``proj``, which
 ``remat_policy="dots"`` records in the forward and reads back in the
-recompute (``models/transformer.py``).  The reference's ``shard`` layout
-hints are identities on one card and are left out.  ``mrope_tables`` and
-``moe_apply`` come with their slices (ROADMAP Queue 1, the rest of the
-zoo: MoE and VLM).
+recompute (``models/transformer.py``); ``moe_apply``'s products are
+recomputed (its groups may run under ``torch.func.vmap``, whose batched
+values cannot be kept past it).  The reference's ``shard`` layout hints
+are identities on one card and are left out.
 """
 from __future__ import annotations
 
@@ -139,17 +140,39 @@ def head_rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# rotary embeddings (1-D)
+# rotary embeddings (1-D and M-RoPE)
 # ---------------------------------------------------------------------------
+def _rope_freqs(half: int, theta: float, device) -> torch.Tensor:
+    exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(torch.full((), theta, dtype=torch.float32,
+                                device=device), exps)
+
+
 def rope_tables(positions: torch.Tensor, d_head: int, theta: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions [B, S] -> (sin, cos) each [B, S, d_head//2], fp32."""
-    half = d_head // 2
-    exps = -torch.arange(0, half, dtype=torch.float32,
-                         device=positions.device) / half
-    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
-                                 device=positions.device), exps)
+    freqs = _rope_freqs(d_head // 2, theta, positions.device)
     ang = positions.to(torch.float32)[..., None] * freqs   # [B,S,half]
+    return torch.sin(ang), torch.cos(ang)
+
+
+def mrope_tables(positions: torch.Tensor, d_head: int, theta: float,
+                 sections: Tuple[int, ...]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE (Qwen2-VL): positions [3, B, S] (t/h/w ids); the d_head//2
+    frequency slots are partitioned into ``sections`` (must sum to
+    d_head//2), each driven by its own position stream.  Returns (sin,
+    cos) each [B, S, d_head//2], fp32."""
+    half = d_head // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = _rope_freqs(half, theta, positions.device)
+    ang_all = positions.to(torch.float32)[..., None] * freqs  # [3,B,S,half]
+    pieces = []
+    start = 0
+    for i, sec in enumerate(sections):
+        pieces.append(ang_all[i, ..., start:start + sec])
+        start += sec
+    ang = torch.cat(pieces, dim=-1)                           # [B,S,half]
     return torch.sin(ang), torch.cos(ang)
 
 
@@ -273,6 +296,131 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         raise ValueError(act)
     return proj(h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts: capacity-based token-choice dispatch in the
+# reference's einsum form (dense [G, E, C] dispatch and combine tensors)
+# ---------------------------------------------------------------------------
+MOE_GROUP = 4096
+
+
+def one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: exact 0/1 rows, all zero for an id outside
+    [0, n).  Made by comparison with an ``arange``: ``F.one_hot`` checks
+    its ids' range on the host, which ``torch.func.vmap`` and a CUDA-graph
+    capture refuse."""
+    ids = torch.arange(n, device=idx.device, dtype=idx.dtype)
+    return (idx[..., None] == ids).to(dtype)
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest values, equal
+    values by lower index first (a stable descending sort; ``torch.topk``
+    promises no order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_routes(xf: torch.Tensor, router: torch.Tensor, *, n_experts: int,
+               top_k_: int, capacity_factor: float):
+    """One group's routing, x [G, D] -> (probs [G,E] fp32, gate_idx [G,k],
+    gate_vals [G,k] renormalised and zeroed where dropped, pos [G,k] the
+    slot within the expert (fp32), keep [G,k], the capacity C, the
+    routes' one-hots [G,k,E] fp32).  The router is
+    fp32 whatever x's dtype; the capacity is ``ceil(k G cf / E)``; a
+    (token, slot) keeps its place while fewer than C earlier ones (in
+    token-major, slot-minor order) chose the same expert."""
+    G = xf.shape[0]
+    f32 = torch.float32
+    probs = torch.softmax(xf.to(f32) @ router.to(f32), dim=-1)     # [G,E]
+    gate_vals, gate_idx = top_k(probs, top_k_)                      # [G,k]
+    gate_vals = gate_vals / (torch.sum(gate_vals, -1, keepdim=True) + 1e-9)
+    cap = int(max(1, math.ceil(top_k_ * G * capacity_factor / n_experts)))
+    onehot = one_hot(gate_idx, n_experts, f32)                      # [G,k,E]
+    # the running count of each expert's (token, slot) routes, in
+    # token-major, slot-minor order: a cumsum of 0/1 values, exact in fp32
+    # in any order, taken along the last axis of the [E, G*k] transpose
+    # (CUDA's scan along a long leading axis of E columns runs E threads)
+    counts = torch.cumsum(onehot.reshape(G * top_k_, n_experts).t(), dim=1)
+    pos_in_expert = counts.t().reshape(G, top_k_, n_experts) - onehot
+    pos = torch.sum(pos_in_expert * onehot, dim=-1)                 # [G,k]
+    keep = pos < cap
+    return probs, gate_idx, gate_vals * keep, pos, keep, cap, onehot
+
+
+def moe_dispatch(onehot: torch.Tensor, gate_vals: torch.Tensor,
+                 pos: torch.Tensor, keep: torch.Tensor, cap: int):
+    """The dense dispatch and combine tensors [G, E, C] fp32 of one
+    group's routes (``moe_routes``): 1 (dispatch) or the gate (combine)
+    where token g holds slot c of expert e.  Each (g, e, c) has at most
+    one (token, slot) term, so both are exact whatever the summation
+    order."""
+    pos_oh = one_hot(pos, cap, torch.float32) * keep[..., None]
+    dispatch = torch.einsum("gke,gkc->gec", onehot, pos_oh)
+    combine = torch.einsum("gke,gkc->gec", onehot * gate_vals[..., None],
+                           pos_oh)
+    return dispatch, combine
+
+
+def moe_experts(p: dict, xe: torch.Tensor, act: str) -> torch.Tensor:
+    """Every expert's MLP on its C slots: xe [E, C, D] -> [E, C, D]."""
+    if act in ("swiglu", "geglu"):
+        g = torch.bmm(xe, p["wi_gate"])
+        u = torch.bmm(xe, p["wi_up"])
+        g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
+        h = g * u
+    else:
+        h = F.gelu(torch.bmm(xe, p["wi_up"]), approximate="tanh")
+    return torch.bmm(h, p["wo"])
+
+
+def _moe_group(p: dict, xf: torch.Tensor, *, n_experts: int, top_k_: int,
+               capacity_factor: float, act: str):
+    """One group of tokens, x [G, D] -> (y [G, D], aux fp32 scalar)."""
+    probs, _, gate_vals, pos, keep, cap, onehot = moe_routes(
+        xf, p["router"], n_experts=n_experts, top_k_=top_k_,
+        capacity_factor=capacity_factor)
+    dispatch, combine = moe_dispatch(onehot, gate_vals, pos, keep, cap)
+    xe = torch.einsum("gec,gd->ecd", dispatch.to(xf.dtype), xf)     # [E,C,D]
+    ye = moe_experts(p, xe, act)
+    y = torch.einsum("gec,ecd->gd", combine.to(xf.dtype), ye)
+
+    # Shazeer load-balance aux loss: E * sum_e fraction_e * router_prob_e
+    frac = torch.mean(onehot.sum(1), dim=0)                          # [E]
+    prob = torch.mean(probs, dim=0)                                  # [E]
+    return y, n_experts * torch.sum(frac * prob)
+
+
+def moe_apply(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
+              capacity_factor: float, act: str,
+              group_size: int = MOE_GROUP, dispatch: str = "map"):
+    """x [B,S,D] -> (y [B,S,D], aux_loss fp32 scalar).
+
+    Tokens are routed in groups of ``group_size`` (capacity applies per
+    group): with more tokens than that, the group is halved until it
+    divides B*S.  ``dispatch="vmap"`` runs the groups batched
+    (``torch.func.vmap``), any other value one after another; the aux is
+    the groups' mean.  Experts are [E, D, F] / [E, F, D] weights, the
+    router [D, E] fp32."""
+    B, S, D = x.shape
+    kw = dict(n_experts=n_experts, top_k_=top_k,
+              capacity_factor=capacity_factor, act=act)
+    G_all = B * S
+    if G_all <= group_size:
+        y, aux = _moe_group(p, x.reshape(G_all, D), **kw)
+        return y.reshape(B, S, D), aux
+    g = group_size
+    while G_all % g:
+        g //= 2
+    xg = x.reshape(G_all // g, g, D)
+    if dispatch == "vmap":
+        y, aux = torch.func.vmap(lambda xi: _moe_group(p, xi, **kw))(xg)
+    else:
+        outs = [_moe_group(p, xi, **kw) for xi in torch.unbind(xg)]
+        y = torch.stack([o[0] for o in outs])
+        aux = torch.stack([o[1] for o in outs])
+    return y.reshape(B, S, D), torch.mean(aux)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Architecture assembly of the zoo's ported families: embedding, the
-(optionally stacked) heterogeneous block stack, KV / ring-buffer, RG-LRU
-and RWKV recurrent-state caches, the forward loss, prefill and decode.
+"""Architecture assembly of the zoo: embedding, the (optionally stacked)
+heterogeneous block stack, enc-dec wiring, KV / ring-buffer / cross-
+attention, RG-LRU and RWKV recurrent-state caches, the forward loss,
+prefill and decode.
 
 The port's counterpart of the JAX package's ``models/transformer.py``:
 
@@ -14,11 +15,27 @@ The port's counterpart of the JAX package's ``models/transformer.py``:
 Parameter and cache trees have the reference's structure, keys, shapes and
 dtypes: with ``cfg.scan_layers`` and more than one whole pattern period,
 ``groups`` holds every leaf stacked ``[n_groups, ...]`` and ``rem`` the
-trailing layers, so a tree carries across packages as numpy
+trailing layers (an encoder's ``encoder`` stack likewise, or ``l{i}``
+layers unstacked), so a tree carries across packages as numpy
 (``repro_torch.interop``).  The stacked groups run as a Python loop over
 views of the stack (the counterpart of ``lax.scan``), and caches are
 written in place.  ``init`` and ``init_cache`` run on ``cuda`` unless the
 caller passes ``device``; the other functions run where their tensors lie.
+
+Every family of the zoo runs: dense (ATTN / LOCAL blocks, 1-D rope), MoE
+(the MLP through ``layers.moe_apply``; the load-balance aux enters the
+loss as ``aux_loss_weight * aux / n_layers``), the RG-LRU hybrids (the
+recurrence runs the log-depth ``layers.rglru_scan`` as in the reference,
+which wires its ``rglru_scan`` kernel into no model), RWKV6
+(``rwkv_impl="pallas"`` sends the forward's recurrence through the CUDA
+``rwkv6_scan`` kernel, prefill and decode keep the plain
+``rwkv6_chunked`` / ``rwkv6_step`` as in the reference), the
+encoder-decoder (whisper: learned positions, a stubbed frame frontend
+``frontend_proj``, a non-causal encoder stack, cross-attention in every
+decoder block) and the VLM (qwen2-vl: stubbed patch embeddings projected
+over the first positions, M-RoPE from ``batch['mrope_positions']``
+[3, B, S]).  Abstract mode, ``abstract_params`` and ``logical_axes`` come
+with the dry-run tools (ROADMAP Queue 1, tooling and benchmarks).
 
 ``loss_fn`` trains under ``torch.func`` (the round engine's
 ``vmap(grad_and_value)``) and plain autograd alike.  With ``cfg.remat``
@@ -26,24 +43,15 @@ each stacked group is rematerialized as the reference's
 ``jax.checkpoint`` does: one ``autograd.Function`` (``_RematGroup``, with
 ``generate_vmap_rule``, so ``torch.func`` transforms it, which
 ``torch.utils.checkpoint`` does not allow) keeps the group's inputs and
-recomputes the group under ``torch.func.vjp`` in the backward.
-``remat_policy="dots"`` also keeps the outputs of the group's weight
-products (``layers.proj``), which the recompute reads instead of
-multiplying again.  Remat changes memory, not values: the grads are the
-ones without it, bit for bit on the CPU.  The remainder layers are not
-rematerialized, as in the reference.
-
-Dense families (ATTN / LOCAL blocks, 1-D rope), the RG-LRU hybrids
-(RGLRU and LOCAL blocks; the recurrence runs the log-depth
-``layers.rglru_scan`` as in the reference, which wires its ``rglru_scan``
-kernel into no model) and RWKV6 (RWKV blocks, no positions;
-``rwkv_impl="pallas"`` sends the forward's recurrence through the CUDA
-``rwkv6_scan`` kernel, prefill and decode keep the plain
-``rwkv6_chunked`` / ``rwkv6_step`` as in the reference).  MoE,
-encoder-decoder, learned positions and the VLM frontend raise
-``NotImplementedError`` naming their ROADMAP items.  Abstract mode,
-``abstract_params`` and ``logical_axes`` come with the dry-run tools
-(ROADMAP Queue 1, tooling and benchmarks).
+recomputes the group under ``torch.func.vjp`` in the backward; a MoE
+group's aux is a differentiable output of it, so the router keeps its
+load-balance gradient.  ``remat_policy="dots"`` also keeps the outputs of
+the group's weight products (``layers.proj``), which the recompute reads
+instead of multiplying again.  A stacked encoder is rematerialized layer
+by layer under the full policy, as the reference's ``_encode`` does.
+Remat changes memory, not values: the grads are the ones without it, bit
+for bit on the CPU.  The remainder layers are not rematerialized, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -55,8 +63,14 @@ from repro_torch import random as prng
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ATTN, ModelConfig
 from repro_torch.tree import leaves, tree_map, unflatten_like
+
+# encoder sequence length for the stubbed audio frontend (whisper-medium
+# natively produces 1500 frames; the reference rounds it to 1536)
+ENC_LEN = 1536
+# number of (stubbed) image patch embeddings prepended for VLM inputs
+VLM_PATCHES = 256
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -69,20 +83,18 @@ def _stack_axes(axes_tree):
     return ("layers",) + axes_tree
 
 
-def _check_supported(cfg: ModelConfig):
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            "encoder-decoder models come with the enc-dec slice (ROADMAP "
-            "Queue 1, the rest of the zoo: encoder-decoder)")
-    if cfg.pos == "learned":
-        raise NotImplementedError(
-            "learned positions come with the enc-dec slice (ROADMAP Queue 1, "
-            "the rest of the zoo: encoder-decoder)")
-    if cfg.d_frontend:
-        raise NotImplementedError(
-            "the stubbed VLM / audio frontends come with their slices "
-            "(ROADMAP Queue 1, the rest of the zoo: encoder-decoder and "
-            "VLM)")
+def _stacked(make, key: torch.Tensor, n: int):
+    """``make(key) -> (params, axes)`` drawn for each of ``split(key, n)``
+    and stacked ``[n, ...]``: a loop stands in for the reference's vmap
+    over the keys; each draw is copied into its slot of the stack."""
+    keys = prng.split(key, n)
+    one, axes = make(keys[0])
+    stack = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), one)
+    for i in range(n):
+        if i:
+            one, _ = make(keys[i])
+        tree_map(lambda dst, src: dst[i].copy_(src), stack, one)
+    return stack, _stack_axes(axes)
 
 
 # ---------------------------------------------------------------------------
@@ -90,51 +102,61 @@ def _check_supported(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 def init(cfg: ModelConfig, key: torch.Tensor, *, device=None):
     """Keyed random weights, the reference's ``init`` draw for draw: the
-    same key schedule (embedding, lm_head, then ``split(kg(), n_groups)``
-    with one key per stacked group, then one ``KeyGen(kg())`` per
-    remainder layer), so every leaf equals the reference's within the
-    ``erfinv`` tolerance of ``repro_torch.random.normal``."""
-    _check_supported(cfg)
+    same key schedule (embedding, final norm, lm_head, learned positions,
+    frontend projection, encoder positions, then ``split(kg(), n_groups)``
+    with one key per stacked group, one ``KeyGen(kg())`` per remainder
+    layer, then the encoder's keys and its final norm), so every leaf
+    equals the reference's within the ``erfinv`` tolerance of
+    ``repro_torch.random.normal``."""
     dev = resolve_device(device)
     kg = B.KeyGen(key.to(dev))
     dtype = _dtype(cfg)
+    f32 = torch.float32
     D, V = cfg.d_model, cfg.vocab
     pairs = {
-        "embed": B._normal(kg, (V, D), ("vocab", "embed"), torch.float32,
-                           stddev=0.02),
-        "final_norm": B._zeros((D,), ("embed",), torch.float32, kg=kg),
+        "embed": B._normal(kg, (V, D), ("vocab", "embed"), f32, stddev=0.02),
+        "final_norm": B._zeros((D,), ("embed",), f32, kg=kg),
     }
     if not cfg.tie_embeddings:
         pairs["lm_head"] = B._dense(kg, (D, V), ("embed", "vocab"), dtype)
+    if cfg.pos == "learned":
+        pairs["pos_emb"] = B._normal(kg, (cfg.max_position, D),
+                                     (None, "embed"), f32, stddev=0.02)
+    if cfg.d_frontend:
+        pairs["frontend_proj"] = B._dense(
+            kg, (cfg.d_frontend, D), (None, "embed"), dtype)
+        if cfg.enc_dec and cfg.pos == "learned":
+            pairs["enc_pos_emb"] = B._normal(
+                kg, (ENC_LEN, D), (None, "embed"), f32, stddev=0.02)
 
     def group_params(key):
         kg2 = B.KeyGen(key)
-        sub = {f"b{i}": B.init_block(kg2, cfg, kind, dtype)
+        sub = {f"b{i}": B.init_block(kg2, cfg, kind, dtype, cross=cfg.enc_dec)
                for i, kind in enumerate(cfg.layer_pattern)}
         return B.split_pt(sub)
 
-    scanned = cfg.scan_layers and cfg.n_groups > 1
-    if scanned:
-        # a loop stands in for the reference's vmap over the group keys;
-        # each group is drawn, then copied into its slot of the stack
-        keys = prng.split(kg(), cfg.n_groups)
-        gp, g_axes = group_params(keys[0])
-        stack = tree_map(
-            lambda x: x.new_empty((cfg.n_groups,) + tuple(x.shape)), gp)
-        for g in range(cfg.n_groups):
-            if g:
-                gp, _ = group_params(keys[g])
-            tree_map(lambda dst, src: dst[g].copy_(src), stack, gp)
-        del gp
-        pairs["groups"] = (stack, _stack_axes(g_axes))
+    if cfg.scan_layers and cfg.n_groups > 1:
+        pairs["groups"] = _stacked(group_params, kg(), cfg.n_groups)
         rem_kinds = cfg.kinds_of_remainder()
     else:
         rem_kinds = tuple(cfg.layer_pattern[i % cfg.pattern_period]
                           for i in range(cfg.n_layers))
     if rem_kinds:
-        rem = {f"l{i}": B.init_block(B.KeyGen(kg()), cfg, kind, dtype)
+        rem = {f"l{i}": B.init_block(B.KeyGen(kg()), cfg, kind, dtype,
+                                     cross=cfg.enc_dec)
                for i, kind in enumerate(rem_kinds)}
         pairs["rem"] = B.split_pt(rem)
+
+    if cfg.enc_dec:
+        def enc_params(key):
+            return B.init_block(B.KeyGen(key), cfg, ATTN, dtype, cross=False)
+        n_enc = cfg.n_enc_layers
+        if cfg.scan_layers and n_enc > 1:
+            pairs["encoder"] = _stacked(enc_params, kg(), n_enc)
+        else:
+            pairs["encoder"] = B.split_pt(
+                {f"l{i}": enc_params(kg()) for i in range(n_enc)})
+        pairs["enc_final_norm"] = B._zeros((D,), ("embed",), f32, kg=kg)
     return B.split_pt(pairs)
 
 
@@ -146,9 +168,8 @@ def _make_rope(cfg: ModelConfig, positions: torch.Tensor,
     if cfg.pos != "rope":
         return None
     if cfg.mrope and mrope_positions is not None:
-        raise NotImplementedError(
-            "M-RoPE positions come with the VLM slice (ROADMAP Queue 1, the "
-            "rest of the zoo: VLM)")
+        return L.mrope_tables(mrope_positions, cfg.d_head, cfg.rope_theta,
+                              cfg.mrope_sections)
     return L.rope_tables(positions, cfg.d_head, cfg.rope_theta)
 
 
@@ -156,11 +177,13 @@ def _make_rope(cfg: ModelConfig, positions: torch.Tensor,
 # remat: one stacked group recomputed in the backward
 # ---------------------------------------------------------------------------
 class _RematGroup(torch.autograd.Function):
-    """``run(x, *weights, *extras) -> x`` as one node: the forward saves its
-    inputs (and, under ``"dots"``, the weight products it recorded); the
-    backward recomputes ``run`` under ``torch.func.vjp`` from them.  The
-    first ``n_diff`` inputs (x and the group's weights) get grads; the
-    extras (rope tables) do not.
+    """``run(x, *diff_rest, *extras) -> (x, [aux])`` as one node: the
+    forward saves its inputs (and, under ``"dots"``, the weight products
+    it recorded); the backward recomputes ``run`` under ``torch.func.vjp``
+    from them.  The first ``n_diff`` inputs (x; a decoder group's encoder
+    output, twice, see ``blocks._cross_mix``; the group's weights) get
+    grads; the extras (rope tables) do not.  The first ``n_out`` outputs
+    are differentiable (x, and a MoE group's aux).
 
     ``torch.func.grad`` always differentiates with ``create_graph=True``,
     which would keep the recompute's graph, and so every group's
@@ -171,22 +194,22 @@ class _RematGroup(torch.autograd.Function):
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(run, policy, n_diff, *inputs):
+    def forward(run, policy, n_diff, n_out, *inputs):
         if policy != "dots":
-            return (run(*inputs),)
+            return run(*inputs)
         with L.recorded_products() as ys:
-            x = run(*inputs)
-        return (x, *ys)
+            outs = run(*inputs)
+        return (*outs, *ys)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.run, ctx.policy, ctx.n_diff = inputs[:3]
-        ctx.n_in = len(inputs) - 3
-        ctx.mark_non_differentiable(*output[1:])
-        ctx.save_for_backward(*inputs[3:], *output[1:])
+        ctx.run, ctx.policy, ctx.n_diff, ctx.n_out = inputs[:4]
+        ctx.n_in = len(inputs) - 4
+        ctx.mark_non_differentiable(*output[ctx.n_out:])
+        ctx.save_for_backward(*inputs[4:], *output[ctx.n_out:])
 
     @staticmethod
-    def backward(ctx, gx, *_):
+    def backward(ctx, *gouts):
         saved = ctx.saved_tensors
         diff, extras = saved[:ctx.n_diff], saved[ctx.n_diff:ctx.n_in]
         products = saved[ctx.n_in:]
@@ -198,28 +221,46 @@ class _RematGroup(torch.autograd.Function):
                 return ctx.run(*d, *extras)
 
         _, vjp_fn = torch.func.vjp(rerun, *diff)
-        grads = tuple(g.detach() for g in vjp_fn(gx))
-        return (None, None, None) + grads + (None,) * len(extras)
+        grads = tuple(g.detach() for g in vjp_fn(gouts[:ctx.n_out]))
+        return (None,) * 4 + grads + (None,) * len(extras)
 
 
-def _remat_group(gp: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict):
-    """One group's blocks through ``_RematGroup``.  The blocks' aux is a
-    constant 0.0 here: MoE, the only source of one, raises at ``init``."""
-    if cfg.remat_policy not in ("full", "dots"):
+def _remat_group(gp: dict, cfg: ModelConfig, kinds, x: torch.Tensor,
+                 ctx: dict, policy: str):
+    """The blocks ``gp['b{i}']`` of ``kinds`` through ``_RematGroup``.
+    Returns (x, aux): under MoE the blocks' summed aux, a differentiable
+    output, else 0.0."""
+    if policy not in ("full", "dots"):
         raise ValueError(f"remat_policy must be 'full' or 'dots', got "
-                         f"{cfg.remat_policy!r}")
+                         f"{policy!r}")
     ws = leaves(gp)
     rope = tuple(ctx["rope"]) if ctx.get("rope") is not None else ()
+    enc = tuple(ctx.get("enc_vk", ()))
+    n_enc, n_ws = len(enc), len(ws)
+    with_aux = cfg.moe is not None
 
     def run(x, *rest):
-        p = unflatten_like(gp, list(rest[:len(ws)]))
-        bctx = dict(ctx, rope=tuple(rest[len(ws):]) or None, cache=None)
-        for i, kind in enumerate(cfg.layer_pattern):
-            x, _, _ = B.apply_block(p[f"b{i}"], cfg, kind, x, bctx)
-        return x
+        p = unflatten_like(gp, list(rest[n_enc:n_enc + n_ws]))
+        bctx = dict(ctx, rope=tuple(rest[n_enc + n_ws:]) or None, cache=None)
+        if n_enc:
+            bctx["enc_vk"] = rest[:n_enc]
+        a = 0.0
+        for i, kind in enumerate(kinds):
+            x, _, da = B.apply_block(p[f"b{i}"], cfg, kind, x, bctx)
+            a = a + da
+        return (x, a) if with_aux else (x,)
 
-    return _RematGroup.apply(run, cfg.remat_policy, 1 + len(ws), x, *ws,
-                             *rope)[0]
+    outs = _RematGroup.apply(run, policy, 1 + n_enc + n_ws,
+                             2 if with_aux else 1, x, *enc, *ws, *rope)
+    return outs[0], (outs[1] if with_aux else 0.0)
+
+
+def _grads_flow(stack: dict, x: torch.Tensor) -> bool:
+    """Whether a forward through ``stack`` is differentiated: the
+    reference checkpoints the scanned stacks only where it differentiates
+    (no cache); so does the port."""
+    return torch.is_grad_enabled() and any(
+        a.requires_grad for a in leaves(stack) + [x])
 
 
 # ---------------------------------------------------------------------------
@@ -228,17 +269,17 @@ def _remat_group(gp: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict):
 def _apply_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict,
                  cache: Optional[dict]):
     """Runs all decoder blocks.  Returns (x, cache, moe_aux): with a cache,
-    its tensors are written in place and the same tree is returned."""
+    its tensors are written in place and the same tree is returned.  The
+    aux sums each stacked group's blocks, then the groups, then the
+    remainder's blocks, as the reference's scan does."""
     aux = 0.0
     new_cache = {}
     use_cache = cache is not None
 
     if "groups" in params:
-        # the reference checkpoints the scanned groups only where it
-        # differentiates (no cache); so does the port, when grads flow
-        remat = (cfg.remat and not use_cache and torch.is_grad_enabled()
-                 and any(a.requires_grad
-                         for a in leaves(params["groups"]) + [x]))
+        kinds = cfg.layer_pattern
+        remat = cfg.remat and not use_cache and _grads_flow(
+            params["groups"], x)
         # one unbind a leaf: its backward stacks the groups' grads in one
         # op, where indexing each group would add n_groups full-size
         # zero-padded grads
@@ -247,14 +288,17 @@ def _apply_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict,
         for g in range(cfg.n_groups):
             gp = unflatten_like(stack, [c[g] for c in cols])
             if remat:
-                x = _remat_group(gp, cfg, x, ctx)
+                x, a = _remat_group(gp, cfg, kinds, x, ctx, cfg.remat_policy)
+                aux = aux + a
                 continue
-            gc = (tree_map(lambda a: a[g], cache["groups"]) if use_cache
+            gc = (tree_map(lambda t: t[g], cache["groups"]) if use_cache
                   else None)
-            for i, kind in enumerate(cfg.layer_pattern):
+            a = 0.0
+            for i, kind in enumerate(kinds):
                 bctx = dict(ctx, cache=(gc[f"b{i}"] if gc else None))
                 x, _, da = B.apply_block(gp[f"b{i}"], cfg, kind, x, bctx)
-                aux = aux + da
+                a = a + da
+            aux = aux + a
         if use_cache:
             new_cache["groups"] = cache["groups"]
         rem_kinds = cfg.kinds_of_remainder()
@@ -275,14 +319,47 @@ def _apply_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, ctx: dict,
     return x, (new_cache or None), aux
 
 
+def _encode(params: dict, cfg: ModelConfig, frames: torch.Tensor):
+    """Whisper-style encoder over stubbed frame embeddings [B, T,
+    d_frontend]: the frontend projection, learned encoder positions, the
+    non-causal ATTN stack (a stacked one rematerialized layer by layer
+    under the full policy when ``cfg.remat`` and grads flow, as the
+    reference checkpoints its scan), the final norm."""
+    x = L.proj(frames.to(_dtype(cfg)), params["frontend_proj"])
+    if "enc_pos_emb" in params:
+        x = x + params["enc_pos_emb"][:x.shape[1]].to(x.dtype)[None]
+    ctx = {"mode": "train", "rope": None, "causal": False}
+    enc = params["encoder"]
+    if "l0" in enc:                  # unstacked per-layer dict
+        for i in range(cfg.n_enc_layers):
+            x, _, _ = B.apply_block(enc[f"l{i}"], cfg, ATTN, x, ctx)
+    else:
+        remat = cfg.remat and _grads_flow(enc, x)
+        cols = [torch.unbind(a) for a in leaves(enc)]
+        for i in range(cfg.n_enc_layers):
+            lp = unflatten_like(enc, [c[i] for c in cols])
+            if remat:
+                x, _ = _remat_group({"b0": lp}, cfg, (ATTN,), x, ctx, "full")
+            else:
+                x, _, _ = B.apply_block(lp, cfg, ATTN, x, ctx)
+    return L.rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
 def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    if "patches" in batch:
-        raise NotImplementedError(
-            "VLM patch inputs come with the VLM slice (ROADMAP Queue 1, the "
-            "rest of the zoo: VLM)")
-    # gather, then cast: bit-equal to the reference's cast-then-gather, and
-    # it does not copy the whole fp32 table on every call
-    return params["embed"][batch["tokens"].long()].to(_dtype(cfg))
+    """Token embeddings (gather, then cast: bit-equal to the reference's
+    cast-then-gather, without copying the whole fp32 table on every
+    call), plus learned positions; a VLM's ``batch['patches']`` [B, P,
+    d_frontend] projected by ``frontend_proj`` replace the first P
+    positions."""
+    tokens = batch["tokens"]
+    x = params["embed"][tokens.long()].to(_dtype(cfg))
+    if cfg.pos == "learned":
+        x = x + params["pos_emb"][:tokens.shape[1]].to(x.dtype)[None]
+    if cfg.family == "vlm" and "patches" in batch:
+        proj = L.proj(batch["patches"].to(_dtype(cfg)),
+                      params["frontend_proj"])
+        x = torch.cat([proj, x[:, proj.shape[1]:]], dim=1)
+    return x
 
 
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -302,15 +379,27 @@ def _positions(batch: dict, tokens: torch.Tensor) -> torch.Tensor:
     return positions
 
 
+def _context(params: dict, cfg: ModelConfig, batch: dict, mode: str,
+             **kw) -> dict:
+    """The blocks' context of a full-sequence pass: rope tables (M-RoPE
+    from ``batch['mrope_positions']`` where the config has it) and, for an
+    encoder-decoder, the encoder's output over ``batch['frames']`` as
+    ``enc_vk`` (see ``blocks._cross_mix``)."""
+    rope = _make_rope(cfg, _positions(batch, batch["tokens"]),
+                      batch.get("mrope_positions"))
+    ctx = dict(mode=mode, rope=rope, **kw)
+    if cfg.enc_dec:
+        enc = _encode(params, cfg, batch["frames"])
+        ctx["enc_vk"] = (enc, enc)
+    return ctx
+
+
 # ---------------------------------------------------------------------------
 # forward + loss
 # ---------------------------------------------------------------------------
 def apply(params: dict, cfg: ModelConfig, batch: dict,
           *, q_chunk: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
-    tokens = batch["tokens"]
-    rope = _make_rope(cfg, _positions(batch, tokens),
-                      batch.get("mrope_positions"))
-    ctx = {"mode": "train", "rope": rope, "causal": True, "q_chunk": q_chunk}
+    ctx = _context(params, cfg, batch, "train", causal=True, q_chunk=q_chunk)
     x = _embed_inputs(params, cfg, batch)
     x, _, aux = _apply_stack(params, cfg, x, ctx, cache=None)
     # aux is a Python 0.0 without MoE: a fill, not a copy from the host
@@ -321,7 +410,8 @@ def apply(params: dict, cfg: ModelConfig, batch: dict,
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
-    """Mean next-token cross entropy over ``loss_mask``; differentiable
+    """Mean next-token cross entropy over ``loss_mask``, plus the MoE
+    load-balance term ``aux_loss_weight * aux / n_layers``; differentiable
     under ``torch.func`` and autograd (the kernels of
     ``attention_impl="pallas"`` and ``rwkv_impl="pallas"`` are forward
     only, in both packages, and raise under grad)."""
@@ -337,6 +427,8 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
     nll = (lse - true_logit) * mask
     denom = torch.clamp(torch.sum(mask), min=1.0)
     loss = torch.sum(nll) / denom
+    if cfg.moe:
+        loss = loss + cfg.moe.aux_loss_weight * aux / max(cfg.n_layers, 1)
     metrics = {"loss": loss, "aux": aux, "tokens": torch.sum(mask)}
     return loss, metrics
 
@@ -352,16 +444,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     buffer with its slot positions (int32, -1 = empty), RGLRU blocks the
     fp32 recurrent state h [B, R] and the conv tail [B, conv_width - 1, R]
     in the cache dtype, RWKV blocks the fp32 recurrent state
-    [B, H, Dh, Dh] and the two token-shift rows [B, D].  With stacked
-    groups every leaf is one [n_groups, ...] tensor, which the blocks
-    write through views."""
-    _check_supported(cfg)
+    [B, H, Dh, Dh] and the two token-shift rows [B, D]; an
+    encoder-decoder's blocks also the cross-attention K/V [B, ENC_LEN, H,
+    Dh].  With stacked groups every leaf is one [n_groups, ...] tensor,
+    which the blocks write through views."""
     dev = resolve_device(device)
     dtype = dtype or _dtype(cfg)
+    cross_len = ENC_LEN if cfg.enc_dec else 0
 
     def one(kind):
         return B.init_block_cache(cfg, kind, batch, max_len, dtype,
-                                  device=dev)
+                                  cross_len=cross_len, device=dev)
 
     pairs = {}
     if cfg.scan_layers and cfg.n_groups > 1:
@@ -385,17 +478,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return B.split_pt(pairs)
 
 
+def _fit_cross(node, length: int):
+    """Size every cross-attention K/V of a cache to the encoder's
+    ``length`` (axis -3), replacing the tensors in place in the tree: the
+    reference's prefill returns them at the encoder's length, whatever
+    ``init_cache`` allocated."""
+    if not isinstance(node, dict):
+        return
+    for key, sub in node.items():
+        if key == "cross":
+            for name, t in sub.items():
+                if t.shape[-3] != length:
+                    shape = t.shape[:-3] + (length,) + t.shape[-2:]
+                    sub[name] = t.new_zeros(shape)
+        else:
+            _fit_cross(sub, length)
+
+
 # ---------------------------------------------------------------------------
 # prefill & decode
 # ---------------------------------------------------------------------------
 def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
             *, q_chunk: int = 1024):
-    """Runs the prompt ``batch['tokens']`` [B, S] through the stack, writing
-    the caches.  Returns (logits of the last position [B, V] fp32, cache)."""
-    tokens = batch["tokens"]
-    rope = _make_rope(cfg, _positions(batch, tokens),
-                      batch.get("mrope_positions"))
-    ctx = {"mode": "prefill", "rope": rope, "q_chunk": q_chunk}
+    """Runs the prompt ``batch['tokens']`` [B, S] (with ``frames``,
+    ``patches`` and ``mrope_positions`` where the family takes them)
+    through the stack, writing the caches.  Returns (logits of the last
+    position [B, V] fp32, cache)."""
+    ctx = _context(params, cfg, batch, "prefill", q_chunk=q_chunk)
+    if cfg.enc_dec:
+        _fit_cross(cache, ctx["enc_vk"][0].shape[1])
     x = _embed_inputs(params, cfg, batch)
     x, new_cache, _ = _apply_stack(params, cfg, x, ctx, cache=cache)
     logits = _logits(params, cfg, x[:, -1:])
@@ -405,14 +516,20 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 tokens: torch.Tensor, pos):
     """One token step.  tokens [B,1] int, pos the absolute position (a host
-    int; a tensor is read back).  Returns (logits [B,V] fp32, cache)."""
+    int; a tensor is read back).  Learned positions add row ``pos``;
+    M-RoPE takes ``pos`` on all three streams, as the reference does.
+    Returns (logits [B,V] fp32, cache)."""
     Bsz = tokens.shape[0]
     pos = int(pos)
     positions = torch.full((Bsz, 1), pos, dtype=torch.int32,
                            device=tokens.device)
-    rope = _make_rope(cfg, positions)
+    mpos = (torch.full((3, Bsz, 1), pos, dtype=torch.int32,
+                       device=tokens.device) if cfg.mrope else None)
+    rope = _make_rope(cfg, positions, mpos)
     ctx = {"mode": "decode", "rope": rope, "pos": pos}
-    x = _embed_inputs(params, cfg, {"tokens": tokens})
+    x = params["embed"][tokens.long()].to(_dtype(cfg))
+    if cfg.pos == "learned":
+        x = x + params["pos_emb"][pos:pos + 1].to(x.dtype)[None]
     x, new_cache, _ = _apply_stack(params, cfg, x, ctx, cache=cache)
     logits = _logits(params, cfg, x)
     return logits[:, 0], new_cache

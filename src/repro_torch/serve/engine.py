@@ -8,7 +8,9 @@ decode step, each step's token drawn with ``categorical`` on the subkey
 Greedy decoding draws nothing, so it skips the splits; the tokens are the
 same.  The caches are allocated once and written in place; the generated
 tokens stay on the device until the end, so decoding never waits on the
-host.  Runs where ``params`` lie.
+host.  Runs where ``params`` lie: the prompts and the prefill's
+``extras`` (an encoder-decoder's ``frames``, a VLM's ``patches`` and
+``mrope_positions``) are placed there.
 """
 from __future__ import annotations
 
@@ -35,6 +37,17 @@ def _sample(logits: torch.Tensor, temperature: float, key) -> torch.Tensor:
     return torch.argmax(logits, dim=-1)
 
 
+def _placed(name: str, value, dev: torch.device) -> torch.Tensor:
+    """An extra input as a tensor on ``dev``, dtype kept: a tensor (moved)
+    or a numpy array; anything else raises."""
+    if isinstance(value, np.ndarray):
+        value = torch.as_tensor(value)
+    if not isinstance(value, torch.Tensor):
+        raise TypeError(f"extras[{name!r}] must be a tensor or a numpy "
+                        f"array, got {type(value).__name__}")
+    return value.to(dev)
+
+
 def _decode_one(params, cfg: ModelConfig, cache, tokens, pos: int, key,
                 temperature: float):
     logits, cache = T.decode_step(params, cfg, cache, tokens, pos)
@@ -49,9 +62,10 @@ def generate(params, cfg: ModelConfig, prompts, max_new: int,
              *, temperature: float = 0.0,
              key: Optional[torch.Tensor] = None,
              extras: Optional[dict] = None) -> GenerateResult:
-    """prompts [B, S0] int (a tensor or array).  Returns prompt + generated
-    tokens and, per generated token after the first, its logprob (the last
-    column is zero, as in the reference)."""
+    """prompts [B, S0] int (a tensor or array).  ``extras`` go into the
+    prefill's batch beside the tokens, on the params' device.  Returns
+    prompt + generated tokens and, per generated token after the first,
+    its logprob (the last column is zero, as in the reference)."""
     dev = params["embed"].device
     if not isinstance(prompts, torch.Tensor):
         prompts = torch.as_tensor(np.asarray(prompts))
@@ -61,7 +75,8 @@ def generate(params, cfg: ModelConfig, prompts, max_new: int,
     if sampling:
         key = (key if key is not None else prng.PRNGKey(0)).to(dev)
     cache, _ = T.init_cache(cfg, B, S0 + max_new, device=dev)
-    batch = {"tokens": prompts, **(extras or {})}
+    batch = {"tokens": prompts, **{k: _placed(k, v, dev)
+                                   for k, v in (extras or {}).items()}}
     logits, cache = T.prefill(params, cfg, batch, cache)
     k0 = None
     if sampling:

@@ -51,7 +51,11 @@ within 1e-5 (the embedding's backward scatters with atomics), and remat's
 peak memory below the same grads' without it; the data mesh: a 1-rank
 NCCL mesh's device plane captured with its collectives and bit-equal to
 no mesh, and two gloo ranks sharing the card on the streaming plane
-within 1e-6 of one device.
+within 1e-6 of one device; the zoo's new families: the kernel at grok-1's
+48/8 and qwen2-vl's 64/8 head layouts and whisper's non-causal encoder
+shape (in ``FLASH_SHAPES``), granite's MoE MLP at full width on the card against
+the CPU (routes compared, y held where they agree), and reduced granite's
+captured device-plane chunks against the same chunks run eagerly.
 """
 import numpy as np
 import pytest
@@ -593,7 +597,11 @@ def test_streaming_lanes_on_cuda_match_cpu(cuda, hook):
 FLASH_SHAPES = [(128, 4, 4, 64), (256, 4, 2, 64), (128, 2, 1, 128),
                 (512, 2, 2, 64), (1024, 4, 1, 256), (256, 16, 1, 256),
                 (256, 8, 2, 64), (256, 3, 1, 64), (320, 3, 1, 64),
-                (320, 2, 2, 128)]
+                (320, 2, 2, 128),
+                # grok-1's layout (6 query heads a KV head, d=128),
+                # whisper's encoder (MHA, d=64, S=1536; non-causal there)
+                # and qwen2-vl's 64/8 heads (8 a KV head, d=128)
+                (256, 6, 1, 128), (1536, 16, 16, 64), (256, 64, 8, 128)]
 
 
 def _flash_inputs(S, Hq, Hkv, d, dtype, device, seed):
@@ -1703,3 +1711,95 @@ def test_two_gloo_ranks_share_the_card_on_streaming(cuda):
                                        ref.state.w[k].cpu().numpy(),
                                        atol=1e-6)
             assert torch.equal(w[k], ranks[0][1][k])
+
+
+# ---------------------------------------------------------------------------
+# the rest of the zoo on the card: MoE
+# ---------------------------------------------------------------------------
+def test_granite_moe_apply_card_against_cpu(cuda):
+    """granite-moe-1b-a400m's MoE MLP at full width (32 experts top-8,
+    D=1024, F=512; keyed weights drawn on the host) over 2 x 512 tokens in
+    fp32 on the card against the CPU.  Routing is discontinuous: the
+    (token, slot) routes that differ are counted, each must sit at a
+    near-tie of the CPU's router (k-th against (k+1)-th probability within
+    1e-4), and y is held within atol/rtol 1e-4 on the tokens whose routes
+    agree.  The aux within 1e-5."""
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+    cfg = get_config("granite-moe-1b-a400m").replace(dtype="float32")
+    p, _ = B.init_mlp(B.KeyGen(prng.PRNGKey(0).cpu()), cfg, torch.float32)
+    x = torch.as_tensor(np.random.default_rng(0).normal(
+        size=(2, 512, cfg.d_model)).astype(np.float32))
+    kw = dict(n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+              capacity_factor=cfg.moe.capacity_factor, act=cfg.act)
+    y_cpu, aux_cpu = L.moe_apply(p, x, **kw)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    y_card, aux_card = L.moe_apply(pc, x.to(cuda), **kw)
+    k = cfg.moe.top_k
+    rc = L.moe_routes(x.reshape(-1, cfg.d_model), p["router"],
+                      n_experts=cfg.moe.n_experts, top_k_=k,
+                      capacity_factor=cfg.moe.capacity_factor)
+    rg = L.moe_routes(x.reshape(-1, cfg.d_model).to(cuda), pc["router"],
+                      n_experts=cfg.moe.n_experts, top_k_=k,
+                      capacity_factor=cfg.moe.capacity_factor)
+    diff = ((rc[1] != rg[1].cpu()) | (rc[3] != rg[3].cpu())
+            | (rc[4] != rg[4].cpu()))
+    top = torch.sort(rc[0], dim=-1, descending=True).values
+    margin = top[:, k - 1] - top[:, k]
+    flipped = diff.any(-1)
+    print(f"{int(diff.sum())} (token, slot) routes differ; smallest CPU "
+          f"margin {float(margin.min()):.2e}")
+    idx_flip = (rc[1] != rg[1].cpu()).any(-1)
+    assert bool((margin[idx_flip] <= 1e-4).all())
+    agree = ~flipped
+    assert int(agree.sum()) > 0
+    torch.testing.assert_close(y_card.cpu().reshape(-1, cfg.d_model)[agree],
+                               y_cpu.reshape(-1, cfg.d_model)[agree],
+                               atol=1e-4, rtol=1e-4)
+    assert abs(float(aux_card) - float(aux_cpu)) <= 1e-5
+
+
+def test_granite_captured_chunk_matches_eager(cuda, monkeypatch):
+    """Reduced granite-moe-1b-a400m through ``FederatedTrainer`` on the
+    device plane, 4 rounds in chunks of 2: the chunks captured as CUDA
+    graphs (the routing's sort, cumsum and one-hots inside) against the
+    same chunks run eagerly on the card, within 1e-5 (the embedding's
+    backward scatters with atomics)."""
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_clients_to_dataset
+    from repro_torch.data import synthetic_token_clients
+    from repro_torch.models import transformer as T
+    cfg = get_config("granite-moe-1b-a400m").reduced().replace(
+        dtype="float32")
+    params, axes = T.init(cfg, prng.PRNGKey(0), device=cuda)
+    ds = lm_clients_to_dataset(synthetic_token_clients(
+        8, cfg.vocab, 4000, seed=0), seq_len=32, seed=1)
+    pop = ds.population()
+
+    def run(capture):
+        monkeypatch.setattr(FederatedTrainer, "_capture",
+                            lambda self: capture)
+        opt = tso.fedmom(eta=2.0, beta=0.9, use_fused_kernel=True)
+        tr = FederatedTrainer(
+            loss_fn=lambda p, b: T.loss_fn(p, cfg, b), server_opt=opt,
+            rcfg=tround.RoundConfig(2, 2, 0.05, compute_dtype="float32"),
+            dataset=ds, sampler=DeviceUniformSampler(pop, 2, seed=2),
+            state=opt.init(params), param_axes=axes, local_batch=4,
+            device=cuda)
+        tr.run(4, plan=ExecutionPlan(plane="device", chunk_rounds=2),
+               verbose=False)
+        graphs = [g.graph for g in tr.session.graphs.values()]
+        return tr, graphs
+
+    graphed, g1 = run(True)
+    eager, g2 = run(False)
+    assert g1 and all(g is not None for g in g1)
+    assert all(g is None for g in g2)
+    la = [r["loss"] for r in graphed.history if "loss" in r]
+    lb = [r["loss"] for r in eager.history if "loss" in r]
+    assert len(la) == 4 and np.allclose(la, lb, atol=1e-5, rtol=1e-5)
+    for x, y in zip(leaves(graphed.state.w), leaves(eager.state.w)):
+        assert torch.allclose(x, y, atol=1e-5, rtol=1e-5)

@@ -20,8 +20,10 @@ transformer}``) against the JAX package's, on the CPU.
 * the reference's prefill/decode consistency property and its ring-buffer
   wrap (``tests/test_models.py``), run on the port;
 * parameter and cache trees carried JAX -> port -> numpy -> JAX unchanged;
-* what the slice does not cover raises, and the entry points need a card
-  unless given a device.
+* the entry points need a card unless given a device.
+
+The MoE, encoder-decoder and VLM families are held to the reference in
+``tests/test_torch_{moe,encdec,vlm}.py``.
 """
 import dataclasses
 
@@ -306,7 +308,7 @@ def test_sliding_window_ring_buffer_wraps():
 
 
 # ---------------------------------------------------------------------------
-# interop, and what the slice leaves out
+# interop, and the entry points' device
 # ---------------------------------------------------------------------------
 def test_param_and_cache_trees_carry_both_ways():
     """bf16 leaves and stacked groups survive JAX -> port -> numpy -> JAX:
@@ -326,16 +328,6 @@ def test_param_and_cache_trees_carry_both_ways():
             assert str(c.dtype).replace("torch.", "") == str(a.dtype)
             np.testing.assert_array_equal(
                 np.asarray(jnp.asarray(b).astype(a.dtype)), np.asarray(a))
-
-
-@pytest.mark.parametrize("arch,item", [
-    ("granite-moe-1b-a400m", "the rest of the zoo: MoE"),
-    ("whisper-medium", "the rest of the zoo: encoder-decoder"),
-    ("qwen2-vl-72b", "encoder-decoder and VLM")])
-def test_families_of_later_slices_raise(arch, item):
-    cfg = tget(arch).reduced()
-    with pytest.raises(NotImplementedError, match=item):
-        TT.init(cfg, prng.PRNGKey(0), device="cpu")
 
 
 def test_recurrentgemma_initialises():
