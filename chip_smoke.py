@@ -299,31 +299,53 @@ Phases, each printed as it runs; any failure exits non-zero:
      reported, with the smallest top-k margin among them), then greedy
      ``generate`` and prefill + 3 decode logits along the CPU's tokens,
      greedy tokens equal past near-ties;
- 24. one JSON line of kernels, then the result line.
+ 24. the dry run on the meta device (``repro_torch.launch.dryrun``, no
+     kernel of its own): (a) gemma3-1b at full width, a ``prefill`` of
+     B=8 x 1024 in bf16 with ``attention_impl="xla"`` on the card under
+     ``FlopCounterMode``, its count equal to the same step's count on
+     the meta device (``launch/cost.py``), its CUDA-event time and
+     counted flops / (time x ``hw.PEAK_FLOPS_BF16``) beside the card's
+     name and power limit; (b) ``dry_run`` of grok-1-314b and
+     qwen2-vl-72b at ``train_4k`` at full depth and of gemma3-1b at
+     ``decode_32k``, each a CPU process started with the script (meta
+     tensors, no card): ``peak_bytes_per_rank`` and ``fits_one_card``;
+ 25. one JSON line of kernels, then the result line.
 
 Each phase's wall seconds print on a line of their own when it ends.
 ``python3 chip_smoke.py --only-lm`` runs phases 1, 2 and 21 alone,
 ``--only-mesh`` phases 1, 2 and 22, ``--only-mesh-nccl`` phases 1, 2
-and 22(c), for a machine with several cards, and ``--only-zoo`` phases 1,
-2 and 23 (development runs; they print no result line).
+and 22(c), for a machine with several cards, ``--only-zoo`` phases 1, 2
+and 23, and ``--only-dryrun`` phases 1, 2 and 24 (development runs; they
+print no result line).
 
 Without a card, or outside a checkout of the repo, it exits non-zero and
 prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    # the H100 SXM5's data-sheet constants (src/repro_torch/launch/hw.py)
+    from repro_torch.launch import hw
+except ImportError as e:
+    sys.exit(f"chip_smoke: run it from the root of a checkout of the repo "
+             f"({e})")
+HBM_BYTES_PER_S = hw.HBM_BW
 
 # the quickstart configuration (examples/quickstart_torch.py defaults)
 K, M, H, B, LR, BETA = 60, 2, 10, 10, 0.05, 0.9
@@ -486,8 +508,15 @@ ZOO_TR_ROUNDS, ZOO_CR = 4, 2              # reduced granite, auto vs
                                           # per-round
 ZOO_CMP_TOL = 1e-3                        # card vs CPU logits, fp32
 ZOO_CMP_S0, ZOO_CMP_VLM_S0, ZOO_CMP_NEW = 256, 128, 4
-BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
-FP32_FLOPS = 67e12                 # H100 SXM fp32 (CUDA cores) peak
+BF16_FLOPS = hw.PEAK_FLOPS_BF16    # dense bf16 tensor-core peak
+FP32_FLOPS = hw.PEAK_FLOPS_FP32    # fp32 (CUDA cores) peak
+# the dry run (phase 24): gemma3-1b's prefill counted on the card and on
+# the meta device; the full-depth dry runs of the two models no card
+# holds, and a decode, each a CPU process started with the script
+DRY_ARCH, DRY_B, DRY_S = "gemma3-1b", 8, 1024
+DRY_RUNS = (("grok-1-314b", "train_4k"), ("qwen2-vl-72b", "train_4k"),
+            ("gemma3-1b", "decode_32k"))
+DRY_TIMEOUT_S = 900.0              # from the script's start
 
 
 _PHASE = {"name": None, "t0": 0.0, "seconds": {}}
@@ -5144,6 +5173,131 @@ def zoo_phase(dev, fa_kernel, fa_ops, fm_kernel, fm_ops, fm_ref, card):
     return out
 
 
+def start_dry_runs():
+    """Start ``DRY_RUNS``' dry runs, one CPU process each at a lower
+    priority (meta tensors: no card, no memory), so that they run beside
+    the card's phases; phase 24 reads their records.  Every process is
+    stopped when the script exits."""
+    out = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    runs = []
+    for arch, shape in DRY_RUNS:
+        log = open(out / f"{arch}_{shape}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--json",
+             str(out / f"{arch}_{shape}.jsonl")],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(10))
+        runs.append((arch, shape, proc, log))
+
+    def stop():
+        for _, _, proc, log in runs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            log.close()
+        shutil.rmtree(out, ignore_errors=True)
+
+    atexit.register(stop)
+    return {"dir": out, "runs": runs, "t0": time.perf_counter()}
+
+
+def dryrun_phase(dev, card, dry):
+    """(a) gemma3-1b's prefill counted on the card and on the meta device,
+    and timed; (b) the records of the dry runs ``start_dry_runs``
+    started."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cost
+    from repro_torch.models import transformer as T
+    cfg = get_config(DRY_ARCH)
+    if cfg.attention_impl != "xla" or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{DRY_ARCH}: the dry run counts the plain "
+                             f"attention in bf16, got {cfg.attention_impl} "
+                             f"/ {cfg.dtype}")
+    params, _, _ = zoo_init(DRY_ARCH, cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (DRY_B, DRY_S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    cache, _ = T.init_cache(cfg, DRY_B, DRY_S, device=dev)
+
+    def step():
+        with torch.no_grad():
+            return T.prefill(params, cfg, {"tokens": tokens}, cache)
+
+    with FlopCounterMode(display=False) as fc:
+        logits, _ = step()
+    sync(dev)
+    card_flops = fc.get_total_flops()
+    if tuple(logits.shape) != (DRY_B, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    mp, _ = T.abstract_params(cfg)
+    mcache, _ = T.init_cache(cfg, DRY_B, DRY_S, abstract=True)
+    mtok = torch.empty((DRY_B, DRY_S), dtype=torch.int32, device="meta")
+    t0 = time.perf_counter()
+    meta = cost.analyze(lambda p, b, c: T.prefill(p, cfg, b, c), mp,
+                        {"tokens": mtok}, mcache)
+    meta_s = time.perf_counter() - t0
+    if card_flops != meta["flops"]:
+        raise AssertionError(
+            f"{DRY_ARCH} prefill: {card_flops} flops counted on the card, "
+            f"{meta['flops']:.0f} on the meta device")
+    ms = cuda_ms(step, 5, warmup=2)
+    share = card_flops / (ms * 1e-3 * hw.PEAK_FLOPS_BF16)
+    print(f"(a) {DRY_ARCH} prefill B={DRY_B} x {DRY_S}, bf16, "
+          f"attention_impl=xla: {card_flops} flops counted on the card = "
+          f"{meta['flops']:.0f} on the meta device ({meta_s:.1f} s); "
+          f"{ms:.3f} ms (CUDA events, median of 5), "
+          f"{card_flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s = {share:.1%} of "
+          f"the {hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s dense bf16 peak on "
+          f"{torch.cuda.get_device_name(0)} ({card}); meta bytes model "
+          f"{meta['bytes']:.4e} B, meta peak {meta['peak_bytes']:.4e} B, "
+          f"card peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    out = {"prefill": {"flops": card_flops, "meta_flops": meta["flops"],
+                       "ms": ms, "peak_share": share,
+                       "meta_bytes": meta["bytes"],
+                       "meta_peak_bytes": meta["peak_bytes"],
+                       "meta_count_s": meta_s}}
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    for arch, shape, proc, log in dry["runs"]:
+        left = DRY_TIMEOUT_S - (time.perf_counter() - dry["t0"])
+        try:
+            proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"dry run {arch} {shape} ran past "
+                                 f"{DRY_TIMEOUT_S:.0f} s") from None
+        log.flush()
+        text = (dry["dir"] / f"{arch}_{shape}.log").read_text()
+        if proc.returncode != 0:
+            raise AssertionError(f"dry run {arch} {shape} exited "
+                                 f"{proc.returncode}:\n{text[-3000:]}")
+        rec = json.loads((dry["dir"] / f"{arch}_{shape}.jsonl").read_text()
+                         .splitlines()[-1])
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {arch} {shape}: {rec}")
+        r = rec["roofline"]
+        print(f"(b) {arch} {shape} {rec['mesh']} ({rec['placement']}, "
+              f"C/H/b {rec.get('C')}/{rec.get('H')}/{rec.get('b')}): "
+              f"peak_bytes_per_rank {rec['peak_bytes_per_rank']} "
+              f"({rec['peak_bytes_per_rank'] / 1e9:.1f} GB), fits_one_card "
+              f"{rec['fits_one_card']}; flops/rank "
+              f"{rec['flops_per_rank']:.4e}, dominant {r['dominant']} "
+              f"({r['bound_s']:.4g} s on the data sheet's constants), "
+              f"counted in {rec['count_s']} s on the CPU")
+        out[f"{arch}_{shape}"] = {k: rec[k] for k in (
+            "peak_bytes_per_rank", "fits_one_card", "flops_per_rank",
+            "hbm_bytes_per_rank", "collective_bytes_per_rank",
+            "model_flops_ratio", "count_s")} | {"dominant": r["dominant"]}
+    return out
+
+
 def main(argv=None) -> int:
     import torch
     argv = sys.argv[1:] if argv is None else argv
@@ -5151,11 +5305,13 @@ def main(argv=None) -> int:
     only_mesh = "--only-mesh" in argv
     only_nccl = "--only-mesh-nccl" in argv
     only_zoo = "--only-zoo" in argv
+    only_dryrun = "--only-dryrun" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false — this "
               "script needs a CUDA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    dry = (start_dry_runs()
+           if not (only_lm or only_zoo or only_mesh or only_nccl) else None)
     from repro_torch import random as prng
     from repro_torch.core import (RoundConfig, UniformSampler, fedavg,
                                   fedmom)
@@ -5222,6 +5378,14 @@ def main(argv=None) -> int:
         phase(None)
         print(json.dumps({"card": card, "zoo": zoo}, default=str))
         print("--only-zoo: phases 1, 2 and 23 only; no result line")
+        return 0
+    if only_dryrun:
+        # a development run of the dry run's phase alone: no result line
+        phase("24. the dry run on the meta device (alone)")
+        dr = dryrun_phase(torch.device("cuda"), card, dry)
+        phase(None)
+        print(json.dumps({"card": card, "dryrun": dr}, default=str))
+        print("--only-dryrun: phases 1, 2 and 24 only; no result line")
         return 0
     if only_mesh or only_nccl:
         # a development run of the mesh phase (or of its NCCL ranks) alone:
@@ -5515,7 +5679,14 @@ def main(argv=None) -> int:
     zoo = zoo_phase(dev, fa_kernel, fa_ops, fm_kernel, fm_ops, fm_ref, card)
 
     # ------------------------------------------------------------------
-    phase("24. kernels")
+    phase("24. the dry run on the meta device: gemma3-1b's prefill counted "
+          "on the card and on meta, grok-1-314b and qwen2-vl-72b at full "
+          "depth")
+    torch.cuda.empty_cache()
+    dr = dryrun_phase(dev, card, dry)
+
+    # ------------------------------------------------------------------
+    phase("25. kernels")
     bound_ms = timing[("fedmom", n_main)][2]
     large_ms, _, large_bound_ms = timing[("fedmom", 2 ** 26 + 3)]
     cs_ms, cs_plain_ms, cs_bound_ms, cs_v1_ms, cs_ring = cs_timing[cs_top]
@@ -5539,6 +5710,7 @@ def main(argv=None) -> int:
         "main_path_ms_per_round": ms_round,
         "lm": lm,
         "zoo": zoo,
+        "dryrun": dr,
         "fedmom_update_tree": fm_tree,
         "torch_streaming_ms_and_bound_ms": {
             name: t for (k, name), t in timing.items() if k == "stream"},

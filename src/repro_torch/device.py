@@ -24,3 +24,15 @@ def resolve_device(device=None) -> torch.device:
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def refuse_meta(kernel: str, *tensors) -> None:
+    """Raise where a hand-written kernel is asked for on meta tensors: the
+    dry run counts on the meta device, and counting the kernel's plain
+    version in its place would be counting another program."""
+    if any(t.device.type == "meta" for t in tensors):
+        raise NotImplementedError(
+            f"{kernel}: a hand-written CUDA kernel has no meta-device "
+            f"counterpart to count; count the plain path instead "
+            f"(attention_impl='xla', rwkv_impl='xla', "
+            f"use_fused_kernel=False, use_kernel=False)")

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import refuse_meta
 from repro_torch.kernels.client_step import kernel as _k
 from repro_torch.kernels.client_step import ref as _ref
 
@@ -34,6 +35,8 @@ def client_step(xs, ys, slots, idx, w, b, lr, local_steps: int,
     ``use_kernel=False`` takes the plain version on any device.
     Returns ``(w_out [C, D], b_out [C], mean_loss [C])``.
     """
+    if use_kernel:
+        refuse_meta("client_step", xs, ys, w, b)
     if use_kernel and xs.is_cuda:
         return _k.client_step(xs, ys, slots, idx, w, b, lr, local_steps,
                               batch_size, step_mask)

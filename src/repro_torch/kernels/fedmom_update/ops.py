@@ -10,6 +10,7 @@ counterpart here: where the kernel runs is decided by the leaves' device.
 """
 from __future__ import annotations
 
+from repro_torch.device import refuse_meta
 from repro_torch.kernels.fedmom_update import kernel as _k
 from repro_torch.kernels.fedmom_update import ref as _ref
 from repro_torch.tree import leaves, tree_map, unflatten_like
@@ -29,7 +30,10 @@ def _as_dtypes(tree, like):
 
 def _update(ref_fn, kind, w, s, delta, eta, beta, use_kernel):
     lw, ls, ld = leaves(w), leaves(s), leaves(delta)
-    if _on_cuda(lw, ls, ld) and use_kernel:
+    on_cuda = _on_cuda(lw, ls, ld)
+    if use_kernel:
+        refuse_meta("fedmom_update", *lw, *ls, *ld)
+    if on_cuda and use_kernel:
         # the trees are flattened once, here, for the check and the launch
         w_new, s_new = _k.update_leaves(lw, ls, ld, eta=eta, beta=beta,
                                         kind=kind)

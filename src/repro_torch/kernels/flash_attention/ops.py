@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import refuse_meta
 from repro_torch.kernels.flash_attention import kernel as _k
 from repro_torch.kernels.flash_attention import ref as _ref
 
@@ -47,6 +48,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"flash_attention: S={S}, T={T} are not "
                              f"multiples of block_q={bq}, block_k={bk} "
                              f"(min(block, length), the reference's check)")
+        refuse_meta("flash_attention", q, k, v)
         if q.is_cuda:
             return _k.flash_attention(q.contiguous(), k.contiguous(),
                                       v.contiguous(), causal=causal,

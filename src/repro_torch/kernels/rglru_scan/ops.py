@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import refuse_meta
 from repro_torch.kernels.rglru_scan import kernel as _k
 from repro_torch.kernels.rglru_scan import ref as _ref
 
@@ -48,6 +49,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, *,
     a, b = a.to(torch.float32), b.to(torch.float32)
     if use_kernel:
         fit_chunk(a.shape[1], chunk)
+        refuse_meta("rglru_scan", a, b)
         if a.is_cuda:
             return _k.rglru(a.contiguous(), b.contiguous())
     return _ref.rglru_sequential(a, b)

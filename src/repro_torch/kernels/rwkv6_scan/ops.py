@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import refuse_meta
 from repro_torch.kernels.rwkv6_scan import kernel as _k
 from repro_torch.kernels.rwkv6_scan import ref as _ref
 
@@ -39,6 +40,7 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if S % chunk:
             raise ValueError(f"rwkv6: S={S} is not a multiple of the chunk "
                              f"of {chunk}")
+        refuse_meta("rwkv6_scan", r, k, v, log_w, u)
         if r.is_cuda:
             return _k.rwkv6(r.contiguous(), k.contiguous(), v.contiguous(),
                             log_w.contiguous(), u.contiguous(), chunk=chunk)

@@ -18,8 +18,9 @@ capture them (``launch/plan.py`` says when chunks then run eagerly).
 temporary directory (no TCP port: the card's machine has no network, and
 a fixed port collides between runs).
 
-The reference's ``make_production_mesh`` and ``make_host_mesh`` belong to
-the dry run and are not ported here (ROADMAP Queue 1 item 5).
+``make_production_mesh`` and ``make_host_mesh`` are the dry run's meshes
+(``launch/dryrun.py``): mesh-axis sizes, as ``sharding.logical_spec``
+takes them, where the reference builds ``jax`` meshes over devices.
 """
 from __future__ import annotations
 
@@ -280,3 +281,24 @@ def spawn(fn: Callable, n: int, device=None, args: tuple = (),
                 p.kill()
             p.join(timeout=30)
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> dict:
+    """The reference's production mesh as axis sizes: 16 x 16 = 256 cards
+    a pod over ("data", "model"); 2 pods = 512 cards with "pod"."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+def make_host_mesh(model: int = 1, device=None) -> dict:
+    """A small mesh over the visible devices as axis sizes: the cards
+    (``device=None`` means the card, and raises without one, as every
+    entry point of the port does), or one host device for
+    ``device="cpu"``."""
+    dev = resolve_device(device)
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if model < 1 or n % model:
+        raise ValueError(f"model={model} does not divide the {n} visible "
+                         f"device(s)")
+    return {"data": n // model, "model": model}

@@ -15,8 +15,13 @@ tensor) or 0.0.  Caches are updated in place (slice assignment or
 views of a stacked cache) and returned, where the reference returns new
 arrays from ``dynamic_update_slice`` on a donated cache.
 
-Abstract mode (``KeyGen(None)``) belongs with the dry-run tools (ROADMAP
-Queue 1, tooling and benchmarks) and raises ``NotImplementedError``.
+``KeyGen(None)`` puts the builders in *abstract* mode, as in the
+reference: every leaf is an empty tensor on the meta device with its real
+shape and dtype (no memory, no draw), so the logical-axis trees and the
+dry run's inputs exist for models that fit no host or card
+(``transformer.abstract_params``, ``launch/dryrun.py``).  A cache built on
+the meta device (``init_block_cache(..., abstract=True)`` or
+``device="meta"``) is abstract the same way.
 """
 from __future__ import annotations
 
@@ -33,29 +38,41 @@ from repro_torch.models.config import ATTN, LOCAL, RGLRU, RWKV, ModelConfig
 # declarative parameter construction: every init returns (params, axes) trees
 # with identical structure; axes leaves are tuples of logical axis names.
 # ---------------------------------------------------------------------------
+META = torch.device("meta")
+
+
 class KeyGen:
     """Splits keys for materialized init: each call returns a fresh subkey,
     ``key, sub = split(key)`` as the reference's ``KeyGen`` does.  Draws
-    land on the key's device."""
+    land on the key's device.  ``KeyGen(None)`` is abstract: its device
+    is the meta device and it hands out no keys."""
 
-    def __init__(self, key: torch.Tensor):
-        if key is None:
-            raise NotImplementedError(
-                "abstract mode (KeyGen(None)) belongs with the dry-run tools "
-                "(ROADMAP Queue 1, tooling and benchmarks)")
+    def __init__(self, key: Optional[torch.Tensor]):
         self._key = key
 
     @property
-    def device(self) -> torch.device:
-        return self._key.device
+    def abstract(self) -> bool:
+        return self._key is None
 
-    def __call__(self) -> torch.Tensor:
+    @property
+    def device(self) -> torch.device:
+        return META if self._key is None else self._key.device
+
+    def __call__(self) -> Optional[torch.Tensor]:
+        if self._key is None:
+            return None
         pair = prng.split(self._key)
         self._key = pair[0]
         return pair[1]
 
 
+def _abstract(shape, axes, dtype):
+    return torch.empty(shape, dtype=dtype, device=META), axes
+
+
 def _dense(kg: KeyGen, shape, axes, dtype, scale: Optional[float] = None):
+    if kg.abstract:
+        return _abstract(shape, axes, dtype)
     fan_in = shape[0] if len(shape) == 1 else math.prod(shape[:-1])
     if scale is None:
         scale = 1.0 / math.sqrt(max(fan_in, 1))
@@ -64,21 +81,28 @@ def _dense(kg: KeyGen, shape, axes, dtype, scale: Optional[float] = None):
 
 
 def _normal(kg: KeyGen, shape, axes, dtype, stddev: float):
+    if kg.abstract:
+        return _abstract(shape, axes, dtype)
     arr = prng.normal(kg(), shape).mul_(stddev)
     return arr.to(dtype), axes
 
 
 def _zeros(shape, axes, dtype, *, kg: Optional[KeyGen] = None, device=None):
-    """Zeros on ``device`` (default: the key generator's device)."""
-    device = kg.device if device is None else device
+    """Zeros on ``device`` (default: the key generator's device); on the
+    meta device an empty tensor."""
+    device = torch.device(kg.device if device is None else device)
+    if device.type == "meta":
+        return _abstract(shape, axes, dtype)
     return torch.zeros(shape, dtype=dtype, device=device), axes
 
 
 def _const(val_fn, shape, axes, dtype, *, kg: Optional[KeyGen] = None,
            device=None):
     """val_fn: () -> array-like, on ``device`` (default: the key
-    generator's device)."""
-    device = kg.device if device is None else device
+    generator's device); evaluated only off the meta device."""
+    device = torch.device(kg.device if device is None else device)
+    if device.type == "meta":
+        return _abstract(shape, axes, dtype)
     v = val_fn() if callable(val_fn) else val_fn
     return torch.as_tensor(v, dtype=dtype, device=device).reshape(shape), axes
 
@@ -537,10 +561,13 @@ def apply_block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
 # per-block cache construction (zeros; the ring buffer's positions -1)
 # ---------------------------------------------------------------------------
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     dtype, *, cross_len: int = 0, device=None):
-    """Returns (cache, axes) twin trees for one block, on ``device``;
-    ``cross_len`` adds the cross-attention K/V [batch, cross_len, n_heads,
-    d_head]."""
+                     dtype, *, cross_len: int = 0, device=None,
+                     abstract: bool = False):
+    """Returns (cache, axes) twin trees for one block, on ``device`` (the
+    meta device when ``abstract``); ``cross_len`` adds the cross-attention
+    K/V [batch, cross_len, n_heads, d_head]."""
+    if abstract:
+        device = META
     Hkv, Dh = cfg.n_kv_heads, cfg.d_head
     kv_axes = ("batch", "seq", "kv_heads", "head_dim")
     if kind == ATTN:

@@ -6,9 +6,12 @@ prefill and decode.
 The port's counterpart of the JAX package's ``models/transformer.py``:
 
     init(cfg, key, device=None)              -> (params, logical_axes)
+    abstract_params(cfg)                     -> (meta tensors, logical_axes)
+    logical_axes(cfg)                        -> logical_axes
     apply(params, cfg, batch)                -> (logits, aux)
     loss_fn(params, cfg, batch)              -> (loss, metrics)  # trains
-    init_cache(cfg, batch, max_len, device=None) -> (cache, logical_axes)
+    init_cache(cfg, batch, max_len, device=None, abstract=False)
+                                             -> (cache, logical_axes)
     prefill(params, cfg, batch, cache)       -> (logits_last, cache)
     decode_step(params, cfg, cache, tokens, pos) -> (logits, cache)
 
@@ -34,8 +37,11 @@ encoder-decoder (whisper: learned positions, a stubbed frame frontend
 ``frontend_proj``, a non-causal encoder stack, cross-attention in every
 decoder block) and the VLM (qwen2-vl: stubbed patch embeddings projected
 over the first positions, M-RoPE from ``batch['mrope_positions']``
-[3, B, S]).  Abstract mode, ``abstract_params`` and ``logical_axes`` come
-with the dry-run tools (ROADMAP Queue 1, tooling and benchmarks).
+[3, B, S]).  Abstract mode (``abstract_params``, ``logical_axes``,
+``init_cache(..., abstract=True)``) builds every leaf on the meta device
+with its real shape and dtype and draws nothing, as the reference's
+``_build(cfg, None)`` builds ShapeDtypeStructs; the dry run
+(``launch/dryrun.py``) runs the model on such trees.
 
 ``loss_fn`` trains under ``torch.func`` (the round engine's
 ``vmap(grad_and_value)``) and plain autograd alike.  With ``cfg.remat``
@@ -83,10 +89,15 @@ def _stack_axes(axes_tree):
     return ("layers",) + axes_tree
 
 
-def _stacked(make, key: torch.Tensor, n: int):
+def _stacked(make, key: Optional[torch.Tensor], n: int):
     """``make(key) -> (params, axes)`` drawn for each of ``split(key, n)``
     and stacked ``[n, ...]``: a loop stands in for the reference's vmap
-    over the keys; each draw is copied into its slot of the stack."""
+    over the keys; each draw is copied into its slot of the stack.  With
+    no key, one abstract probe, stacked on the meta device."""
+    if key is None:
+        one, axes = make(None)
+        return tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)),
+                        one), _stack_axes(axes)
     keys = prng.split(key, n)
     one, axes = make(keys[0])
     stack = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), one)
@@ -100,16 +111,8 @@ def _stacked(make, key: torch.Tensor, n: int):
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def init(cfg: ModelConfig, key: torch.Tensor, *, device=None):
-    """Keyed random weights, the reference's ``init`` draw for draw: the
-    same key schedule (embedding, final norm, lm_head, learned positions,
-    frontend projection, encoder positions, then ``split(kg(), n_groups)``
-    with one key per stacked group, one ``KeyGen(kg())`` per remainder
-    layer, then the encoder's keys and its final norm), so every leaf
-    equals the reference's within the ``erfinv`` tolerance of
-    ``repro_torch.random.normal``."""
-    dev = resolve_device(device)
-    kg = B.KeyGen(key.to(dev))
+def _build(cfg: ModelConfig, key: Optional[torch.Tensor]):
+    kg = B.KeyGen(key)
     dtype = _dtype(cfg)
     f32 = torch.float32
     D, V = cfg.d_model, cfg.vocab
@@ -158,6 +161,27 @@ def init(cfg: ModelConfig, key: torch.Tensor, *, device=None):
                 {f"l{i}": enc_params(kg()) for i in range(n_enc)})
         pairs["enc_final_norm"] = B._zeros((D,), ("embed",), f32, kg=kg)
     return B.split_pt(pairs)
+
+
+def init(cfg: ModelConfig, key: torch.Tensor, *, device=None):
+    """Keyed random weights, the reference's ``init`` draw for draw: the
+    same key schedule (embedding, final norm, lm_head, learned positions,
+    frontend projection, encoder positions, then ``split(kg(), n_groups)``
+    with one key per stacked group, one ``KeyGen(kg())`` per remainder
+    layer, then the encoder's keys and its final norm), so every leaf
+    equals the reference's within the ``erfinv`` tolerance of
+    ``repro_torch.random.normal``."""
+    return _build(cfg, key.to(resolve_device(device)))
+
+
+def abstract_params(cfg: ModelConfig):
+    """(params, logical_axes) with every leaf an empty meta tensor of the
+    real shape and dtype; nothing is drawn or allocated."""
+    return _build(cfg, None)
+
+
+def logical_axes(cfg: ModelConfig):
+    return _build(cfg, None)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -437,10 +461,11 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
 # caches
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               *, dtype: Optional[torch.dtype] = None, device=None):
+               *, dtype: Optional[torch.dtype] = None, device=None,
+               abstract: bool = False):
     """(cache, logical_axes) twin trees for the whole stack, on ``device``
-    (``cuda`` unless given): ATTN blocks a linear [B, max_len, Hkv, Dh]
-    K/V cache, LOCAL blocks a [B, min(window, max_len), Hkv, Dh] ring
+    (``cuda`` unless given; the meta device when ``abstract``): ATTN
+    blocks a linear [B, max_len, Hkv, Dh] K/V cache, LOCAL blocks a [B, min(window, max_len), Hkv, Dh] ring
     buffer with its slot positions (int32, -1 = empty), RGLRU blocks the
     fp32 recurrent state h [B, R] and the conv tail [B, conv_width - 1, R]
     in the cache dtype, RWKV blocks the fp32 recurrent state
@@ -448,7 +473,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     encoder-decoder's blocks also the cross-attention K/V [B, ENC_LEN, H,
     Dh].  With stacked groups every leaf is one [n_groups, ...] tensor,
     which the blocks write through views."""
-    dev = resolve_device(device)
+    dev = B.META if abstract else resolve_device(device)
     dtype = dtype or _dtype(cfg)
     cross_len = ENC_LEN if cfg.enc_dec else 0
 

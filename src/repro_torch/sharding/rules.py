@@ -22,16 +22,22 @@ rank per device along one axis, each rank running the same program.  Of
 the tables it places only the 'clients' axis: under a live mesh a
 'clients' dimension holds this rank's contiguous block of the clients
 (``put_logical`` cuts it; the round engine splits its cohort the same
-way), and every other logical axis stays replicated.  The 'model'-axis
-entries are the dry run's tables.  ``logical_spec`` takes the mesh as its
-axis sizes (``{"pod": 2, "data": 16, "model": 16}``, or a ``Mesh``'s
-``shape``) and returns a tuple of mesh-axis entries where the reference
-returns a ``PartitionSpec``.
+way), and every other logical axis stays replicated.  The other entries
+(the 'model' axis, and 'data' on weights and server state) are tables and
+arithmetic: ``tree_shardings`` maps a model's logical axes to each leaf's
+mesh axes and per-device shape, and the dry run (``launch/dryrun.py``)
+sums what a device of a production mesh holds.  ``logical_spec`` takes
+the mesh as its axis sizes (``{"pod": 2, "data": 16, "model": 16}``, or a
+``Mesh``'s ``shape``) and returns a tuple of mesh-axis entries where the
+reference returns a ``PartitionSpec``; ``logical_sharding`` returns a
+``MeshSharding`` where the reference returns a ``NamedSharding``.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
+from dataclasses import dataclass
 from typing import Any, Mapping, Optional, Sequence
 
 import torch
@@ -160,6 +166,72 @@ def logical_spec(axes: Sequence[Optional[str]], rules: AxisRules,
             entry = (flat if len(flat) > 1 else (flat[0] if flat else None))
         out.append(entry)
     return tuple(out)
+
+
+@dataclass(frozen=True)
+class MeshSharding:
+    """One array's placement on a mesh: ``spec`` holds one mesh-axis entry
+    per dimension (``None``, an axis name, or a tuple of names), ``mesh``
+    the mesh's ``(axis, size)`` pairs."""
+    spec: tuple
+    mesh: tuple
+
+    def shard_shape(self, shape: Sequence[int]) -> tuple:
+        """The per-device shape of an array of ``shape``: each dimension
+        divided by the product of its mesh axes' sizes, which must divide
+        it (as the reference's ``NamedSharding.shard_shape`` requires)."""
+        sizes = dict(self.mesh)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec} has more entries than shape "
+                             f"{tuple(shape)} has dimensions")
+        out = list(shape)
+        for i, entry in enumerate(self.spec):
+            if entry is None:
+                continue
+            axes = (entry,) if isinstance(entry, str) else tuple(entry)
+            n = math.prod(sizes[a] for a in axes)
+            if out[i] % n:
+                raise ValueError(f"dimension {i} of {tuple(shape)} is not "
+                                 f"divisible by {axes} = {n}")
+            out[i] //= n
+        return tuple(out)
+
+
+def logical_sharding(axes: Sequence[Optional[str]], rules: AxisRules,
+                     mesh: Mapping[str, int],
+                     shape: Optional[Sequence[int]] = None) -> MeshSharding:
+    """``logical_spec``'s entries with the mesh they refer to."""
+    return MeshSharding(logical_spec(axes, rules, mesh, shape),
+                        tuple(dict(mesh).items()))
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
+
+
+def _map_axes(fn, axes_tree):
+    if _is_axes(axes_tree):
+        return fn(axes_tree)
+    if isinstance(axes_tree, dict):
+        return {k: _map_axes(fn, v) for k, v in axes_tree.items()}
+    kids = [_map_axes(fn, v) for v in axes_tree]
+    return (type(axes_tree)(*kids) if _is_namedtuple(axes_tree)
+            else type(axes_tree)(kids))
+
+
+def tree_shardings(logical_tree: Any, rules: AxisRules,
+                   mesh: Mapping[str, int], shapes_tree: Any = None) -> Any:
+    """Map a tree of logical-axis tuples to ``MeshSharding``s.  With
+    ``shapes_tree`` (the matching tree of tensors, meta ones included),
+    mesh axes that do not divide a dimension are dropped, as the
+    reference's does for jit's in_shardings."""
+    if shapes_tree is None:
+        return _map_axes(lambda axes: logical_sharding(axes, rules, mesh),
+                         logical_tree)
+    return _map_up_to(
+        lambda x, axes: logical_sharding(axes, rules, mesh, x.shape),
+        shapes_tree, logical_tree)
 
 
 def _live():
