@@ -91,7 +91,13 @@ Phases, each printed as it runs; any failure exits non-zero:
      of the padded lane's cache bytes, which must resolve to the
      streaming plane with the reason the reference's rule gives
      (recomputed here from the corpus), its parameters against the device
-     plane's after as many rounds;
+     plane's after as many rounds; each lane's prefetch split
+     (``stream_split`` on its warm trainer: ``prefetch`` 2 and 0 timed in
+     turns, ms/round, the upload's host ms, misses, H2D bytes, device ms
+     of the kernels and of the H2D copies, the copies' kinds and streams,
+     the share of H2D time under a kernel, the device staging bytes; the
+     arms bit-equal), and the same split of the linreg fleet widened until
+     the card lags the host (D = 2^19, b = 2048, H = 1: 16 GB a round);
   9. streaming card against CPU: the hook lane on ``cpu`` and ``cuda``;
  10. ``flash_attention`` against its plain version on the card (fp32 atol
      2e-5, bf16 atol 2e-2, the reference's tolerances) at the serving
@@ -191,7 +197,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      and read through ``DiskShardProvider``: FedMom's rate-0.3 scenario
      recorded for 48 rounds, saved, loaded and replayed bit-equal to the
      synthetic run (parameter bits and losses), ``completed_mean`` equal
-     to the JAX package's;
+     to the JAX package's; BENCH_7's padded lane and BENCH_9's disk
+     corpus split as phase 8's lanes are, each run on a new trainer's
+     cold cache;
  20. secure aggregation (every LeNet run on the card but (e)'s under
      ``cudnn.deterministic``): (a) BENCH_8's configuration
      (``benchmarks/perf_compare.py`` ``bench_secure`` over
@@ -255,8 +263,10 @@ Phases, each printed as it runs; any failure exits non-zero:
      one rank), one profiled chunk of the device plane and 5 profiled
      rounds of each streaming lane (device time a round, busy share, NCCL
      ops, ``fedmom_update`` launches from the profiler), the counter's
-     launches on the streaming lanes, and the round's two collectives
-     captured alone (graph replays); (b) 2 and 4 gloo ranks sharing the
+     launches on the streaming lanes, each streaming lane's prefetch
+     split without and with the mesh (as phase 8's, 16 rounds in chunks
+     of 8 on the cache the chunks of 25 warmed), and the round's two
+     collectives captured alone (graph replays); (b) 2 and 4 gloo ranks sharing the
      card (``launch.mesh.spawn``, both meshes at once), 12 rounds of each
      lane (per-round, padded, bucketed, device with its chunks eager,
      masked and open-ring per-round) on BENCH_10's LeNet and on the
@@ -309,13 +319,22 @@ Phases, each printed as it runs; any failure exits non-zero:
      qwen2-vl-72b at ``train_4k`` at full depth and of gemma3-1b at
      ``decode_32k``, each a CPU process started with the script (meta
      tensors, no card): ``peak_bytes_per_rank`` and ``fits_one_card``;
- 25. one JSON line of kernels, then the result line.
+ 25. the reference scripts: ``scripts/dev_smoke_torch.py`` over the ten
+     reduced architectures on the card (forward, loss, gradient norm,
+     prefill and decode; an ``OK <arch>`` line each), and
+     ``scripts/profile_combo_torch.py`` on gemma3-1b ``decode_32k``, a CPU
+     process with no card visible started with the dry runs, its flops
+     equal to phase 24's record;
+ 26. one JSON line of kernels, then the result line.
 
 Each phase's wall seconds print on a line of their own when it ends.
 ``python3 chip_smoke.py --only-lm`` runs phases 1, 2 and 21 alone,
 ``--only-mesh`` phases 1, 2 and 22, ``--only-mesh-nccl`` phases 1, 2
 and 22(c), for a machine with several cards, ``--only-zoo`` phases 1, 2
-and 23, and ``--only-dryrun`` phases 1, 2 and 24 (development runs; they
+and 23, ``--only-dryrun`` phases 1, 2 and 24, and ``--only-stream``
+phases 1, 2 and the prefetch splits of phases 8, 19 and 22, with where
+each run waits for the card (``torch.cuda.set_sync_debug_mode``),
+written to ``chiprun_out/stream_split.json`` (development runs; they
 print no result line).
 
 Without a card, or outside a checkout of the repo, it exits non-zero and
@@ -365,6 +384,11 @@ Z_ETA, Z_BETA = 2.0, 0.9           # FedMom, through fedmom_update
 Z_CR, Z_ROUNDS = 8, 100            # chunk_rounds; timed rounds per lane
 Z_BYTES = Z_M * Z_CR * Z_NTOP * (Z_D * 4 + 4)   # one chunk's padded set
 Z_PROFILE_CHUNKS = 2
+Z_SPLIT_ROUNDS = 3 * Z_CR          # a lane's prefetch 2-against-0 runs
+# the linreg fleet widened until the card lags the host (phase 8's last
+# split; tests/test_torch_gpu.py's overlap test): 2 MB rows, 16 GB a round
+W_D, W_ROWS, W_K, W_C, W_B, W_LR = 1 << 19, 2, 16, 4, 2048, 1e-9
+W_CR, W_CAP = 3, 12
 G_CR = 10                          # chunk_rounds of the graphed planes
 FM_KERNEL_NAME = "tree_update_kernel"   # fedmom_update.cu's kernel, as the
                                         # profiler names its launches
@@ -429,6 +453,7 @@ B7_RATES = (0.0, 0.2, 0.4, 0.6)
 B7_HOOK_RATE = 0.4                 # the cell run on the hook lane too
 B7_LOSS_RTOL = 1e-3                # final_loss against the reference's
 B7_CMP_ROUNDS = 16                 # card-against-CPU rounds of that cell
+B7_SPLIT_ROUNDS = 2 * B7_CR        # the prefetch 2-against-0 runs
 # (completed_mean, final_loss) of the JAX package's scenario_lane() on the
 # CPU (jax 0.9.0; BENCH_7.json was made under a 0.4.37 pin whose keyed
 # draws differ), from
@@ -466,6 +491,7 @@ S_CMP_ROUNDS = 3                   # masked card-against-CPU rounds
 # fedmom_update, 60 rounds in chunks of 25 on the device plane)
 MS_ROUNDS, MS_CR = 60, 25
 MS_PROFILE_ROUNDS = 5              # an eager streaming lane's profiled run
+MS_SPLIT_CR, MS_SPLIT_ROUNDS = 8, 16    # its prefetch split (two chunks)
 MS_SIZES = (2, 4)                  # spawned ranks: gloo sharing the card,
                                    # NCCL where there are as many cards
 MS_RANK_ROUNDS, MS_RANK_CR = 12, 4   # the spawned meshes' runs: the length
@@ -517,6 +543,8 @@ DRY_ARCH, DRY_B, DRY_S = "gemma3-1b", 8, 1024
 DRY_RUNS = (("grok-1-314b", "train_4k"), ("qwen2-vl-72b", "train_4k"),
             ("gemma3-1b", "decode_32k"))
 DRY_TIMEOUT_S = 900.0              # from the script's start
+# phase 25: scripts/profile_combo_torch.py on one of DRY_RUNS
+PC_COMBO = ("gemma3-1b", "decode_32k")
 
 
 _PHASE = {"name": None, "t0": 0.0, "seconds": {}}
@@ -605,9 +633,9 @@ def sm_clock_under(fn, seconds=1.5, iters=100):
     return (statistics.median(mhz) if mhz else float("nan")), len(mhz)
 
 
-def profile_rows(fn):
-    """Run ``fn`` under the profiler; returns (wall s, every device kernel
-    as (name, s, count), most time first).  The window opens 0.1 s before
+def device_events(fn):
+    """Run ``fn`` under the profiler; returns (wall s, every device event
+    as (start ns, end ns, stream, name)).  The window opens 0.1 s before
     ``fn`` and closes 0.1 s after its work ends: the profiler drops device
     events whose converted timestamps fall outside it, and a window that
     opens just as the first kernels run lost some of them on the card.
@@ -626,13 +654,20 @@ def profile_rows(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         time.sleep(0.1)
+    return wall, [(evt.start_ns(), evt.end_ns(), evt.device_resource_id(),
+                   evt.name())
+                  for evt in prof.profiler.kineto_results.events()
+                  if evt.device_type() == DeviceType.CUDA]
+
+
+def profile_rows(fn):
+    """Run ``fn`` under the profiler (``device_events``); returns (wall s,
+    every device kernel as (name, s, count), most time first)."""
+    wall, events = device_events(fn)
     by_name = {}
-    for evt in prof.profiler.kineto_results.events():
-        if evt.device_type() != DeviceType.CUDA:
-            continue
-        name = evt.name()
+    for start, end, _, name in events:
         s, c = by_name.get(name, (0.0, 0))
-        by_name[name] = (s + evt.duration_ns() / 1e9, c + 1)
+        by_name[name] = (s + (end - start) / 1e9, c + 1)
     return wall, sorted(((k, s, c) for k, (s, c) in by_name.items()),
                         key=lambda r: -r[1])
 
@@ -1262,6 +1297,9 @@ def streaming_lanes(dev, z_clients, fm_kernel, cs_kernel):
               f"ops/round; top kernels:")
         for kname, secs, count in top:
             print(f"  {secs * 1e3:8.3f} ms  {count:6d}x  {kname[:100]}")
+    for name, split in zipf_splits(dev, lanes).items():
+        lanes[name]["split"] = split
+    lanes["padded"]["wide_split"] = wide_split(dev)
     return lanes
 
 
@@ -2906,6 +2944,8 @@ def bench7_phase(dev, fm_kernel, cs_kernel):
                   f"{cell['cache_nbytes']} B, hit rate "
                   f"{cell['hit_rate']:.4f}; fedmom_update launches {fm}")
             del tr
+    split = bench7_split(dev, "BENCH_7 padded (fedmom, dropout "
+                         f"{B7_HOOK_RATE})", provider, B7_K, B7_HOOK_RATE)
     spread = {o: max(cells[(o, r)]["final_loss"] for r in B7_RATES)
               - min(cells[(o, r)]["final_loss"] for r in B7_RATES)
               for o in ("fedavg", "fedmom")}
@@ -2980,6 +3020,7 @@ def bench7_phase(dev, fm_kernel, cs_kernel):
           f"{cmp_worst:.3e} (atol/rtol {LANE_ATOL}); cpu "
           f"{got['cpu_s']:.2f} s, cuda {got['cuda_s']:.2f} s")
     return {"cells": {f"{o}@{r}": c for (o, r), c in cells.items()},
+            "split": split,
             "padded_busy_share": busy / wall,
             "padded_ops_per_round": n_ops / n_prof,
             "spread": spread, "declared_mb": declared_mb,
@@ -3036,6 +3077,8 @@ def disk_trace_phase(dev):
             torch.cuda.synchronize()
             runs[name + "_ms"] = (time.perf_counter() - t0) / B9_ROUNDS * 1e3
             del tr
+        split = bench7_split(dev, f"BENCH_9 disk corpus (fedmom, dropout "
+                             f"{B9_RATE})", provider, B9_K, B9_RATE)
     rep, syn = runs["replay"], runs["synthetic"]
     bits = sum(int((a.cpu().numpy().view(np.uint32)
                     != b.cpu().numpy().view(np.uint32)).sum())
@@ -3060,7 +3103,7 @@ def disk_trace_phase(dev):
             "replay_ms_per_round": runs["replay_ms"],
             "synthetic_ms_per_round": runs["synthetic_ms"],
             "replay_drift_bits": bits, "completed_mean": completed_mean,
-            "final_loss": statistics.fmean(rep[0][-10:])}
+            "final_loss": statistics.fmean(rep[0][-10:]), "split": split}
 
 def secure_trainer(clients, dev, m=S_M, session=None):
     """``_driver_setup``'s trainer of benchmarks/perf_compare.py at
@@ -4286,6 +4329,14 @@ def mesh_one_rank(dev, fm_kernel, out, part):
                                  f"rounds under the mesh")
         if drift > MESH_ATOL:
             raise AssertionError(f"{lane}: 1-rank mesh drift {drift}")
+        if lane != "device":
+            row["host_delta"] = mesh_host_delta(lane, trs, one)
+            row["split"] = {
+                tag: mesh_split(f"BENCH_10 {lane} {tag}", lane, mesh, tr,
+                                init)
+                for tag, (tr, init, plan, _), mesh in (
+                    ("none", trs["none"], None),
+                    ("mesh1", trs["mesh1"], one))}
         out["a"][lane] = row
         m = row["ms_per_round"]
         print(f"{lane:9s} none {m['none']:8.3f} ms/round, 1-rank NCCL mesh "
@@ -5173,6 +5224,443 @@ def zoo_phase(dev, fa_kernel, fa_ops, fm_kernel, fm_ops, fm_ref, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the streaming uploads: prefetch 2 against 0 (phases 8, 19 and 22)
+# ---------------------------------------------------------------------------
+def _merged(spans):
+    """The union of (start, end) intervals, as sorted disjoint ones."""
+    out = []
+    for s, e in sorted(spans):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _covered(lo, hi, merged):
+    """Nanoseconds of [lo, hi) inside the disjoint sorted ``merged``."""
+    from bisect import bisect_right
+    i = max(bisect_right([s for s, _ in merged], lo) - 1, 0)
+    got = 0
+    for s, e in merged[i:]:
+        if s >= hi:
+            break
+        got += max(0, min(e, hi) - max(s, lo))
+    return got
+
+
+def h2d_profile(fn):
+    """Run ``fn`` under the profiler (``device_events``) and set its
+    host-to-device copies against its kernels: wall s, kernel s, the
+    copies' count, seconds and source kind (pageable or pinned), their
+    seconds off the stream that runs the most kernel time (the compute
+    stream), the share of copy time during which a kernel runs on another
+    stream, and how many copies off the compute stream start while a
+    compute kernel runs."""
+    wall, events = device_events(fn)
+    copies = [e for e in events if e[3].startswith("Memcpy HtoD")]
+    kernels = [e for e in events
+               if not e[3].startswith(("Memcpy", "Memset"))]
+    by_stream = {}
+    for s, e, st, _ in kernels:
+        by_stream[st] = by_stream.get(st, 0) + e - s
+    compute = max(by_stream, key=by_stream.get) if by_stream else None
+    on_compute = _merged([(s, e) for s, e, st, _ in kernels
+                          if st == compute])
+    others = {c: _merged([(s, e) for s, e, st, _ in kernels if st != c])
+              for c in {st for _, _, st, _ in copies}}
+    side = [c for c in copies if c[2] != compute]
+    h2d_ns = sum(e - s for s, e, _, _ in copies)
+    return {
+        "wall_s": wall, "kernels": len(kernels),
+        "kernel_s": sum(e - s for s, e, _, _ in kernels) / 1e9,
+        "h2d": len(copies), "h2d_s": h2d_ns / 1e9,
+        "h2d_pageable": sum("Pageable" in c[3] for c in copies),
+        "h2d_pinned": sum("Pinned" in c[3] for c in copies),
+        "h2d_side": len(side),
+        "h2d_side_s": sum(e - s for s, e, _, _ in side) / 1e9,
+        "h2d_side_streams": len({c[2] for c in side}),
+        "h2d_side_started_under_kernel": sum(
+            1 for s, _, _, _ in side if _covered(s, s + 1, on_compute)),
+        "h2d_overlap_share": (sum(_covered(s, e, others[st])
+                                  for s, e, st, _ in copies) / h2d_ns
+                              if h2d_ns else None)}
+
+
+def sync_sites(fn, top=12):
+    """Where the host waits for the card while ``fn`` runs
+    (``torch.cuda.set_sync_debug_mode("warn")``): [(file:line, count)],
+    most first."""
+    import warnings
+    from collections import Counter
+
+    import torch
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return Counter(f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                   for w in caught
+                   if "synchroniz" in str(w.message)).most_common(top)
+
+
+class _UploadClock:
+    """Host seconds spent in the shard caches' ``ensure`` and ``view`` (the
+    upload's host half) while it is entered; a nested call (a mesh cache's
+    shards) counts once."""
+
+    def __enter__(self):
+        from repro_torch.data import stream as st
+        self.seconds, self._depth, self._saved = 0.0, 0, []
+        for cls in (st.ShardCache, st.MeshShardedCache):
+            for name in ("ensure", "view"):
+                f = cls.__dict__[name]
+                self._saved.append((cls, name, f))
+                setattr(cls, name, self._timed(f))
+        return self
+
+    def _timed(self, f):
+        def g(*a, **k):
+            self._depth += 1
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **k)
+            finally:
+                self._depth -= 1
+                if self._depth == 0:
+                    self.seconds += time.perf_counter() - t0
+        return g
+
+    def __exit__(self, *exc):
+        for cls, name, f in self._saved:
+            setattr(cls, name, f)
+
+
+def stream_split(tag, plan, n_rounds, make=None, trainer=None, fresh=None,
+                 sites=False):
+    """A streaming lane ``plan`` with ``prefetch`` 2 and 0: timed runs in
+    turns (2, 0, 0, 2), each synced at its end, then one profiled run of
+    each arm (``h2d_profile``).  With ``make``, every run is a new trainer
+    with a cold cache (a fleet whose clients are new to the run); with
+    ``trainer``, a trainer whose cache a run has warmed, its state reset to
+    ``fresh()`` before each run.  For each arm: ms/round, the host ms/round
+    spent in the cache's ``ensure`` and ``view`` (the upload's host half),
+    misses and H2D bytes a round (the cache's ``upload_bytes``), the
+    largest device staging of one upload (``staging_bytes``), the profiled
+    kernel and H2D device ms a round, the H2D copies' kinds and streams,
+    and the share of H2D time under a kernel.  The arms must agree bit for
+    bit (losses and parameters).  ``sites``: also list where one run of
+    each arm waits for the card."""
+    import numpy as np
+    arms = {p: dataclasses.replace(plan, prefetch=p) for p in (2, 0)}
+
+    def run(p):
+        tr = trainer or make()
+        if trainer is not None:
+            tr.state, tr.history = fresh(), []
+        cache = tr.stream_cache
+        m0, b0 = ((cache.misses, getattr(cache, "upload_bytes", None))
+                  if cache is not None else (0, 0))
+        hist = [r for r in tr.run(n_rounds, plan=arms[p], verbose=False)
+                if "event" not in r]
+        sync(tr.device)
+        cache = tr.stream_cache
+        nbytes = getattr(cache, "upload_bytes", None)
+        return ([r["loss"] for r in hist], flat_params(tr.state),
+                cache.misses - m0, None if nbytes is None else nbytes - b0,
+                cache)
+
+    runs = {p: [] for p in (2, 0)}
+    last = {}
+    for p in (2, 0, 0, 2):
+        with _UploadClock() as clock:
+            t0 = time.perf_counter()
+            last[p] = run(p)
+            secs = time.perf_counter() - t0
+        runs[p].append((secs, clock.seconds) + last[p][2:4])
+    out = {}
+    for p in (2, 0):
+        prof = h2d_profile(lambda: run(p))
+        secs, host, misses, nbytes = zip(*runs[p])
+        cache = last[p][4]
+        out[p] = {
+            "ms": statistics.fmean(secs) / n_rounds * 1e3,
+            "ms_runs": [x / n_rounds * 1e3 for x in secs],
+            "upload_host_ms": statistics.fmean(host) / n_rounds * 1e3,
+            "misses_per_round": statistics.fmean(misses) / n_rounds,
+            "upload_bytes_per_round": (None if nbytes[0] is None else
+                                       statistics.fmean(nbytes) / n_rounds),
+            "device_ms": prof["kernel_s"] / n_rounds * 1e3,
+            "h2d_ms": prof["h2d_s"] / n_rounds * 1e3,
+            "h2d_per_round": prof["h2d"] / n_rounds,
+            "busy_share": prof["kernel_s"] / prof["wall_s"],
+            "profiled": prof,
+            "staging_bytes": getattr(cache, "staging_bytes", None),
+            "cache_nbytes": cache.nbytes}
+        if sites:
+            out[p]["sync_sites"] = sync_sites(lambda: run(p))
+    (la, wa), (lb, wb) = last[2][:2], last[0][:2]
+    out["drift_bits"] = int((wa.view(np.int32) != wb.view(np.int32)).sum()
+                            + sum(a != b for a, b in zip(la, lb)))
+    a, b = out[2], out[0]
+    print(f"{tag}: prefetch 2 {a['ms']:.3f} ms/round, 0 {b['ms']:.3f} "
+          f"(host clock, {n_rounds} rounds a run in turns 2, 0, 0, 2: "
+          f"{[round(x, 3) for x in a['ms_runs']]} / "
+          f"{[round(x, 3) for x in b['ms_runs']]}; "
+          f"{'cold' if trainer is None else 'warm'} cache); upload host "
+          f"{a['upload_host_ms']:.3f} / {b['upload_host_ms']:.3f} ms/round; "
+          f"misses {a['misses_per_round']:.2f}/round; H2D bytes/round "
+          f"{a['upload_bytes_per_round']}; kernels {a['device_ms']:.3f} / "
+          f"{b['device_ms']:.3f} ms/round, busy {a['busy_share']:.3f} / "
+          f"{b['busy_share']:.3f}; H2D {a['h2d_per_round']:.2f} copies, "
+          f"{a['h2d_ms']:.4f} / {b['h2d_ms']:.4f} ms/round, pageable "
+          f"{a['profiled']['h2d_pageable']} / "
+          f"{b['profiled']['h2d_pageable']}, off the compute stream "
+          f"{a['profiled']['h2d_side']} / {b['profiled']['h2d_side']} "
+          f"({a['profiled']['h2d_side_started_under_kernel']} / "
+          f"{b['profiled']['h2d_side_started_under_kernel']} of them "
+          f"started under a compute kernel), share under a kernel "
+          f"{a['profiled']['h2d_overlap_share']} / "
+          f"{b['profiled']['h2d_overlap_share']}; staging "
+          f"{a['staging_bytes']} B beside the cache's {a['cache_nbytes']} "
+          f"B; the arms differ in {out['drift_bits']} bits", flush=True)
+    if sites:
+        for p in (2, 0):
+            print(f"  host waits, prefetch {p}: {out[p]['sync_sites']}",
+                  flush=True)
+    if out["drift_bits"]:
+        raise AssertionError(f"{tag}: prefetch 2 and 0 differ in "
+                             f"{out['drift_bits']} bits")
+    return out
+
+
+def zipf_state(dev):
+    """BENCH_6's start: the linreg parameters at zero, FedMom's state."""
+    import torch
+    from repro_torch.core import fedmom
+    return fedmom(eta=Z_ETA, beta=Z_BETA, use_fused_kernel=True).init(
+        {"w": torch.zeros(Z_D, device=dev), "b": torch.zeros((), device=dev)})
+
+
+def wide_split(dev):
+    """Phase 8's split of the linreg fleet widened until the card lags the
+    host (``tests/test_torch_gpu.py``'s overlap configuration: W_K clients
+    of W_ROWS rows, D = W_D, M = W_C, H = 1, b = W_B, chunks of W_CR over
+    a cache of W_CAP uniform slots), where an overlapped upload can hide
+    under a chunk: a warm-up run, then ``stream_split``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import DeviceUniformSampler, RoundConfig, fedmom
+    from repro_torch.data import FederatedDataset
+    from repro_torch.launch.plan import CacheSpec, ExecutionPlan
+    from repro_torch.launch.train import FederatedTrainer
+    rng = np.random.default_rng(9)
+    ds = FederatedDataset(
+        [{"x": rng.standard_normal((W_ROWS, W_D), np.float32) * 1e-3,
+          "y": rng.standard_normal(W_ROWS).astype(np.float32)}
+         for _ in range(W_K)], seed=1)
+    opt = fedmom(eta=1.0, beta=0.9, use_fused_kernel=True)
+    tr = FederatedTrainer(
+        loss_fn=linreg_loss, server_opt=opt,
+        rcfg=RoundConfig(W_C, 1, W_LR, compute_dtype="float32"),
+        dataset=ds, sampler=DeviceUniformSampler(ds.population(), W_C,
+                                                 seed=2),
+        state=opt.init({"w": torch.zeros(W_D), "b": torch.zeros(())}),
+        local_batch=W_B, device=dev)
+    init = tr.state
+    plan = ExecutionPlan(plane="streaming", chunk_rounds=W_CR,
+                         cache=CacheSpec(clients=W_CAP, tiers=1))
+    tr.run(2 * W_CR, plan=plan, verbose=False)
+    try:
+        return stream_split(
+            f"linreg widened (D={W_D}, b={W_B}, H=1, M={W_C}, K={W_K}, "
+            f"chunks of {W_CR}, {W_CAP} slots)", plan, 4 * W_CR, trainer=tr,
+            fresh=lambda: init)
+    finally:
+        del tr, init
+        torch.cuda.empty_cache()
+
+
+def zipf_splits(dev, lanes, sites=False):
+    """Phase 8's split of BENCH_6's padded, bucketed and hook lanes on
+    their warm trainers (``lanes[name]["trainer"]`` and ``["plan"]``)."""
+    return {name: stream_split(f"BENCH_6 {name}", lane["plan"],
+                               Z_SPLIT_ROUNDS, trainer=lane["trainer"],
+                               fresh=lambda: zipf_state(dev), sites=sites)
+            for name, lane in lanes.items()}
+
+
+def bench7_split(dev, tag, provider, n_clients, rate, sites=False):
+    """Phase 19's split of BENCH_7's padded lane (FedMom) over
+    ``provider``, each run on a new trainer's cold cache, as phase 19 runs
+    each cell."""
+    return stream_split(
+        tag, b7_plan(scenario_spec(rate, B7_DEADLINE, B7_SCEN_SEED)),
+        B7_SPLIT_ROUNDS, sites=sites,
+        make=lambda: b7_trainer(provider, "fedmom", n_clients, dev))
+
+
+def mesh_split(tag, lane, mesh, trainer, init, sites=False):
+    """Phase 22's split of a BENCH_10 streaming lane on its warm trainer:
+    MS_SPLIT_ROUNDS rounds in chunks of MS_SPLIT_CR over the cache that
+    chunks of MS_CR warmed (the default capacity of M x MS_CR clients)."""
+    plan = mesh_plan(lane, mesh, MS_SPLIT_CR)
+    plan = dataclasses.replace(plan, cache=dataclasses.replace(
+        plan.cache, clients=S_M * MS_CR))
+    return stream_split(tag, plan, MS_SPLIT_ROUNDS, trainer=trainer,
+                        fresh=lambda: init, sites=sites)
+
+
+def host_functions(tr, plan, n_rounds, init):
+    """Host seconds a round by function (``cProfile``'s own time, each
+    function as ``file:line(name)``) of one run of ``plan`` from ``init``:
+    where the host's time goes, beside the device's."""
+    import cProfile
+    import pstats
+    tr.state, tr.history = init, []
+    prof = cProfile.Profile()
+    prof.enable()
+    tr.run(n_rounds, plan=plan, verbose=False)
+    sync(tr.device)
+    prof.disable()
+    out = {}
+    for (path, line, name), (_, _, own, _, _) in pstats.Stats(
+            prof).stats.items():
+        key = f"{Path(path).name}:{line}({name})"
+        out[key] = out.get(key, 0.0) + own / n_rounds
+    return out
+
+
+def mesh_host_delta(lane, trs, one, top=10):
+    """Phase 22: where the host time a 1-rank mesh adds to a streaming lane
+    goes: ``host_functions`` of one run without and one with the mesh,
+    the functions whose own time grows most, in ms/round."""
+    plans = {"none": mesh_plan(lane, None, MS_CR),
+             "mesh1": mesh_plan(lane, one, MS_CR)}
+    got = {tag: host_functions(trs[tag][0], plans[tag], MS_CR, trs[tag][1])
+           for tag in plans}
+    total = {tag: sum(v.values()) * 1e3 for tag, v in got.items()}
+    grew = sorted(((k, (got["mesh1"].get(k, 0.0) - got["none"].get(k, 0.0))
+                    * 1e3) for k in set(got["none"]) | set(got["mesh1"])),
+                  key=lambda kv: -kv[1])[:top]
+    print(f"BENCH_10 {lane}: host ms/round under cProfile, none "
+          f"{total['none']:.3f}, 1-rank mesh {total['mesh1']:.3f}; own time "
+          f"that grew most (ms/round): "
+          + "; ".join(f"{k} +{v:.3f}" for k, v in grew), flush=True)
+    return {"host_ms": total, "grew_ms": grew}
+
+
+def stream_only(dev, sites=True):
+    """``--only-stream``: the splits of phases 8, 19 and 22 alone, each
+    lane's trainer warmed by a run of its own first."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import (DiskShardProvider, synthetic_femnist,
+                                  write_disk_corpus)
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.launch.plan import CacheSpec, ExecutionPlan
+    from repro_torch.scenario import zipf_linreg_provider
+    z_clients = zipf_clients()
+    lanes = {}
+    for name, spec, hook in (
+            ("padded", CacheSpec(bytes=Z_BYTES, tiers=1), False),
+            ("bucketed", CacheSpec(bytes=Z_BYTES, bucketed=True), False),
+            ("hook", CacheSpec(bytes=Z_BYTES, bucketed=True), True)):
+        tr = zipf_trainer(z_clients, dev, hook)
+        plan = ExecutionPlan(plane="streaming", chunk_rounds=Z_CR, cache=spec)
+        tr.run(Z_SPLIT_ROUNDS, plan=plan, verbose=False)
+        lanes[name] = {"trainer": tr, "plan": plan}
+    out = {"bench6": zipf_splits(dev, lanes, sites),
+           "widened": wide_split(dev)}
+    out["bench7"] = bench7_split(dev, "BENCH_7 padded", b7_provider(), B7_K,
+                                 B7_HOOK_RATE, sites)
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = write_disk_corpus(
+            os.path.join(tmp, "corpus"), zipf_linreg_provider(
+                B9_K, dim=B7_DIM, n_min=B7_NMIN, n_max=B7_NMAX, seed=0),
+            layout="npy-packed")
+        out["bench9_disk"] = bench7_split(
+            dev, "BENCH_9 disk corpus", DiskShardProvider(corpus), B9_K,
+            B9_RATE, sites)
+    clients, _ = synthetic_femnist(n_clients=S_K, seed=0)
+    torch.backends.cudnn.deterministic = True
+    one = MeshSpec(devices=1)
+    try:
+        for lane in ("padded", "bucketed"):
+            trs = {}
+            for tag, mesh in (("none", None), ("mesh1", one)):
+                tr = secure_trainer(clients, dev)
+                init = tr.state
+                tr.run(MS_CR, plan=mesh_plan(lane, mesh, MS_CR),
+                       verbose=False)
+                trs[tag] = (tr, init)
+                out[f"bench10_{lane}_{tag}"] = mesh_split(
+                    f"BENCH_10 {lane} {tag}", lane, mesh, tr, init, sites)
+            out[f"bench10_{lane}_host"] = mesh_host_delta(lane, trs, one)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
+def scripts_phase(dr, dry):
+    """Phase 25: ``scripts/dev_smoke_torch.py`` (its ``main``, loaded by
+    path) over the ten reduced architectures on the card, an ``OK`` line
+    each; ``scripts/profile_combo_torch.py`` on PC_COMBO, a CPU process
+    with no card visible that ``start_dry_runs`` started, its flops equal
+    to phase 24's dry-run record of the same combination."""
+    import contextlib
+    import importlib.util
+    import io
+    from repro_torch.configs import ARCH_IDS
+    spec = importlib.util.spec_from_file_location(
+        "dev_smoke_torch", ROOT / "scripts" / "dev_smoke_torch.py")
+    ds = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ds)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ds.main([])
+    smoke_s = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    print("\n".join(lines))
+    oks = [ln.split()[1] for ln in lines if ln.startswith("OK ")]
+    if rc != 0 or oks != list(ARCH_IDS):
+        raise AssertionError(f"dev_smoke_torch: rc {rc}, OK lines for "
+                             f"{oks}, want {list(ARCH_IDS)}")
+    proc, log = dry["combo"]
+    left = DRY_TIMEOUT_S - (time.perf_counter() - dry["t0"])
+    try:
+        proc.wait(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"profile_combo_torch ran past "
+                             f"{DRY_TIMEOUT_S:.0f} s") from None
+    log.flush()
+    text = (dry["dir"] / "profile_combo.log").read_text()
+    print(text.rstrip())
+    if proc.returncode != 0:
+        raise AssertionError(f"profile_combo_torch exited "
+                             f"{proc.returncode}:\n{text[-3000:]}")
+    head = next(ln for ln in text.splitlines() if ln.startswith("== "))
+    flops = float(head.split("flops=")[1].split()[0])
+    want = dr["_".join(PC_COMBO)]["flops_per_rank"]
+    if f"{flops:.3e}" != f"{want:.3e}":
+        raise AssertionError(f"profile_combo_torch counts {flops:.3e} "
+                             f"flops, the dry run {want:.3e}")
+    print(f"dev_smoke_torch: {len(oks)} architectures in {smoke_s:.1f} s; "
+          f"profile_combo_torch {' '.join(PC_COMBO)} (no card visible) "
+          f"flops {flops:.3e} = the dry run's")
+    return {"dev_smoke_archs": oks, "dev_smoke_s": smoke_s,
+            "profile_combo_flops": flops}
+
+
 def start_dry_runs():
     """Start ``DRY_RUNS``' dry runs, one CPU process each at a lower
     priority (meta tensors: no card, no memory), so that they run beside
@@ -5191,9 +5679,15 @@ def start_dry_runs():
             cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
             preexec_fn=lambda: os.nice(10))
         runs.append((arch, shape, proc, log))
+    # phase 25's profile_combo_torch.py, a CPU process like them
+    combo_log = open(out / "profile_combo.log", "w")
+    combo = subprocess.Popen(
+        [sys.executable, str(ROOT / "scripts" / "profile_combo_torch.py"),
+         *PC_COMBO], cwd=ROOT, env=env, stdout=combo_log,
+        stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(10))
 
     def stop():
-        for _, _, proc, log in runs:
+        for _, _, proc, log in runs + [(None, None, combo, combo_log)]:
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
@@ -5201,7 +5695,8 @@ def start_dry_runs():
         shutil.rmtree(out, ignore_errors=True)
 
     atexit.register(stop)
-    return {"dir": out, "runs": runs, "t0": time.perf_counter()}
+    return {"dir": out, "runs": runs, "combo": (combo, combo_log),
+            "t0": time.perf_counter()}
 
 
 def dryrun_phase(dev, card, dry):
@@ -5306,12 +5801,14 @@ def main(argv=None) -> int:
     only_nccl = "--only-mesh-nccl" in argv
     only_zoo = "--only-zoo" in argv
     only_dryrun = "--only-dryrun" in argv
+    only_stream = "--only-stream" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false — this "
               "script needs a CUDA card", file=sys.stderr)
         return 1
     dry = (start_dry_runs()
-           if not (only_lm or only_zoo or only_mesh or only_nccl) else None)
+           if not (only_lm or only_zoo or only_mesh or only_nccl
+                   or only_stream) else None)
     from repro_torch import random as prng
     from repro_torch.core import (RoundConfig, UniformSampler, fedavg,
                                   fedmom)
@@ -5386,6 +5883,19 @@ def main(argv=None) -> int:
         phase(None)
         print(json.dumps({"card": card, "dryrun": dr}, default=str))
         print("--only-dryrun: phases 1, 2 and 24 only; no result line")
+        return 0
+    if only_stream:
+        # a development run of the streaming lanes' prefetch split alone,
+        # with where each run waits for the card: no result line
+        phase("8, 19, 22. streaming prefetch 2 against 0 (alone)")
+        split = stream_only(torch.device("cuda"))
+        phase(None)
+        os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+        (ROOT / "chiprun_out" / "stream_split.json").write_text(
+            json.dumps({"card": card, "split": split}, default=str,
+                       indent=1))
+        print("--only-stream: phases 1, 2 and the streaming split only; no "
+              "result line")
         return 0
     if only_mesh or only_nccl:
         # a development run of the mesh phase (or of its NCCL ranks) alone:
@@ -5686,7 +6196,12 @@ def main(argv=None) -> int:
     dr = dryrun_phase(dev, card, dry)
 
     # ------------------------------------------------------------------
-    phase("25. kernels")
+    phase("25. the reference scripts: dev_smoke_torch.py over every "
+          "reduced architecture on cuda, profile_combo_torch.py on the CPU")
+    scripts = scripts_phase(dr, dry)
+
+    # ------------------------------------------------------------------
+    phase("26. kernels")
     bound_ms = timing[("fedmom", n_main)][2]
     large_ms, _, large_bound_ms = timing[("fedmom", 2 ** 26 + 3)]
     cs_ms, cs_plain_ms, cs_bound_ms, cs_v1_ms, cs_ring = cs_timing[cs_top]
@@ -5711,6 +6226,14 @@ def main(argv=None) -> int:
         "lm": lm,
         "zoo": zoo,
         "dryrun": dr,
+        "scripts": scripts,
+        "streaming_prefetch": {
+            "bench6": {k: v["split"] for k, v in lanes.items()},
+            "widened": lanes["padded"]["wide_split"],
+            "bench7": scenarios["bench7"]["split"],
+            "bench9_disk": scenarios["disk_trace"]["split"],
+            "bench10": {lane: mesh["a"][lane]["split"]
+                        for lane in ("padded", "bucketed")}},
         "fedmom_update_tree": fm_tree,
         "torch_streaming_ms_and_bound_ms": {
             name: t for (k, name), t in timing.items() if k == "stream"},

@@ -52,7 +52,7 @@ from repro_torch.core.round import (RoundConfig, _client_mesh,
                                     bucketed_round_step, round_step)
 from repro_torch.core.server_opt import ServerOpt, ServerState
 from repro_torch.data.federated import minibatch_indices
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.tree import leaves, tree_map
 
 _STACKED = ("loss", "delta_norm", "completed")
@@ -258,17 +258,22 @@ def scan_rounds_bucketed(loss_fn: Callable, server_opt: ServerOpt,
         tier_idx = _tier_draws(data_key, view, t0, tier_cids,
                                H * local_batch_size)
 
-    def put(arrays, dtype):
-        return tuple(torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
-                     for a in arrays)
+    def put(arrays, dtype):            # never blocking the host on a card
+        return tuple(to_device(np.asarray(a), dev, dtype) for a in arrays)
 
     cids = put(tier_cids, torch.int64)
     ws = put(tier_weights, torch.float32)
     idxs = put(tier_idx, torch.int32)
     ms = None if tier_masks is None else put(tier_masks, torch.float32)
+    # the engines take each round's stepsize from the device (a host float
+    # would be copied, and waited for, once a round); a hook gets it as a
+    # host float
+    lrs_dev = (None if lrs is None or isinstance(lrs, torch.Tensor)
+               else put([np.asarray(lrs, np.float32)], torch.float32)[0])
     per_round = []
     for r in range(n_rounds):
         lr = _lr(lrs, r, rcfg)
+        lr_t = lr if lrs_dev is None else lrs_dev[r]
         if client_step_fn is None:
             parts = [view.gather_tier_rows(tier, cids[i][r], idxs[i][r], H,
                                            local_batch_size)
@@ -277,7 +282,7 @@ def scan_rounds_bucketed(loss_fn: Callable, server_opt: ServerOpt,
             state, metrics = round_step(
                 loss_fn, server_opt, state, batch,
                 torch.cat([w[r] for w in ws]), rcfg, param_axes=param_axes,
-                lr=lr,
+                lr=lr_t,
                 step_mask=None if ms is None else torch.cat(
                     [m[r] for m in ms]),
                 device=dev)
@@ -291,7 +296,7 @@ def scan_rounds_bucketed(loss_fn: Callable, server_opt: ServerOpt,
                 loss_fn, server_opt, state,
                 tuple((c[r], ix[r]) for c, ix in zip(cids, idxs)),
                 tuple(w[r] for w in ws), rcfg, param_axes=param_axes,
-                lr=lr, tier_masks=None if ms is None else tuple(
+                lr=lr_t, tier_masks=None if ms is None else tuple(
                     m[r] for m in ms),
                 tier_update_fn=update, device=dev)
         per_round.append(metrics)

@@ -30,14 +30,19 @@ tensor per field and tier and a per-tier LRU: a 3-sample client costs a
   other plane's.
 
 Cache writes are IN PLACE (``index_copy_``), where the reference writes
-functionally (``.at[idx].set``) so that a captured view never changes.  In
-place is safe here because every write is issued on the current stream,
-after the reads of the chunk that came before it, and a host-to-device copy
-from pageable memory waits for that stream: ``prefetch`` therefore orders
-the next chunk's uploads behind the current chunk rather than overlapping
-them.  What a view captures beside the tier tensors (``client_slots``) is
-copied per view, so a later eviction never rewires an earlier view's
-clients.
+functionally (``.at[idx].set``) so that a captured view never changes.  On
+a card the fresh rows are assembled straight into pinned host tensors,
+copied without blocking on a copy stream the cache owns, and scattered into
+the tier tensors on the current (compute) stream once that stream has
+waited for the copy: the PCIe transfer runs under the chunk in flight, and
+the scatter is queued behind that chunk's kernels, so a slot that the
+chunk still reads is overwritten only after it has read it.  ``prefetch``
+therefore overlaps the next chunk's uploads with the current chunk, with
+no second buffer and the same LRU decisions.  The slot ids and a view's
+``client_slots`` table take the same path.  On the CPU there is no stream
+and no pinning: the same bookkeeping writes synchronously.  What a view
+captures beside the tier tensors (``client_slots``) is copied per view, so
+a later eviction never rewires an earlier view's clients.
 """
 from __future__ import annotations
 
@@ -57,7 +62,7 @@ from repro_torch.core.sampling import ClientPopulation
 from repro_torch.data.federated import (CorpusSchemaError, FederatedDataset,
                                         check_shard, minibatch_indices,
                                         shard_schema, validate_client_data)
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 
 
 @runtime_checkable
@@ -418,25 +423,27 @@ class ShardCache:
                  capacity_clients: Optional[int] = None,
                  capacity_bytes: Optional[int] = None,
                  tiers: Optional[int] = None, device=None,
-                 storage: Optional[list] = None):
+                 storage: Optional[list] = None,
+                 uploads: Optional["_Uploads"] = None):
         layout, cap = _cache_capacity(dataset, capacity_clients,
                                       capacity_bytes, tiers)
         self.device = resolve_device(device)
+        self._uploads = uploads or _Uploads(self.device)
         self.capacity = cap
         self.layout = layout
         self.tier_slots = tuple(min(k_t, cap) for k_t in layout.tier_counts)
         self.dataset = dataset
-        # storage: per-tier dicts of [slots_t, n_tier, ...] tensors to hold
-        # the slots in (a MeshShardedCache's views into one buffer)
+        # storage / uploads: per-tier dicts of [slots_t, n_tier, ...]
+        # tensors to hold the slots in and the upload path (a
+        # MeshShardedCache's views into one buffer, and its one path)
         self.tier_arrays = storage if storage is not None else [
             {name: torch.zeros((slots_t, size_t) + tail,
                                dtype=_torch_dtype(dtype), device=self.device)
              for name, (tail, dtype) in dataset.fields.items()}
             for slots_t, size_t in zip(self.tier_slots, layout.sizes)
         ]
-        self._counts_dev = torch.as_tensor(dataset.counts,
-                                           device=self.device)
-        self._tiers_dev = torch.as_tensor(layout.tier_of, device=self.device)
+        self._counts_dev = to_device(dataset.counts, self.device)
+        self._tiers_dev = to_device(layout.tier_of, self.device)
         self._tier_of = layout.tier_of
         self._slot_of: List[Dict[int, int]] = [
             {} for _ in range(layout.n_tiers)]
@@ -471,12 +478,28 @@ class ShardCache:
     def resident(self) -> set:
         return set().union(*(set(s) for s in self._slot_of))
 
+    @property
+    def upload_bytes(self) -> int:
+        """Bytes sent to the device so far: rows, slot ids and view
+        tables."""
+        return self._uploads.bytes
+
+    @property
+    def staging_bytes(self) -> int:
+        """The largest device staging (rows and slot ids) one ``ensure``
+        took: at most one chunk's misses."""
+        return self._uploads.staging
+
     # -- population -----------------------------------------------------
     def ensure(self, client_ids) -> None:
         """Make every client in ``client_ids`` resident (per-tier LRU
         eviction, one batched copy per tier per field for the missing
         shards).  ``client_ids`` may repeat — pass the chunk's raw
         per-round sequence, so recency lands in last-use order."""
+        self._ensure(client_ids)
+        self._uploads.settle()
+
+    def _ensure(self, client_ids) -> None:
         seq = [int(c) for c in client_ids]
         need = list(OrderedDict((c, None) for c in seq))
         distinct = set(need)
@@ -513,33 +536,97 @@ class ShardCache:
                     self.tier_evictions[tier] += 1
                 slot_of[cid] = slot
                 assigned.append(slot)
-            idx = torch.as_tensor(assigned, dtype=torch.int64,
-                                  device=self.device)
-            rows = self.layout.sizes[tier]
-            # one shard fetch per fresh client (a provider synthesizes each
-            # missing client once, not once per field)
-            shards = [self.dataset.padded_client(cid, rows=rows)
-                      for cid in fresh]
-            for name, arr in self.tier_arrays[tier].items():
-                stacked = torch.from_numpy(np.stack([s[name]
-                                                     for s in shards]))
-                # in place, on the current stream: see the module note
-                arr.index_copy_(0, idx, stacked.to(self.device))
+            self._write(tier, fresh, assigned)
         for cid in seq:             # refresh recency in last-use order
             lru = self._lru[int(self._tier_of[cid])]
             lru[cid] = None
             lru.move_to_end(cid)
 
+    def _write(self, tier: int, fresh: List[int], slots: List[int]) -> None:
+        """Write the shards of ``fresh`` into tier ``tier``'s ``slots``: one
+        shard fetch a client (a provider synthesizes each missing client
+        once, not once per field), the rows assembled padded into one host
+        tensor a field and sent with the slot ids (``_Uploads.send``), then
+        one ``index_copy_`` a field on the current stream."""
+        rows = self.layout.sizes[tier]
+        up = self._uploads
+        host = {name: up.host((len(fresh), rows) + tuple(arr.shape[2:]),
+                              arr.dtype)
+                for name, arr in self.tier_arrays[tier].items()}
+        views = {name: h.numpy() for name, h in host.items()}
+        for j, cid in enumerate(fresh):
+            shard = self.dataset.shard(cid)
+            for name, v in views.items():
+                a = np.asarray(shard[name])
+                v[j, :len(a)] = a
+                v[j, len(a):] = 0
+        idx = up.host((len(slots),), torch.int64)
+        idx.numpy()[:] = slots
+        sent = up.send([idx] + list(host.values()))
+        up.staged += sum(t.numel() * t.element_size() for t in sent)
+        for name, rows_dev in zip(host, sent[1:]):
+            self.tier_arrays[tier][name].index_copy_(0, sent[0], rows_dev)
+
     def view(self) -> CacheView:
         """Snapshot the client -> slot table for one chunk."""
-        client_slots = np.full(self.dataset.n_clients, -1, np.int32)
-        for slot_of in self._slot_of:
-            for cid, slot in slot_of.items():
-                client_slots[cid] = slot
         return CacheView(tuple(dict(arrs) for arrs in self.tier_arrays),
                          self._counts_dev, self._tiers_dev,
-                         torch.as_tensor(client_slots, device=self.device),
+                         self._uploads.slot_table(
+                             self.dataset.n_clients,
+                             ((cid, slot) for slot_of in self._slot_of
+                              for cid, slot in slot_of.items())),
                          self.dataset.seed)
+
+
+class _Uploads:
+    """A cache's host-to-device path.  On a card, host tensors are pinned
+    (PyTorch's caching host allocator keeps a block from reuse until its
+    copy is done), and ``send`` copies them without blocking on the copy
+    stream this object owns into device tensors allocated on that stream,
+    makes the current stream wait for the copy (an event) and records the
+    tensors for it.  Nothing falls back to pageable memory: a failure to
+    pin, to make the stream or to copy raises.  On the CPU the host
+    tensors are plain and ``send`` returns them as they are.
+
+    ``bytes`` counts everything sent; ``staging`` is the largest device
+    staging (rows and slot ids) one ``ensure`` took, ``staged`` the one in
+    progress."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self.bytes = self.staging = self.staged = 0
+
+    def host(self, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype, pin_memory=self.cuda)
+
+    def send(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        self.bytes += sum(t.numel() * t.element_size() for t in tensors)
+        if not self.cuda:
+            return tensors
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self.stream):
+            out = [t.to(self.device, non_blocking=True) for t in tensors]
+        compute.wait_stream(self.stream)
+        for t in out:
+            t.record_stream(compute)
+        return out
+
+    def slot_table(self, n_clients: int, entries) -> torch.Tensor:
+        """The [K] int32 client -> slot table of ``entries`` ((cid, slot)
+        pairs; -1 elsewhere), sent as the rows are."""
+        table = self.host((n_clients,), torch.int32)
+        t = table.numpy()
+        t.fill(-1)
+        for cid, slot in entries:
+            t[cid] = slot
+        return self.send([table])[0]
+
+    def settle(self) -> None:
+        """Close one ``ensure``: keep the largest staging seen."""
+        self.staging = max(self.staging, self.staged)
+        self.staged = 0
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -593,7 +680,10 @@ class MeshShardedCache:
     slots are views into one buffer a tier, so the composed view is that
     buffer and costs no copy (the reference concatenates a tier's shards
     for each view).  Every rank of a mesh holds the same composed cache,
-    as the reference's replicated 'cache_slots' rule places it.
+    as the reference's replicated 'cache_slots' rule places it.  The shards
+    share one upload path (``_Uploads``: on a card, one copy stream), so
+    their writes into the buffer, and the composed view's slot table, are
+    ordered behind the chunk in flight as a single cache's are.
 
     Counter properties aggregate across shards, so the trainer's
     ``cache_*`` chunk metrics read it like a plain ``ShardCache``.
@@ -610,6 +700,7 @@ class MeshShardedCache:
         self.device = resolve_device(device)
         layout, cap = _cache_capacity(dataset, capacity_clients,
                                       capacity_bytes, tiers)
+        self._uploads = _Uploads(self.device)
         slots = [min(k_t, cap) for k_t in layout.tier_counts]
         self.tier_arrays = [
             {name: torch.zeros((n * slots_t, size_t) + tail,
@@ -619,7 +710,7 @@ class MeshShardedCache:
         self.shards = tuple(
             ShardCache(dataset, capacity_clients=capacity_clients,
                        capacity_bytes=capacity_bytes, tiers=tiers,
-                       device=self.device,
+                       device=self.device, uploads=self._uploads,
                        storage=[{name: a[s * slots_t:(s + 1) * slots_t]
                                  for name, a in arrs.items()}
                                 for arrs, slots_t in zip(self.tier_arrays,
@@ -685,6 +776,14 @@ class MeshShardedCache:
     def hit_rate(self) -> float:
         return self.hits / max(self.hits + self.misses, 1)
 
+    @property
+    def upload_bytes(self) -> int:
+        return self._uploads.bytes
+
+    @property
+    def staging_bytes(self) -> int:
+        return self._uploads.staging
+
     def resident(self) -> set:
         return set().union(*(s.resident() for s in self.shards))
 
@@ -698,21 +797,21 @@ class MeshShardedCache:
             per_shard[int(cid) % self.n_shards].append(int(cid))
         for shard, seq in zip(self.shards, per_shard):
             if seq:
-                shard.ensure(seq)
+                shard._ensure(seq)
+        self._uploads.settle()
 
     def view(self) -> CacheView:
         """The composed ``CacheView``: the per-tier buffers, and each
         shard's client->slot entries shifted by the slots of the shards
         before it in that tier."""
-        client_slots = np.full(self.dataset.n_clients, -1, np.int32)
-        for s, shard in enumerate(self.shards):
-            for t, slot_of in enumerate(shard._slot_of):
-                offset = s * shard.tier_slots[t]
-                for cid, slot in slot_of.items():
-                    client_slots[cid] = slot + offset
+        entries = ((cid, slot + s * shard.tier_slots[t])
+                   for s, shard in enumerate(self.shards)
+                   for t, slot_of in enumerate(shard._slot_of)
+                   for cid, slot in slot_of.items())
         return CacheView(tuple(dict(arrs) for arrs in self.tier_arrays),
                          self._counts_dev, self._tiers_dev,
-                         torch.as_tensor(client_slots, device=self.device),
+                         self._uploads.slot_table(self.dataset.n_clients,
+                                                  entries),
                          self.dataset.seed)
 
 

@@ -7,6 +7,7 @@ request they raise — they never carry on silently on the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -24,6 +25,25 @@ def resolve_device(device=None) -> torch.device:
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def to_device(value, device: torch.device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(value, dtype=dtype, device=device)`` that never
+    makes the host wait for the card: a host value (array, number, CPU
+    tensor) goes through pinned memory and a non-blocking copy on the
+    current stream, which runs after the kernels queued before it (a copy
+    from pageable memory would hold the host until they end).  A tensor
+    already on ``device`` is returned as it is; on the CPU this is
+    ``torch.as_tensor``."""
+    if isinstance(value, torch.Tensor) and value.device == device:
+        return value if dtype is None else value.to(dtype)
+    if device.type != "cuda":
+        return torch.as_tensor(value, dtype=dtype, device=device)
+    x = (value if isinstance(value, torch.Tensor)
+         else torch.as_tensor(np.asarray(value)))
+    if dtype is not None:
+        x = x.to(dtype)
+    return x.pin_memory().to(device, non_blocking=True)
 
 
 def refuse_meta(kernel: str, *tensors) -> None:

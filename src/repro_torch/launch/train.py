@@ -113,7 +113,7 @@ from repro_torch.core.server_opt import ServerOpt, ServerState
 from repro_torch.data.device import DeviceFederatedDataset
 from repro_torch.data.federated import FederatedDataset, minibatch_indices
 from repro_torch.data.stream import ShardCache, StreamingFederatedDataset
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.launch.graph import ChunkGraph, detach_state, pin_inputs
 from repro_torch.launch.plan import (CacheSpec, ExecutionPlan, PlanError,
                                      TrainSession, _IdKey, as_plan, resolve)
@@ -199,13 +199,18 @@ def _warn_shim(old: str, plane: str):
 
 @dataclass
 class _Chunk:
-    """A dispatched chunk on its way to the history: ``sealed`` once its
-    eval and checkpoint snapshot are taken, ``drawn`` the host replay's
-    client ids its device draw must equal (padded streaming, and the
-    device plane under a scenario)."""
+    """A dispatched chunk on its way to the history: ``vals`` its [3, R]
+    loss / delta_norm / completed and ``clients`` its device-drawn ids
+    (where they are checked) on their way to the host, ``ready`` the event
+    that says they are there (None on the CPU); ``sealed`` once its eval
+    and checkpoint snapshot are taken, ``drawn`` the host replay's client
+    ids its device draw must equal (padded streaming, and the device plane
+    under a scenario)."""
     s: int
     e: int
-    metrics: dict
+    vals: torch.Tensor
+    clients: Optional[torch.Tensor] = None
+    ready: Any = None
     cstats: Optional[dict] = None
     drawn: Optional[list] = None
     ev: Optional[dict] = None
@@ -751,7 +756,7 @@ class FederatedTrainer:
             return self._run_streaming_bucketed(spans, n_rounds, sds, cache,
                                                 prefetch, eval_fn, verbose)
         data_key = sds.base_key(self.device)
-        sample_key = self.sampler.base_key().to(self.device)
+        sample_key = to_device(self.sampler.base_key(), self.device)
         staged: dict = {}
 
         def prepare(i):
@@ -761,7 +766,11 @@ class FederatedTrainer:
             return self._stage_span(staged, *spans[i])
 
         def dispatch(s, e, view):
-            lrs, masks = staged.pop(s)
+            # the chunk's knobs go to the card once, without blocking (a
+            # host float a round would make the host wait for the round
+            # before it)
+            lrs, masks = (None if x is None else to_device(x, self.device)
+                          for x in staged.pop(s))
             return scan_rounds_ondevice(
                 self.loss_fn, self.server_opt, self.state, view,
                 self.sampler, data_key, sample_key, s, e - s, self.rcfg,
@@ -914,19 +923,22 @@ class FederatedTrainer:
         snapshots them as the ``view`` of span i.  The scanned and device
         planes pass ``cache=None`` (their ``view`` is ``None``), and
         ``prepare=None`` unless the device plane stages a scenario's masks
-        there.  With ``prefetch``, span i+1's uploads
-        are issued right after chunk i is enqueued.  Cache writes are in
-        place and on the current stream, behind chunk i's reads, and a
-        copy from pageable host memory waits for that stream, so prefetch
-        orders the uploads behind chunk i rather than overlapping them;
-        both settings train the same trajectory.  Without it, chunk i is
-        drained first.
+        there.  With ``prefetch``, span i+1's uploads are issued right after
+        chunk i is enqueued and, on a card, overlap it: the cache copies
+        the rows from pinned memory on its own stream, and only the scatter
+        into the cache waits, on the compute stream, behind chunk i's reads
+        (``data/stream.py``).  Without it, chunk i is drained first and the
+        upload never overlaps compute: the serialized arm.  Both train the
+        same trajectory.
 
-        Chunk i's metrics are read (the one host sync per chunk) after
-        chunk i+1 is enqueued; eval and the checkpoint snapshot see chunk
-        i's own state before that.  ``check_draws``: hold each chunk's
-        device-drawn client ids against the host replay that named its
-        uploads (a mismatch would train on another client's rows)."""
+        Chunk i's metrics start their copy to the host right behind it
+        (pinned, on a card), and are read (the one host wait per chunk)
+        after chunk i+1 is enqueued: the wait is for chunk i's event alone,
+        so the host stages span i+2 while chunk i+1 runs.  Eval and the
+        checkpoint snapshot see chunk i's own state before that.
+        ``check_draws``: hold each chunk's device-drawn client ids against
+        the host replay that named its uploads (a mismatch would train on
+        another client's rows)."""
         def stage(i):
             return prepare(i) if prepare and i < len(spans) else None
 
@@ -948,12 +960,13 @@ class FederatedTrainer:
                     if pending is not None:
                         self._seal_chunk(pending, n_rounds, eval_fn, writer)
                     self.state, metrics = dispatch(s, e, view)
+                    reads = self._read_back(metrics, check_draws)
                     if nxt is not None and prefetch:
                         view = upload(nxt)
                     if pending is not None:
                         done, pending = pending, None
                         self._drain_chunk(done, verbose, t_start, writer)
-                    pending = _Chunk(s, e, metrics,
+                    pending = _Chunk(s, e, *reads,
                                      cstats=_cache_stats(stats0, cache),
                                      drawn=drawn if check_draws else None)
                     stats0 = _cache_counters(cache)
@@ -999,17 +1012,38 @@ class FederatedTrainer:
                 self.state)
         chunk.sealed = True
 
+    def _read_back(self, metrics: dict, draws: bool) -> tuple:
+        """``(vals, clients, ready)`` of a chunk just enqueued: its [3, R]
+        loss / delta_norm / completed and, with ``draws``, its drawn
+        client ids, copied to pinned host memory without blocking right
+        behind the chunk on a card, with the event that marks them there;
+        on the CPU the tensors themselves and no event."""
+        vals = torch.stack([metrics["loss"].float(),
+                            metrics["delta_norm"].float(),
+                            metrics["completed"].float()])
+        clients = metrics["clients"] if draws else None
+        if self.device.type != "cuda":
+            return vals, clients, None
+        vals, clients = (
+            None if x is None else torch.empty(
+                x.shape, dtype=x.dtype, pin_memory=True).copy_(
+                    x, non_blocking=True)
+            for x in (vals, clients))
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return vals, clients, ready
+
     def _drain_chunk(self, chunk: _Chunk, verbose: bool, t_start: float,
                      writer: Optional[AsyncCheckpointWriter]):
-        """The host-blocking half: one metrics read per chunk (with the
-        ``completed`` counts a scenario records), the device-draw check,
-        history + jsonl append, progress line, then the checkpoint
+        """The host-blocking half: one wait per chunk, for its own metrics
+        (with the ``completed`` counts a scenario records), the device-draw
+        check, history + jsonl append, progress line, then the checkpoint
         submit."""
-        m = chunk.metrics
-        vals = torch.stack([m["loss"].float(), m["delta_norm"].float(),
-                            m["completed"].float()]).cpu().numpy()
+        if chunk.ready is not None:
+            chunk.ready.synchronize()
+        vals = chunk.vals.numpy()
         if chunk.drawn is not None:
-            got = m["clients"].cpu().numpy().reshape(-1).tolist()
+            got = chunk.clients.numpy().reshape(-1).tolist()
             if got != chunk.drawn:
                 raise RuntimeError(
                     f"rounds {chunk.s}..{chunk.e - 1}: the device draw "

@@ -222,6 +222,23 @@ def rank_cases(rank, n, dev, clients, tmp):
     return out
 
 
+def prefetch_runs(rank, n, dev, clients, n_rounds):
+    """The padded streaming lane over ``n`` ranks with ``prefetch`` 0 and
+    2, in one-round chunks over a cache of 3 uniform slots a shard, so that
+    span i+1 evicts clients that chunk i reads: {prefetch: (losses, flat
+    params, per-chunk cache records)}."""
+    out = {}
+    for p in (0, 2):
+        tr = make_trainer(opt(), rcfg(), clients)
+        hist = strip_events(tr.run(n_rounds, plan=plan_for(
+            "streaming", chunk_rounds=1, mesh=MeshSpec(devices=n),
+            cache_clients=3, cache_tiers=1, prefetch=p), verbose=False))
+        out[p] = ([r["loss"] for r in hist], torch_flat_w(tr.state),
+                  [{k: v for k, v in r.items() if k.startswith("cache_")}
+                   for r in hist if "cache_hits" in r])
+    return out
+
+
 def fail_on_rank1(rank, n, dev):
     if rank == 1:
         raise RuntimeError("rank 1 fails")

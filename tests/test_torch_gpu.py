@@ -55,7 +55,14 @@ within 1e-6 of one device; the zoo's new families: the kernel at grok-1's
 48/8 and qwen2-vl's 64/8 head layouts and whisper's non-causal encoder
 shape (in ``FLASH_SHAPES``), granite's MoE MLP at full width on the card against
 the CPU (routes compared, y held where they agree), and reduced granite's
-captured device-plane chunks against the same chunks run eagerly.
+captured device-plane chunks against the same chunks run eagerly; the
+streaming plane's overlapped prefetch: ``prefetch`` 2 bit-equal to 0 on
+the padded, bucketed and hook lanes under evictions of slots the chunk in
+flight reads, the cache's ``ensure`` and ``view`` never making the host
+wait (sync debug mode "error") nor falling back when the copy stream or
+pinning fails, and, at a chunk of at least 20 ms of device time, span
+i+1's pinned copies starting on another stream under chunk i's kernels
+with prefetch 2 and on an idle card with 0.
 """
 import numpy as np
 import pytest
@@ -1803,3 +1810,209 @@ def test_granite_captured_chunk_matches_eager(cuda, monkeypatch):
     assert len(la) == 4 and np.allclose(la, lb, atol=1e-5, rtol=1e-5)
     for x, y in zip(leaves(graphed.state.w), leaves(eager.state.w)):
         assert torch.allclose(x, y, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the streaming plane's overlapped prefetch
+# ---------------------------------------------------------------------------
+def _pf_trainer(device, clients, C, H, b, lr, hook=False):
+    ds = FederatedDataset([dict(c) for c in clients], seed=1)
+    opt = tso.fedmom(eta=1.0, beta=0.9, use_fused_kernel=True)
+    d = clients[0]["x"].shape[1]
+    return FederatedTrainer(
+        loss_fn=_linreg_loss, server_opt=opt,
+        rcfg=tround.RoundConfig(C, H, lr, compute_dtype="float32"),
+        dataset=ds, sampler=DeviceUniformSampler(ds.population(), C, seed=2),
+        state=opt.init({"w": torch.zeros(d), "b": torch.zeros(())}),
+        client_step_fn=cs_ops.linreg_tier_step() if hook else None,
+        local_batch=b, device=device)
+
+
+def _pf_plan(prefetch, chunk_rounds, clients, bucketed=False):
+    return ExecutionPlan(plane="streaming", chunk_rounds=chunk_rounds,
+                         prefetch=prefetch, cache=CacheSpec(
+                             clients=clients, tiers=1, bucketed=bucketed))
+
+
+@pytest.mark.parametrize("lane", ["padded", "bucketed", "hook"])
+def test_prefetch_bit_equal_under_evictions_on_card(cuda, lane):
+    """Two-round chunks over a cache of 6 uniform slots: span i+1's
+    uploads evict clients that chunk i reads, and with prefetch 2 they are
+    issued while chunk i runs.  The arms are bit-equal, with the same
+    cache decisions."""
+    runs = {}
+    for p in (0, 2):
+        tr = _pf_trainer(cuda, _plane_fleet(), 3, 4, 4, 0.05,
+                         hook=lane == "hook")
+        hist = tr.run(12, plan=_pf_plan(p, 2, 6, lane != "padded"),
+                      verbose=False)
+        cache = tr.stream_cache
+        runs[p] = ([r["loss"] for r in hist], tr.state,
+                   (cache.hits, cache.misses, cache.evictions))
+    assert runs[0][2] == runs[2][2] and runs[0][2][2] > 0
+    assert runs[0][0] == runs[2][0]
+    for k in ("w", "b"):
+        assert torch.equal(runs[0][1].w[k], runs[2][1].w[k]), k
+
+
+def test_upload_path_never_waits_for_the_card(cuda):
+    """``ensure`` and ``view`` return while a kernel still runs on the
+    compute stream (a host wait raises under sync debug mode "error"),
+    and the rows they scatter land after it: the cache then holds the
+    shards."""
+    from repro_torch.data import StreamingFederatedDataset
+    from repro_torch.data.stream import ShardCache
+    clients = _plane_fleet()
+    sds = StreamingFederatedDataset(clients, seed=1)
+    cache = ShardCache(sds, capacity_clients=4, tiers=1, device=cuda)
+    cache.ensure([0, 1, 2, 3])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)          # ~0.1 s on the compute stream
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cache.ensure([4, 5, 1, 2])          # evicts 0 and 3
+        view = cache.view()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    slots = view.client_slots.cpu().numpy()
+    assert slots[0] == slots[3] == -1
+    x = view.tier_arrays[0]["x"].cpu().numpy()
+    for c in (4, 5, 1, 2):
+        n = len(clients[c]["x"])
+        np.testing.assert_array_equal(x[slots[c], :n], clients[c]["x"])
+        assert not x[slots[c], n:].any()
+    assert cache.staging_bytes > 0
+
+
+def test_upload_path_raises_rather_than_falling_back(cuda, monkeypatch):
+    """On the card the cache never falls back to pageable copies on the
+    current stream: a copy stream that cannot be made, or host memory that
+    cannot be pinned, raises."""
+    from repro_torch.data import StreamingFederatedDataset
+    from repro_torch.data.stream import ShardCache
+    sds = StreamingFederatedDataset(_plane_fleet(), seed=1)
+
+    def no_stream(*a, **k):
+        raise RuntimeError("no stream")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "Stream", no_stream)
+        with pytest.raises(RuntimeError, match="no stream"):
+            ShardCache(sds, capacity_clients=4, tiers=1, device=cuda)
+    cache = ShardCache(sds, capacity_clients=4, tiers=1, device=cuda)
+    empty = torch.empty
+
+    def no_pin(*a, **k):
+        if k.get("pin_memory"):
+            raise RuntimeError("cannot pin")
+        return empty(*a, **k)
+
+    monkeypatch.setattr(torch, "empty", no_pin)
+    with pytest.raises(RuntimeError, match="cannot pin"):
+        cache.ensure([0, 1])
+    with pytest.raises(RuntimeError, match="cannot pin"):
+        cache.view()
+
+
+# the overlap's configuration: a linreg fleet wide enough (D = 2^19, a
+# 2 MB row) with minibatches large enough (b = 2048: a round gathers and
+# reads 16 GB) that a three-round chunk takes well over 20 ms of device
+# time and more than the host needs to launch it (the eager round's host
+# cost grows with H, so H = 1) and to assemble the next span's misses: the
+# card lags the host, as an overlap needs
+PF_D, PF_ROWS, PF_K, PF_C, PF_H, PF_B = 1 << 19, 2, 16, 4, 1, 2048
+PF_CR, PF_CAP, PF_LR, PF_CHUNK_MS = 3, 12, 1e-9, 20.0
+
+
+def _device_events(fn):
+    """(kernels, H2D copies) of ``fn`` on the card, each as (start ns,
+    end ns, stream, name): the profiler traces the card alone, its window
+    opened and closed 0.1 s around ``fn``."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.1)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    kernels, copies = [], []
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != DeviceType.CUDA:
+            continue
+        rec = (evt.start_ns(), evt.end_ns(), evt.device_resource_id(),
+               evt.name())
+        if rec[3].startswith("Memcpy HtoD"):
+            copies.append(rec)
+        elif not rec[3].startswith(("Memcpy", "Memset")):
+            kernels.append(rec)
+    return kernels, copies
+
+
+def _busy(spans, gap_ns=20_000):
+    """Intervals a stream is busy: its kernels merged across gaps shorter
+    than ``gap_ns`` (launch gaps inside a chunk)."""
+    out = []
+    for s, e in sorted(spans):
+        if out and s <= out[-1][1] + gap_ns:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+@pytest.mark.parametrize("prefetch", [2, 0])
+def test_prefetch_overlaps_the_chunk_on_card(cuda, prefetch):
+    """At a chunk of at least 20 ms of device time, with prefetch 2 span
+    i+1's H2D copies come from pinned memory on a stream other than the
+    chunk's and start while the chunk's kernels run (the scatter that
+    waits for them holds back chunk i+1, so that is chunk i); with 0 they
+    start only after it has drained.  The whole run copies nothing from
+    pageable memory after its first chunk is queued."""
+    rng = np.random.default_rng(9)
+    clients = [{"x": (rng.standard_normal((PF_ROWS, PF_D), np.float32)
+                      * 1e-3),
+                "y": rng.standard_normal(PF_ROWS).astype(np.float32)}
+               for _ in range(PF_K)]
+    tr = _pf_trainer(cuda, clients, PF_C, PF_H, PF_B, PF_LR)
+    plan = _pf_plan(prefetch, PF_CR, PF_CAP)
+    tr.run(2 * PF_CR, plan=plan, verbose=False)        # warm-up
+    init = tr.state
+    n_chunks = 4
+
+    def run():
+        tr.state, tr.history = init, []
+        tr.run(n_chunks * PF_CR, plan=plan, verbose=False)
+
+    misses = tr.stream_cache.misses
+    kernels, copies = _device_events(run)
+    assert tr.stream_cache.misses > misses
+    by_stream = {}
+    for s, e, st, _ in kernels:
+        by_stream[st] = by_stream.get(st, 0) + e - s
+    compute = max(by_stream, key=by_stream.get)
+    chunk_ms = by_stream[compute] / 1e6 / n_chunks
+    assert chunk_ms >= PF_CHUNK_MS, f"a chunk takes {chunk_ms:.1f} ms"
+    # copies after the first round's server step belong to later spans'
+    # uploads (span 0's come before any chunk, on an idle card)
+    steps = sorted(s for s, _, _, name in kernels if "tree_update" in name)
+    assert len(steps) == n_chunks * PF_CR
+    side = [c for c in copies if c[2] != compute and c[0] > steps[0]]
+    assert side and all("Pinned" in c[3] for c in side), side
+    assert not [c for c in copies if c[0] > steps[0]
+                and "Pageable" in c[3]]
+    busy = _busy([(s, e) for s, e, st, _ in kernels if st == compute])
+    under = [any(s <= c[0] < e for s, e in busy) for c in side]
+    seen = [(round((c[0] - steps[0]) / 1e6, 3), u, c[3][:24])
+            for c, u in zip(side, under)]
+    marks = [round((s - steps[0]) / 1e6, 3) for s in steps]
+    if prefetch:
+        assert all(under), (f"{under.count(False)} of {len(side)} copies "
+                            f"started with the compute stream idle: "
+                            f"{seen}; server steps at {marks} ms; busy "
+                            f"{[(round((s - steps[0]) / 1e6, 3), round((e - steps[0]) / 1e6, 3)) for s, e in busy]}")
+    else:
+        assert not any(under), f"{seen}; server steps at {marks} ms"
