@@ -1,0 +1,7 @@
+"""gather_span_ms: each round's minibatch draws and gather from the packed
+corpus, as the program's device stamps time it inside the round (the stamped
+recorded slice), mean ms a round; it serves every metric named
+gather_span_ms.<variant>."""
+from portbench.harness.span_readers import device_span_ms
+
+read = device_span_ms("gather")

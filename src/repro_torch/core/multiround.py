@@ -48,6 +48,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.round import (RoundConfig, _client_mesh,
                                     bucketed_round_step, round_step)
 from repro_torch.core.server_opt import ServerOpt, ServerState
@@ -85,17 +86,24 @@ def _round_of(t0, r: int):
 
 
 def _rounds(state: ServerState, n_rounds: int, rcfg: RoundConfig, lrs,
-            step_masks, one_round: Callable) -> tuple:
+            step_masks, one_round: Callable, device) -> tuple:
     """The chunk loop every plane shares: ``one_round(state, r, lr, mask)
-    -> (state, metrics)`` for r in [0, n_rounds), nothing read back."""
+    -> (state, metrics)`` for r in [0, n_rounds), nothing read back.  With
+    the recorder's device stamps on, round r stamps row r of the chunk's
+    ``stamps`` metric."""
     per_round = []
+    buf = spans.stamps(n_rounds, device)
     for r in range(n_rounds):
-        state, metrics = one_round(
-            state, r, _lr(lrs, r, rcfg),
-            None if step_masks is None else step_masks[r])
+        with spans.frame(buf, r):
+            state, metrics = one_round(
+                state, r, _lr(lrs, r, rcfg),
+                None if step_masks is None else step_masks[r])
         metrics.pop("losses", None)
         per_round.append(metrics)
-    return state, _stack(per_round)
+    out = _stack(per_round)
+    if buf is not None:
+        out["stamps"] = buf
+    return state, out
 
 
 def scan_rounds(loss_fn: Callable, server_opt: ServerOpt, state: ServerState,
@@ -120,7 +128,7 @@ def scan_rounds(loss_fn: Callable, server_opt: ServerOpt, state: ServerState,
                           step_mask=mask, device=dev)
 
     return _rounds(state, int(weights.shape[0]), rcfg, lrs, step_masks,
-                   one_round)
+                   one_round, dev)
 
 
 def scan_rounds_sampled(loss_fn: Callable, server_opt: ServerOpt,
@@ -146,7 +154,7 @@ def scan_rounds_sampled(loss_fn: Callable, server_opt: ServerOpt,
                           device=dev)
 
     n_rounds = int(leaves(batches)[0].shape[0])
-    return _rounds(state, n_rounds, rcfg, lrs, step_masks, one_round)
+    return _rounds(state, n_rounds, rcfg, lrs, step_masks, one_round, dev)
 
 
 def scan_rounds_ondevice(loss_fn: Callable, server_opt: ServerOpt,
@@ -175,13 +183,16 @@ def scan_rounds_ondevice(loss_fn: Callable, server_opt: ServerOpt,
 
     def one_round(st, r, lr, mask):
         t = _round_of(t0, r)
-        idx, w = sampler.sample_device(sample_key, t)
-        if mesh is None:
-            batches = dataset.gather_round_batch(
-                data_key, t, idx, rcfg.local_steps, local_batch_size)
-        else:
-            batches = dataset.gather_round_block(
-                data_key, t, idx, rcfg.local_steps, local_batch_size, mesh)
+        with spans.device_span("sample"):
+            idx, w = sampler.sample_device(sample_key, t)
+        with spans.device_span("gather"):
+            if mesh is None:
+                batches = dataset.gather_round_batch(
+                    data_key, t, idx, rcfg.local_steps, local_batch_size)
+            else:
+                batches = dataset.gather_round_block(
+                    data_key, t, idx, rcfg.local_steps, local_batch_size,
+                    mesh)
         st, metrics = round_step(loss_fn, server_opt, st, batches, w, rcfg,
                                  param_axes=param_axes, lr=lr,
                                  step_mask=mask, device=dev,
@@ -189,7 +200,7 @@ def scan_rounds_ondevice(loss_fn: Callable, server_opt: ServerOpt,
         metrics["clients"] = idx
         return st, metrics
 
-    return _rounds(state, n_rounds, rcfg, lrs, step_masks, one_round)
+    return _rounds(state, n_rounds, rcfg, lrs, step_masks, one_round, dev)
 
 
 def _tier_draws(data_key: torch.Tensor, view, t0: int, tier_cids: tuple,

@@ -50,6 +50,7 @@ import torch
 from torch.func import vmap
 
 from repro_torch import random as prng
+from repro_torch import spans
 from repro_torch.core import client as client_lib
 from repro_torch.core import secure_agg
 from repro_torch.core.secure_agg import SecureAggSpec
@@ -189,22 +190,25 @@ def _mesh_round(mesh, one_client, rcfg, w_c, batches, weights, mask, t,
     m_b = None if mask is None else mask[lo:hi]
     final, losses_b = None, torch.zeros((0,), dtype=torch.float32, device=dev)
     if hi > lo:
-        final, losses_b = (vmap(one_client)(batches) if m_b is None
-                           else vmap(one_client)(batches, m_b))
-        if param_axes is not None:
-            final = shard_tree(final, param_axes, prefix=("clients",))
-    if rcfg.secure is not None:
-        spec = rcfg.secure
-        key = secure_agg.round_mask_key(spec, t, dev) if spec.masked \
-            else None
-        ring = _secure_block_ring(spec, w_c, final, w_b, _survivors(mask),
-                                  key, C, lo, dev)
-        ring = tree_map(lambda r: r & secure_agg.RING_MASK,
-                        _all_reduce_tree(mesh, ring))
-        delta = tree_map(lambda d: d.to(ddt), secure_agg.decode(ring, spec))
-    else:
-        delta = tree_map(lambda d: d.to(ddt), _all_reduce_tree(
-            mesh, _block_partial(w_c, final, w_b, dev)))
+        with spans.device_span("local_update"):
+            final, losses_b = (vmap(one_client)(batches) if m_b is None
+                               else vmap(one_client)(batches, m_b))
+            if param_axes is not None:
+                final = shard_tree(final, param_axes, prefix=("clients",))
+    with spans.device_span("aggregate"):
+        if rcfg.secure is not None:
+            spec = rcfg.secure
+            key = secure_agg.round_mask_key(spec, t, dev) if spec.masked \
+                else None
+            ring = _secure_block_ring(spec, w_c, final, w_b,
+                                      _survivors(mask), key, C, lo, dev)
+            ring = tree_map(lambda r: r & secure_agg.RING_MASK,
+                            _all_reduce_tree(mesh, ring))
+            delta = tree_map(lambda d: d.to(ddt),
+                             secure_agg.decode(ring, spec))
+        else:
+            delta = tree_map(lambda d: d.to(ddt), _all_reduce_tree(
+                mesh, _block_partial(w_c, final, w_b, dev)))
     return delta, mesh.all_gather_blocks([(losses_b.to(torch.float32),
                                             C)])[0]
 
@@ -269,22 +273,24 @@ def round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
                                     weights, mask, state.t, param_axes, ddt,
                                     dev, cohort_block)
     elif rcfg.placement == "mesh":
-        if mask is None:
-            final, losses = vmap(one_client)(batches)
-        else:
-            final, losses = vmap(one_client)(batches, mask)
-        if param_axes is not None:
-            final = shard_tree(final, param_axes, prefix=("clients",))
+        with spans.device_span("local_update"):
+            if mask is None:
+                final, losses = vmap(one_client)(batches)
+            else:
+                final, losses = vmap(one_client)(batches, mask)
+            if param_axes is not None:
+                final = shard_tree(final, param_axes, prefix=("clients",))
         # products and accumulation stay fp32 whatever delta_dtype is; only
         # the reduced result is rounded to ddt
-        if rcfg.secure is not None:
-            delta = _secure_delta(rcfg.secure, w_c, final, weights, mask,
-                                  state.t, ddt)
-        else:
-            delta = tree_map(
-                lambda w0, wk: torch.einsum("c,c...->...", weights,
-                                            _f32(w0[None] - wk)).to(ddt),
-                w_c, final)
+        with spans.device_span("aggregate"):
+            if rcfg.secure is not None:
+                delta = _secure_delta(rcfg.secure, w_c, final, weights,
+                                      mask, state.t, ddt)
+            else:
+                delta = tree_map(
+                    lambda w0, wk: torch.einsum("c,c...->...", weights,
+                                                _f32(w0[None] - wk)).to(ddt),
+                    w_c, final)
     elif rcfg.placement == "scan":
         if param_axes is not None:
             # scan placement keeps FSDP-sharded params: the broadcast model
@@ -306,7 +312,8 @@ def round_step(loss_fn, server_opt: ServerOpt, state: ServerState,
     else:
         raise ValueError(rcfg.placement)
 
-    new_state = server_opt.update(state, delta)
+    with spans.device_span("server_step"):
+        new_state = server_opt.update(state, delta)
     eff_w = weights
     if mask is not None:
         eff_w = weights * (torch.sum(mask, dim=1) > 0).to(torch.float32)

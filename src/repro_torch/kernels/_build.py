@@ -21,6 +21,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from repro_torch import spans
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -75,6 +77,7 @@ def build(name: str) -> Path:
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
+    spans.count("kernel.builds")
     return out
 
 

@@ -44,6 +44,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.server_opt import ServerState
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
@@ -111,6 +112,7 @@ class ChunkGraph:
             buf.copy_(v, non_blocking=cuda)
 
     def _capture(self, state: ServerState):
+        spans.count("graph.captures")
         t_start = time.perf_counter()
         stream = torch.cuda.current_stream(self.device)
         self.static = tree_map(torch.clone, (state.w, state.extra))
@@ -135,22 +137,26 @@ class ChunkGraph:
         """Train rounds ``t0 .. t0 + R - 1`` from ``state``: fill the inputs
         (``values`` without ``t0``), replay (capture first on the card's
         first call) and return ``(state, metrics)``."""
-        self._fill({"t0": int(t0), **values})
+        with spans.span("graph.fill"):
+            self._fill({"t0": int(t0), **values})
         t_end = int(t0) + self.n_rounds
         if self.device.type != "cuda" or not self.capture:
-            out, metrics = self.body(
-                ServerState(state.w, state.extra, self.inputs["t0"]),
-                self.inputs)
+            with spans.span("graph.replay"):
+                out, metrics = self.body(
+                    ServerState(state.w, state.extra, self.inputs["t0"]),
+                    self.inputs)
             return ServerState(out.w, out.extra, t_end), metrics
         if self.graph is None:
-            self._capture(state)
-        for dst, src in zip(leaves(self.static),
-                            leaves((state.w, state.extra))):
-            if src is not dst:
-                dst.copy_(src)
-        self.graph.replay()
-        metrics = {k: v.clone() if isinstance(v, torch.Tensor) else v
-                   for k, v in self.metrics.items()}
+            with spans.span("graph.capture"):
+                self._capture(state)
+        with spans.span("graph.replay"):
+            for dst, src in zip(leaves(self.static),
+                                leaves((state.w, state.extra))):
+                if src is not dst:
+                    dst.copy_(src)
+            self.graph.replay()
+            metrics = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                       for k, v in self.metrics.items()}
         return ServerState(*self.static, t_end), metrics
 
 

@@ -104,6 +104,7 @@ from repro_torch.checkpoint import (AsyncCheckpointWriter, append_metrics,
                                     latest_round, prune_metrics,
                                     restore_state)
 from repro_torch import random as prng
+from repro_torch import spans as trace
 from repro_torch.core.multiround import (scan_rounds, scan_rounds_bucketed,
                                          scan_rounds_ondevice)
 from repro_torch.core.round import DTYPES, RoundConfig, round_step
@@ -142,20 +143,24 @@ def _cache_stats(before, cache: Optional[ShardCache]):
     """Per-chunk delta of the cache counters (+ cumulative hit rate).
     Uploads made for chunk i+1 while chunk i is in flight land on chunk
     i's record; the per-run sums are exact.  ``cache_tier_*`` attribute the
-    same deltas to the n_k size tiers (index = tier, smallest first)."""
+    same deltas to the n_k size tiers (index = tier, smallest first).  The
+    recorder's ``cache.*`` counters add up the same deltas."""
     if cache is None:
         return None
-    return {"cache_hits": cache.hits - before[0],
-            "cache_misses": cache.misses - before[1],
-            "cache_evictions": cache.evictions - before[2],
-            "cache_hit_rate": round(cache.hit_rate, 6),
-            "cache_tier_hits": [a - b for a, b
-                                in zip(cache.tier_hits, before[3])],
-            "cache_tier_misses": [a - b for a, b
-                                  in zip(cache.tier_misses, before[4])],
-            "cache_tier_evictions": [a - b for a, b
-                                     in zip(cache.tier_evictions,
-                                            before[5])]}
+    out = {"cache_hits": cache.hits - before[0],
+           "cache_misses": cache.misses - before[1],
+           "cache_evictions": cache.evictions - before[2],
+           "cache_hit_rate": round(cache.hit_rate, 6),
+           "cache_tier_hits": [a - b for a, b
+                               in zip(cache.tier_hits, before[3])],
+           "cache_tier_misses": [a - b for a, b
+                                 in zip(cache.tier_misses, before[4])],
+           "cache_tier_evictions": [a - b for a, b
+                                    in zip(cache.tier_evictions,
+                                           before[5])]}
+    for name in ("hits", "misses", "evictions"):
+        trace.count(f"cache.{name}", out[f"cache_{name}"])
+    return out
 
 
 def _eval_spans(t0: int, n_rounds: int, chunk_rounds: int,
@@ -200,9 +205,10 @@ def _warn_shim(old: str, plane: str):
 @dataclass
 class _Chunk:
     """A dispatched chunk on its way to the history: ``vals`` its [3, R]
-    loss / delta_norm / completed and ``clients`` its device-drawn ids
-    (where they are checked) on their way to the host, ``ready`` the event
-    that says they are there (None on the CPU); ``sealed`` once its eval
+    loss / delta_norm / completed, ``clients`` its device-drawn ids
+    (where they are checked) and ``stamps`` its device stamps (with the
+    recorder's on) on their way to the host, ``ready`` the event that says
+    they are there (None on the CPU); ``sealed`` once its eval
     and checkpoint snapshot are taken, ``drawn`` the host replay's client
     ids its device draw must equal (padded streaming, and the device plane
     under a scenario)."""
@@ -211,6 +217,7 @@ class _Chunk:
     vals: torch.Tensor
     clients: Optional[torch.Tensor] = None
     ready: Any = None
+    stamps: Optional[torch.Tensor] = None
     cstats: Optional[dict] = None
     drawn: Optional[list] = None
     ev: Optional[dict] = None
@@ -464,8 +471,14 @@ class FederatedTrainer:
         a masked run never share a graph).  ``plan.mesh`` is scoped so too:
         this rank's mesh and ``FED_MESH_RULES`` are live for the plane's
         dispatch, and every rank of the group must make the same call.
+        The call is the recorder's ``run`` span (``repro_torch/spans.py``).
         """
-        plan = as_plan(plan)
+        with trace.span("run"):
+            return self._run(n_rounds, as_plan(plan), log_every, eval_fn,
+                             verbose, resume)
+
+    def _run(self, n_rounds: int, plan: ExecutionPlan, log_every, eval_fn,
+             verbose: bool, resume: bool):
         saved = (self.local_batch, self.ckpt_path, self.ckpt_every,
                  self.rcfg)
         if plan.local_batch is not None:
@@ -478,26 +491,29 @@ class FederatedTrainer:
         if plan.secure is not None:
             self.rcfg = dataclasses.replace(self.rcfg, secure=plan.secure)
         self._mesh_spec = plan.mesh
+        decision = None
         try:
-            self._check_client_extent()
-            decision = resolve(plan, self, n_rounds)
-            if plan.mesh is not None:
-                self._mesh = self.session.mesh_for(plan.mesh, self.device)
-                verbose = verbose and self._writes
-            self._scenario = (
-                ScenarioRuntime(plan.scenario, self.rcfg.local_steps)
-                if decision.scenario else None)
-            self.session.plan_log.append(decision.record())
-            if decision.auto:
-                rec = decision.record()
-                self.history.append(rec)
-                if self.metrics_path and self._writes:
-                    append_metrics(self.metrics_path, [rec])
-                if verbose:
-                    print(f"  plan: auto -> {decision.plane} "
-                          f"({decision.reason})")
-            cadence = (log_every if log_every is not None
-                       else plan.eval.cadence)
+            with trace.span("run.resolve"):
+                self._check_client_extent()
+                decision = resolve(plan, self, n_rounds)
+                if plan.mesh is not None:
+                    self._mesh = self.session.mesh_for(plan.mesh,
+                                                       self.device)
+                    verbose = verbose and self._writes
+                self._scenario = (
+                    ScenarioRuntime(plan.scenario, self.rcfg.local_steps)
+                    if decision.scenario else None)
+                self.session.plan_log.append(decision.record())
+                if decision.auto:
+                    rec = decision.record()
+                    self.history.append(rec)
+                    if self.metrics_path and self._writes:
+                        append_metrics(self.metrics_path, [rec])
+                    if verbose:
+                        print(f"  plan: auto -> {decision.plane} "
+                              f"({decision.reason})")
+                cadence = (log_every if log_every is not None
+                           else plan.eval.cadence)
             # a plan-carried mesh makes its rules live for the whole plane
             # dispatch: packing, cache uploads and every round see the same
             # mesh.  mesh=None makes nothing live: the single-device code
@@ -509,10 +525,16 @@ class FederatedTrainer:
                 return self._dispatch(decision, plan, n_rounds, cadence,
                                       eval_fn, verbose, resume)
         finally:
-            (self.local_batch, self.ckpt_path, self.ckpt_every,
-             self.rcfg) = saved
-            self._scenario = None
-            self._mesh_spec = self._mesh = None
+            with trace.span("run.finish"):
+                if (decision is not None and self.device.type == "cuda"
+                        and decision.plane in ("scanned", "device")):
+                    # the state must not alias a graph's static tensors
+                    # past this run: a later replay overwrites them
+                    self.state = detach_state(self.state)
+                (self.local_batch, self.ckpt_path, self.ckpt_every,
+                 self.rcfg) = saved
+                self._scenario = None
+                self._mesh_spec = self._mesh = None
 
     def _dispatch(self, decision, plan: ExecutionPlan, n_rounds: int,
                   cadence: int, eval_fn, verbose: bool, resume: bool):
@@ -528,18 +550,12 @@ class FederatedTrainer:
                 n_rounds, chunk_rounds, plan.cache.clients, plan.cache.bytes,
                 plan.cache.tiers, decision.bucketed, bool(plan.prefetch),
                 eval_fn, eval_every, verbose, resume)
-        try:
-            if decision.plane == "scanned":
-                return self._run_scanned(n_rounds, chunk_rounds,
-                                         int(plan.prefetch), eval_fn,
-                                         eval_every, verbose, resume)
-            return self._run_device(n_rounds, chunk_rounds, eval_fn,
-                                    eval_every, verbose, resume)
-        finally:
-            if self.device.type == "cuda":
-                # the state must not alias a graph's static tensors past
-                # this run: a later replay overwrites them
-                self.state = detach_state(self.state)
+        if decision.plane == "scanned":
+            return self._run_scanned(n_rounds, chunk_rounds,
+                                     int(plan.prefetch), eval_fn,
+                                     eval_every, verbose, resume)
+        return self._run_device(n_rounds, chunk_rounds, eval_fn,
+                                eval_every, verbose, resume)
 
     # ------------------------------------------------------------------
     # plane: per_round — one round per loop iteration
@@ -550,30 +566,42 @@ class FederatedTrainer:
         t_start = time.time()
         with self._writer() as writer:
             for t in range(t0, n_rounds):
-                batches, weights, lr_t, mask = self._round_inputs(t)
-                self.state, metrics = round_step(
-                    self.loss_fn, self.server_opt, self.state, batches,
-                    weights, self.rcfg, param_axes=self.param_axes,
-                    lr=lr_t, step_mask=mask,
-                    device=self.device)
-                rec = {"round": t, "loss": float(metrics["loss"]),
-                       "delta_norm": float(metrics["delta_norm"])}
-                if self._scenario is not None:
-                    rec["completed"] = int(metrics["completed"])
-                if eval_fn is not None and (t % log_every == 0
-                                            or t == n_rounds - 1):
-                    rec.update(eval_fn(self.state))
-                self.history.append(rec)
-                if self.metrics_path and self._writes:
-                    append_metrics(self.metrics_path, [rec])
-                if verbose and (t % log_every == 0 or t == n_rounds - 1):
-                    extra = " ".join(f"{k}={v:.4f}" for k, v in rec.items()
-                                     if k not in ("round",))
-                    print(f"  round {t:5d}  {extra}  "
-                          f"({time.time() - t_start:.1f}s)")
-                if (writer and self.ckpt_every
-                        and t % self.ckpt_every == 0 and t > 0):
-                    writer.submit(self.ckpt_path, self.state, {"round": t})
+                with trace.span("round.inputs", t):
+                    batches, weights, lr_t, mask = self._round_inputs(t)
+                buf = trace.stamps(1, self.device)
+                with trace.span("round.step", t), trace.frame(buf, 0):
+                    self.state, metrics = round_step(
+                        self.loss_fn, self.server_opt, self.state, batches,
+                        weights, self.rcfg, param_axes=self.param_axes,
+                        lr=lr_t, step_mask=mask,
+                        device=self.device)
+                with trace.span("round.wait", t):
+                    loss = float(metrics["loss"])
+                    if buf is not None:
+                        trace.device_rounds(t, buf.cpu())
+                with trace.span("round.log", t):
+                    rec = {"round": t, "loss": loss,
+                           "delta_norm": float(metrics["delta_norm"])}
+                    if self._scenario is not None:
+                        rec["completed"] = int(metrics["completed"])
+                    if eval_fn is not None and (t % log_every == 0
+                                                or t == n_rounds - 1):
+                        rec.update(eval_fn(self.state))
+                    self.history.append(rec)
+                    if self.metrics_path and self._writes:
+                        append_metrics(self.metrics_path, [rec])
+                    if verbose and (t % log_every == 0
+                                    or t == n_rounds - 1):
+                        extra = " ".join(f"{k}={v:.4f}"
+                                         for k, v in rec.items()
+                                         if k not in ("round",))
+                        print(f"  round {t:5d}  {extra}  "
+                              f"({time.time() - t_start:.1f}s)")
+                    if (writer and self.ckpt_every
+                            and t % self.ckpt_every == 0 and t > 0):
+                        writer.submit(self.ckpt_path, self.state,
+                                      {"round": t})
+                trace.count("rounds")
         return self.history
 
     # ------------------------------------------------------------------
@@ -592,7 +620,8 @@ class FederatedTrainer:
                                lrs=inp["lrs"],
                                step_masks=inp.get("masks"), device=dev)
 
-        key = ("scan_chunk", n_rounds, masked, batch_sig) + self._sig()
+        key = (("scan_chunk", n_rounds, masked, batch_sig,
+                trace.device_on()) + self._sig())
         return self.session.chunk_graph(
             key, lambda: ChunkGraph(body, n_rounds, dev, self._capture()))
 
@@ -618,7 +647,7 @@ class FederatedTrainer:
             return ChunkGraph(body, n_rounds, dev, self._capture())
 
         key = (("ondevice_chunk", n_rounds, masked, b, _IdKey(sampler),
-                _IdKey(dds)) + self._sig())
+                _IdKey(dds), trace.device_on()) + self._sig())
         return self.session.chunk_graph(key, build)
 
     # ------------------------------------------------------------------
@@ -641,8 +670,9 @@ class FederatedTrainer:
         def produce():
             try:
                 for s, e in spans:
-                    item = pin_inputs(self._assemble_chunk(s, e),
-                                      self.device)
+                    with trace.span("producer.assemble", s):
+                        item = pin_inputs(self._assemble_chunk(s, e),
+                                          self.device)
                     while not stop.is_set():     # never block past a dead
                         try:                     # consumer
                             q.put(item, timeout=0.2)
@@ -940,29 +970,39 @@ class FederatedTrainer:
         the host replay that named its uploads (a mismatch would train on
         another client's rows)."""
         def stage(i):
-            return prepare(i) if prepare and i < len(spans) else None
+            if not prepare or i >= len(spans):
+                return None
+            with trace.span("chunk.stage", spans[i][0]):
+                return prepare(i)
 
-        def upload(parts):
+        def upload(parts, i):
             if cache is None:
                 return None
-            cache.ensure(parts)
-            return cache.view()
+            with trace.span("chunk.upload", spans[i][0]):
+                cache.ensure(parts)
+                return cache.view()
+
+        def seal(chunk):
+            with trace.span("chunk.seal", chunk.s):
+                self._seal_chunk(chunk, n_rounds, eval_fn, writer)
 
         t_start = time.time()
         stats0 = _cache_counters(cache)
         nxt = stage(0)
-        view = upload(nxt) if spans else None
+        view = upload(nxt, 0) if spans else None
         pending: Optional[_Chunk] = None
         with self._writer() as writer:
             try:
                 for i, (s, e) in enumerate(spans):
                     drawn, nxt = nxt, stage(i + 1)
                     if pending is not None:
-                        self._seal_chunk(pending, n_rounds, eval_fn, writer)
-                    self.state, metrics = dispatch(s, e, view)
-                    reads = self._read_back(metrics, check_draws)
+                        seal(pending)
+                    with trace.span("chunk.dispatch", s):
+                        self.state, metrics = dispatch(s, e, view)
+                    with trace.span("chunk.read_back", s):
+                        reads = self._read_back(metrics, check_draws)
                     if nxt is not None and prefetch:
-                        view = upload(nxt)
+                        view = upload(nxt, i + 1)
                     if pending is not None:
                         done, pending = pending, None
                         self._drain_chunk(done, verbose, t_start, writer)
@@ -971,12 +1011,12 @@ class FederatedTrainer:
                                      drawn=drawn if check_draws else None)
                     stats0 = _cache_counters(cache)
                     if nxt is not None and not prefetch:
-                        self._seal_chunk(pending, n_rounds, eval_fn, writer)
+                        seal(pending)
                         done, pending = pending, None
                         self._drain_chunk(done, verbose, t_start, writer)
-                        view = upload(nxt)
+                        view = upload(nxt, i + 1)
                 if pending is not None:
-                    self._seal_chunk(pending, n_rounds, eval_fn, writer)
+                    seal(pending)
                     done, pending = pending, None
                     self._drain_chunk(done, verbose, t_start, writer)
             except BaseException:
@@ -1013,25 +1053,27 @@ class FederatedTrainer:
         chunk.sealed = True
 
     def _read_back(self, metrics: dict, draws: bool) -> tuple:
-        """``(vals, clients, ready)`` of a chunk just enqueued: its [3, R]
-        loss / delta_norm / completed and, with ``draws``, its drawn
-        client ids, copied to pinned host memory without blocking right
-        behind the chunk on a card, with the event that marks them there;
-        on the CPU the tensors themselves and no event."""
+        """``(vals, clients, ready, stamps)`` of a chunk just enqueued: its
+        [3, R] loss / delta_norm / completed, with ``draws`` its drawn
+        client ids, and its device stamps where the chunk carries them,
+        copied to pinned host memory without blocking right behind the
+        chunk on a card, with the event that marks them there; on the CPU
+        the tensors themselves and no event."""
         vals = torch.stack([metrics["loss"].float(),
                             metrics["delta_norm"].float(),
                             metrics["completed"].float()])
         clients = metrics["clients"] if draws else None
+        stamps = metrics.get("stamps")
         if self.device.type != "cuda":
-            return vals, clients, None
-        vals, clients = (
+            return vals, clients, None, stamps
+        vals, clients, stamps = (
             None if x is None else torch.empty(
                 x.shape, dtype=x.dtype, pin_memory=True).copy_(
                     x, non_blocking=True)
-            for x in (vals, clients))
+            for x in (vals, clients, stamps))
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(self.device))
-        return vals, clients, ready
+        return vals, clients, ready, stamps
 
     def _drain_chunk(self, chunk: _Chunk, verbose: bool, t_start: float,
                      writer: Optional[AsyncCheckpointWriter]):
@@ -1039,8 +1081,17 @@ class FederatedTrainer:
         (with the ``completed`` counts a scenario records), the device-draw
         check, history + jsonl append, progress line, then the checkpoint
         submit."""
-        if chunk.ready is not None:
-            chunk.ready.synchronize()
+        with trace.span("chunk.wait", chunk.s):
+            if chunk.ready is not None:
+                chunk.ready.synchronize()
+        with trace.span("chunk.drain", chunk.s):
+            self._drain_records(chunk, verbose, t_start, writer)
+
+    def _drain_records(self, chunk: _Chunk, verbose: bool, t_start: float,
+                       writer: Optional[AsyncCheckpointWriter]):
+        if chunk.stamps is not None:
+            trace.device_rounds(chunk.s, chunk.stamps.numpy())
+        trace.count("rounds", chunk.e - chunk.s)
         vals = chunk.vals.numpy()
         if chunk.drawn is not None:
             got = chunk.clients.numpy().reshape(-1).tolist()

@@ -25,6 +25,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
+
 
 # ---------------------------------------------------------------------------
 # weight products (the "dots" that remat_policy="dots" keeps)
@@ -402,7 +404,21 @@ def moe_apply(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     divides B*S.  ``dispatch="vmap"`` runs the groups batched
     (``torch.func.vmap``), any other value one after another; the aux is
     the groups' mean.  Experts are [E, D, F] / [E, F, D] weights, the
-    router [D, E] fp32."""
+    router [D, E] fp32.  With the recorder's device stamps on, the
+    forward and the backward are stamped as the ``moe`` span."""
+    marked = spans.backward_span(x, "moe", True)
+    with spans.device_span("moe"):
+        y, aux = _moe_apply(p, marked, n_experts=n_experts, top_k=top_k,
+                            capacity_factor=capacity_factor, act=act,
+                            group_size=group_size, dispatch=dispatch)
+    if marked is not x:
+        y = spans.backward_span(y, "moe", False)
+    return y, aux
+
+
+def _moe_apply(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
+               capacity_factor: float, act: str, group_size: int,
+               dispatch: str):
     B, S, D = x.shape
     kw = dict(n_experts=n_experts, top_k_=top_k,
               capacity_factor=capacity_factor, act=act)

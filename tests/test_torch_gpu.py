@@ -62,7 +62,11 @@ flight reads, the cache's ``ensure`` and ``view`` never making the host
 wait (sync debug mode "error") nor falling back when the copy stream or
 pinning fails, and, at a chunk of at least 20 ms of device time, span
 i+1's pinned copies starting on another stream under chunk i's kernels
-with prefetch 2 and on an idle card with 0.
+with prefetch 2 and on an idle card with 0; the recorder's device stamps
+(``repro_torch/spans.py``) in a captured device-plane chunk: the same
+trajectory as without them, rounds of stamps that increase in stream
+order, and a graph holding exactly the stamps and their buffer's zeroing
+beyond the graph captured with the recorder off.
 """
 import numpy as np
 import pytest
@@ -2016,3 +2020,60 @@ def test_prefetch_overlaps_the_chunk_on_card(cuda, prefetch):
                             f"{[(round((s - steps[0]) / 1e6, 3), round((e - steps[0]) / 1e6, 3)) for s, e in busy]}")
     else:
         assert not any(under), f"{seen}; server steps at {marks} ms"
+
+
+def _graph_nodes(graph) -> int:
+    import ctypes
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    assert err == 0, err
+    return int(n.value)
+
+
+def test_stamped_device_chunk_on_card(cuda, monkeypatch):
+    """A captured device-plane chunk with the recorder's device stamps:
+    the same trajectory as without, R rounds of stamps that increase in
+    stream order, stamps launched only while the chunk is warmed and
+    captured (a replay passes no Python), and a graph that holds exactly
+    the stamps and their buffer's zeroing beyond the graph the recorder
+    off captures."""
+    import functools
+    from repro_torch import spans
+    from repro_torch.kernels import stamp as stamp_kernel
+    # keep_graph keeps the graph the first replay instantiates, to count
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", functools.partial(
+        torch.cuda.CUDAGraph, keep_graph=True))
+    R, names = 4, spans.DEVICE_SPANS[:5]
+    plan = ExecutionPlan(plane="device", chunk_rounds=R)
+    off = _plane_trainer(cuda)
+    off.run(2 * R, plan=plan, verbose=False)
+    on = _plane_trainer(cuda)
+    got = []
+    read_back = on._read_back
+
+    def keep(metrics, draws):
+        out = read_back(metrics, draws)
+        got.append(out)
+        return out
+    on._read_back = keep
+    launched = stamp_kernel.launches
+    with spans.recording(device=True) as rec:
+        on.run(2 * R, plan=plan, verbose=False)
+    torch.cuda.synchronize()
+    _same_run(off, on)
+    assert stamp_kernel.launches - launched == 2 * R * 2 * len(names)
+    assert rec.counters["graph.captures"] == 1
+    assert sorted(rec.device) == list(range(2 * R))
+    assert all(set(row) == set(names) for row in rec.device.values())
+    marks = []
+    for _, _, _, stamps in got:
+        u = stamps.numpy().view(np.uint64)
+        for r in range(R):
+            for k in range(len(names)):
+                marks += [-int(u[r, k, 0]) % (1 << 64), int(u[r, k, 1])]
+    assert len(marks) == 2 * R * 2 * len(names)
+    assert marks == sorted(marks) and marks[0] > 0
+    (g_off,), (g_on,) = (list(t.session.graphs.values()) for t in (off, on))
+    assert _graph_nodes(g_on.graph) - _graph_nodes(g_off.graph) \
+        == R * 2 * len(names) + 1
