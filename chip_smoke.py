@@ -285,11 +285,18 @@ Phases, each printed as it runs; any failure exits non-zero:
      1024 tokens, 32 new (2 MoE groups of 4,096 tokens a prefill layer;
      24 ``flash_attention`` launches over exactly one call), prefill ms,
      decode ms/token, tokens/s, peak memory, the busy share of a profiled
-     call; ``loss_fn`` at B=8 x 1024 in ms with its top kernels; 3 FedMom
-     rounds of ``round_step`` in fp32 at full size (M=2, H=2, b=2, seq
-     256, remat with the aux as an output of the remat node): the loss
-     finite, the server (router included) moved, ``fedmom_update``
-     launches one a table a round; reduced granite through
+     call; ``loss_fn`` at B=8 x 1024 in ms with its top kernels; one MoE
+     group's stages at the training group (2 x 1024 fp32 tokens): the
+     ``moe_route`` kernels bit-equal to their plain version and timed
+     beside their bytes bounds and the plain version, the routing, the
+     tables, the experts, the group, and the dense one-hot dispatch and
+     combine as the yardstick; 3 FedMom rounds of ``round_step`` in fp32
+     at full size (M=2, H=2, b=2, seq 256, remat with the aux as an
+     output of the remat node): the loss finite, the server (router
+     included) moved, ``fedmom_update`` launches one a table a round,
+     ``moe_route`` launches 7 a layer and local step, both clients in
+     each launch (the kernels line's ``moe_route`` entry); reduced
+     granite through
      ``FederatedTrainer`` on ``plane="auto"`` (-> device, chunks
      captured) against the per-round plane, the drift printed; (b)
      whisper-medium, nothing cut: ``generate`` over stubbed frames [8,
@@ -4559,7 +4566,8 @@ def mesh_nccl(dev, out, part, failures):
 class RouteRecorder:
     """Records every MoE routing (``layers.moe_routes``) of the calls made
     inside it, in call order: (expert ids [G,k], slots [G,k], keep [G,k],
-    the top-k margin [G]) on the host."""
+    the top-k margin [G]) on the host, a call's groups (the MoE node
+    routes all of a layer's groups at once) flattened in token order."""
 
     def __init__(self):
         from repro_torch.models import layers
@@ -4571,7 +4579,8 @@ class RouteRecorder:
 
         def recording(xf, router, **kw):
             out = inner(xf, router, **kw)
-            probs, idx, _, pos, keep = out[:5]
+            probs, idx, _, pos, keep = (t.reshape(-1, t.shape[-1])
+                                        for t in out[:5])
             k = idx.shape[-1]
             top = torch.sort(probs, dim=-1, descending=True).values
             margin = (top[:, k - 1] - top[:, k]) if top.shape[-1] > k \
@@ -4763,54 +4772,122 @@ def flash_at(fa_ops, fa_kernel, card, tag, B, S, Hq, Hkv, d, causal):
 
 def moe_breakdown(p, cfg, card):
     """Device times (graph replays) of one MoE group's stages at granite's
-    prefill group (4,096 bf16 tokens, unit-normal, layer 0's weights): the
-    routing (fp32 router, softmax, top-k, slot counts), the dense dispatch
-    and combine tensors and their casts, the dispatch product, the
-    experts, the combine product, and the whole ``layers._moe_group``,
-    beside the stages' flops."""
+    training group (2 x 1,024 fp32 tokens, the benchmark's cell),
+    unit-normal tokens and layer 0's weights: the routing (fp32 router, softmax, top-k, slot counts), the
+    index tables, the ``moe_route`` kernels of the forward and the backward
+    (dispatch, combine; the combine's dy into the slots and gate dots, the
+    dispatch's dx) each beside its bytes bound and its plain version, the
+    experts, the whole ``layers._moe_group``, and the dense one-hot
+    dispatch and combine that the kernels replace (the tensors and the two
+    products) as the yardstick, beside the stages' flops."""
     import torch
+    from repro_torch.kernels.moe_route import kernel as mr_kernel
+    from repro_torch.kernels.moe_route import ops as mr_ops
+    from repro_torch.kernels.moe_route import ref as mr_ref
     from repro_torch.models import layers as L
     dev = p["router"].device
-    G, D, E, k = L.MOE_GROUP, cfg.d_model, cfg.moe.n_experts, cfg.moe.top_k
-    gen = torch.Generator(device=dev).manual_seed(0)
-    xf = torch.randn((G, D), generator=gen, device=dev).to(torch.bfloat16)
+    E, k, D = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
     kw = dict(n_experts=E, top_k_=k, capacity_factor=cfg.moe.capacity_factor)
-    routes = L.moe_routes(xf, p["router"], **kw)
-    _, _, gv, pos, keep, cap, onehot = routes
-    dispatch, combine = L.moe_dispatch(onehot, gv, pos, keep, cap)
-    d16, c16 = dispatch.to(xf.dtype), combine.to(xf.dtype)
-    xe = torch.einsum("gec,gd->ecd", d16, xf)
-    ye = L.moe_experts(p, xe, cfg.act)
-    stages = {
-        "routing": lambda: L.moe_routes(xf, p["router"], **kw),
-        "dispatch_tensors": lambda: [t.to(xf.dtype) for t in L.moe_dispatch(
-            onehot, gv, pos, keep, cap)],
-        "dispatch_product": lambda: torch.einsum("gec,gd->ecd", d16, xf),
-        "experts": lambda: L.moe_experts(p, xe, cfg.act),
-        "combine_product": lambda: torch.einsum("gec,ecd->gd", c16, ye),
-        "group": lambda: L._moe_group(p, xf, act=cfg.act, **kw)}
-    out = {name: graph_ms(fn, iters=5, replays=5)
-           for name, fn in stages.items()}
-    n_w = 3 if cfg.act in ("swiglu", "geglu") else 2
-    out["flops"] = {"dispatch_and_combine_products": 2 * 2 * G * E * cap * D,
-                    "experts": 2 * n_w * E * cap * D * cfg.d_ff,
-                    "capacity": cap}
-    parts = sum(v for key, v in out.items() if key not in ("group", "flops"))
-    dense = sum(out[key] for key in ("dispatch_tensors", "dispatch_product",
-                                     "combine_product"))
-    out["dispatch_share"] = dense / parts
-    out["experts_share"] = out["experts"] / parts
-    print(f"MoE group stages at G={G}, E={E}, top-{k}, C={cap}, D={D}, "
-          f"F={cfg.d_ff}, bf16 (device ms, graph replays): "
-          + ", ".join(f"{key} {out[key]:.3f}" for key in stages)
-          + f"; the stages sum to {parts:.3f}; dispatch + combine "
-          f"(tensors and products) {100 * out['dispatch_share']:.1f}% of "
-          f"it, experts {100 * out['experts_share']:.1f}%; flops: "
-          f"products {out['flops']['dispatch_and_combine_products']:.3e}, "
-          f"experts {out['flops']['experts']:.3e} [{card}]")
-    del xf, routes, dispatch, combine, d16, c16, xe, ye
-    torch.cuda.empty_cache()
+    out = {}
+    for tag, G, dt in (("train_fp32", 2 * 1024, torch.float32),):
+        pw = {n: v if n == "router" else v.to(dt) for n, v in p.items()}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        xf = torch.randn((G, D), generator=gen, device=dev).to(dt)
+        dy = torch.randn((G, D), generator=gen, device=dev).to(dt)
+        _, idx, gv, pos, keep, cap, onehot = L.moe_routes(xf, pw["router"],
+                                                          **kw)
+        slot, owner = mr_ops.route_tables(idx, pos, keep, cap, E)
+        S, kept = E * cap, int(keep.sum())
+        xe = mr_ops.gather_rows(xf[None], owner[None], None, k)[0]
+        ye = L.moe_experts(pw, xe.reshape(E, cap, D), cfg.act).reshape(S, D)
+        w = gv.to(dt)
+        one = [t[None] for t in (xf, dy, ye, slot, owner, w)]
+        x1, dy1, ye1, s1, o1, w1 = one
+        es = xf.element_size()
+        # each kernel's least traffic: rows read once, tables, the output
+        kernels = {
+            "dispatch": (lambda: mr_kernel.gather_rows(x1, o1, None, k),
+                         lambda: mr_ref.gather_rows(x1, o1, None, k),
+                         (S + G) * D * es + 4 * S),
+            "combine": (lambda: mr_kernel.sum_rows(ye1, s1, w1),
+                        lambda: mr_ref.sum_rows(ye1, s1, w1),
+                        (kept + G) * D * es + (4 + es) * G * k),
+            "combine_dye": (lambda: mr_kernel.gather_rows(dy1, o1, w1, k),
+                            lambda: mr_ref.gather_rows(dy1, o1, w1, k),
+                            (S + G) * D * es + 4 * S + es * G * k),
+            "gate_dots": (lambda: mr_kernel.route_dots(dy1, ye1, s1),
+                          lambda: mr_ref.route_dots(dy1, ye1, s1),
+                          (kept + G) * D * es + (4 + es) * G * k),
+            "dispatch_dx": (lambda: mr_kernel.sum_rows(ye1, s1, None),
+                            lambda: mr_ref.sum_rows(ye1, s1, None),
+                            (kept + G) * D * es + 4 * G * k)}
+        row = {"G": G, "capacity": cap, "kept_routes": kept, "kernels": {}}
+        for name, (kern, plain, nbytes) in kernels.items():
+            if not torch.equal(kern(), plain()):
+                raise AssertionError(f"moe_route {name} at {tag} differs "
+                                     f"from its plain version")
+            row["kernels"][name] = {
+                "ms": graph_ms(kern, iters=20, replays=10),
+                "plain_ms": graph_ms(plain, iters=2, replays=3),
+                "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                "bytes": nbytes}
+        dispatch, combine = L.moe_dispatch(onehot, gv, pos, keep, cap)
+        dd, cc = dispatch.to(dt), combine.to(dt)
+        ye3 = ye.reshape(E, cap, D)
+        stages = {
+            "routing": lambda: L.moe_routes(xf, pw["router"], **kw),
+            "tables": lambda: mr_ops.route_tables(idx, pos, keep, cap, E),
+            "experts": lambda: L.moe_experts(pw, xe.reshape(E, cap, D),
+                                             cfg.act),
+            "group": lambda: L._moe_group(pw, xf, act=cfg.act, **kw),
+            "dense_tensors": lambda: [t.to(dt) for t in L.moe_dispatch(
+                onehot, gv, pos, keep, cap)],
+            "dense_dispatch_product": lambda: torch.einsum(
+                "gec,gd->ecd", dd, xf),
+            "dense_combine_product": lambda: torch.einsum(
+                "gec,ecd->gd", cc, ye3)}
+        row.update({name: graph_ms(fn, iters=5, replays=5)
+                    for name, fn in stages.items()})
+        n_w = 3 if cfg.act in ("swiglu", "geglu") else 2
+        row["flops"] = {"dense_product": 2 * G * E * cap * D,
+                        "experts": 2 * n_w * E * cap * D * cfg.d_ff}
+        ks = row["kernels"]
+        print(f"MoE group at {tag}: G={G}, E={E}, top-{k}, C={cap}, D={D}, "
+              f"F={cfg.d_ff} ({kept} of {G * k} routes kept; device ms, "
+              f"graph replays): "
+              + ", ".join(f"{n} {v['ms']:.4f} (bound {v['bound_ms']:.4f}, "
+                          f"{100 * v['bound_ms'] / v['ms']:.0f}%; plain "
+                          f"{v['plain_ms']:.3f})" for n, v in ks.items())
+              + "; " + ", ".join(f"{n} {row[n]:.3f}" for n in stages)
+              + f"; the dense products {row['flops']['dense_product']:.3e} "
+              f"flops each, the experts {row['flops']['experts']:.3e} "
+              f"[{card}]")
+        out[tag] = row
+        del xf, dy, xe, ye, one, dispatch, combine, dd, cc, ye3
+        torch.cuda.empty_cache()
     return out
+
+
+def moe_route_entry(granite):
+    """The kernels line's ``moe_route`` entry: the launches in the zoo's
+    full-size granite rounds (the main path) and phase 23's times at the
+    training group, each kernel beside its bytes bound and plain
+    version."""
+    ks = granite["moe_stages_ms"]["train_fp32"]["kernels"]
+    return {
+        "name": "moe_route",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_route.cu",
+        "replaces": "src/repro/models/layers.py moe_apply (the dense "
+                    "gec,gd->ecd and gec,ecd->gd einsums; no TPU kernel)",
+        "launches": granite["rounds"]["moe_route_launches"],
+        "max_abs_err": 0.0,
+        "ms": {n: v["ms"] for n, v in ks.items()},
+        "plain_ms": {n: v["plain_ms"] for n, v in ks.items()},
+        "bound_ms": {n: v["bound_ms"] for n, v in ks.items()},
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
 
 
 def zoo_extras(cfg, B, S0, rng):
@@ -4894,7 +4971,8 @@ def granite_phase(dev, fa_kernel, fa_ops, fm_kernel, fm_ops, fm_ref, card):
     state = opt.init(params)
     router0 = params["groups"]["b0"]["mlp"]["router"].clone()
     torch.cuda.reset_peak_memory_stats()
-    fm_kernel.launches = 0
+    from repro_torch.kernels.moe_route import kernel as mr_kernel
+    fm_kernel.launches = mr_kernel.launches = 0
     times, losses = [], []
     for r in range(ZOO_ROUNDS):
         t0 = time.perf_counter()
@@ -4903,7 +4981,7 @@ def granite_phase(dev, fa_kernel, fa_ops, fm_kernel, fm_ops, fm_ref, card):
                               device=dev)
         losses.append(float(m["loss"]))
         times.append(time.perf_counter() - t0)
-    launches = fm_kernel.launches
+    launches, mr_launches = fm_kernel.launches, mr_kernel.launches
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{ZOO_MOE} rounds: losses {losses}")
@@ -4914,10 +4992,18 @@ def granite_phase(dev, fa_kernel, fa_ops, fm_kernel, fm_ops, fm_ref, card):
     if launches != ZOO_ROUNDS * tables:
         raise AssertionError(f"{ZOO_MOE} rounds: fedmom_update {launches} "
                              f"launches, want {tables} a round")
+    # a layer's step: the forward's dispatch and combine, the remat
+    # recompute's again, the backward's combine dy, gate dots and dispatch
+    # dx; both clients folded into each launch
+    mr_want = ZOO_ROUNDS * ZOO_H * cfg.n_layers * 7
+    if mr_launches != mr_want:
+        raise AssertionError(f"{ZOO_MOE} rounds: moe_route {mr_launches} "
+                             f"launches, want {mr_want}")
     out["rounds"] = {"ms_per_round": statistics.median(times[1:]) * 1e3,
                      "first_round_ms": times[0] * 1e3, "losses": losses,
                      "peak_gb": peak / 1e9, "fedmom_update_launches":
-                         launches, "tree_leaves": len(sizes),
+                         launches, "moe_route_launches": mr_launches,
+                     "tree_leaves": len(sizes),
                      "tree_elements": sum(sizes)}
     print(f"{ZOO_MOE} fp32, {ZOO_ROUNDS} FedMom rounds of round_step "
           f"(M={ZOO_M} "
@@ -4926,7 +5012,8 @@ def granite_phase(dev, fa_kernel, fa_ops, fm_kernel, fm_ops, fm_ref, card):
           f"2-{ZOO_ROUNDS}; first {times[0] * 1e3:.1f} ms), peak "
           f"{peak / 1e9:.2f} GB, losses {losses}, the server moved (router "
           f"included); fedmom_update {launches} launches ({tables} a round "
-          f"over {len(sizes)} leaves, {sum(sizes)} elements)")
+          f"over {len(sizes)} leaves, {sum(sizes)} elements); moe_route "
+          f"{mr_launches} launches")
     del params, batches
     torch.cuda.empty_cache()
     out["tree"] = lm_tree_check(ZOO_MOE, state.w, state.extra["v"],
@@ -6394,7 +6481,7 @@ def main(argv=None) -> int:
         "bound_ms": rglru["rglru_scan"]["bound_ms"],
         "bound_by": rglru["rglru_scan"]["bound_by"],
         "library_ms": None,
-    }]}
+    }, moe_route_entry(zoo["granite"])]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@ The port's counterpart of the JAX package's ``models/layers.py``: the
 norms, 1-D rotary embeddings and M-RoPE (``mrope_tables``), the q-chunked
 masked attention (the plain path that ``attention_impl="xla"`` selects,
 and decode and cross-attention at any setting), the dense MLP, the
-capacity-based token-choice MoE (``moe_apply``), the RG-LRU layer (gates,
+capacity-based token-choice MoE (``moe_apply``: the reference's routes,
+tokens moved into the experts' slots and back by index, where the
+reference multiplies by dense one-hot tensors), the RG-LRU layer (gates,
 the log-depth ``rglru_scan`` for forward and prefill, ``rglru_step`` for
 decode, the depthwise ``causal_conv1d``) and the RWKV6 recurrence
 (``rwkv6_chunked`` for forward and prefill, the plain path that
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import spans
+from repro_torch.kernels.moe_route import ops as moe_route
 
 
 # ---------------------------------------------------------------------------
@@ -301,8 +304,10 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Mixture of Experts: capacity-based token-choice dispatch in the
-# reference's einsum form (dense [G, E, C] dispatch and combine tensors)
+# Mixture of Experts: capacity-based token-choice routing, the reference's
+# routes and [E, C, D] expert slots, with tokens moved into the slots and
+# back by index (kernels/moe_route) where the reference multiplies by dense
+# one-hot [G, E, C] dispatch and combine tensors
 # ---------------------------------------------------------------------------
 MOE_GROUP = 4096
 
@@ -329,11 +334,12 @@ def moe_routes(xf: torch.Tensor, router: torch.Tensor, *, n_experts: int,
     """One group's routing, x [G, D] -> (probs [G,E] fp32, gate_idx [G,k],
     gate_vals [G,k] renormalised and zeroed where dropped, pos [G,k] the
     slot within the expert (fp32), keep [G,k], the capacity C, the
-    routes' one-hots [G,k,E] fp32).  The router is
-    fp32 whatever x's dtype; the capacity is ``ceil(k G cf / E)``; a
-    (token, slot) keeps its place while fewer than C earlier ones (in
-    token-major, slot-minor order) chose the same expert."""
-    G = xf.shape[0]
+    routes' one-hots [G,k,E] fp32).  The router is fp32 whatever x's
+    dtype; the capacity is ``ceil(k G cf / E)``; a (token, slot) keeps its
+    place while fewer than C earlier ones (in token-major, slot-minor
+    order) chose the same expert.  Leading dimensions of x (and a router
+    [..., D, E] that broadcasts against them) are independent groups."""
+    lead, G = xf.shape[:-2], xf.shape[-2]
     f32 = torch.float32
     probs = torch.softmax(xf.to(f32) @ router.to(f32), dim=-1)     # [G,E]
     gate_vals, gate_idx = top_k(probs, top_k_)                      # [G,k]
@@ -344,8 +350,9 @@ def moe_routes(xf: torch.Tensor, router: torch.Tensor, *, n_experts: int,
     # token-major, slot-minor order: a cumsum of 0/1 values, exact in fp32
     # in any order, taken along the last axis of the [E, G*k] transpose
     # (CUDA's scan along a long leading axis of E columns runs E threads)
-    counts = torch.cumsum(onehot.reshape(G * top_k_, n_experts).t(), dim=1)
-    pos_in_expert = counts.t().reshape(G, top_k_, n_experts) - onehot
+    flat = onehot.reshape(*lead, G * top_k_, n_experts)
+    counts = torch.cumsum(flat.transpose(-1, -2), dim=-1).transpose(-1, -2)
+    pos_in_expert = counts.reshape(*lead, G, top_k_, n_experts) - onehot
     pos = torch.sum(pos_in_expert * onehot, dim=-1)                 # [G,k]
     keep = pos < cap
     return probs, gate_idx, gate_vals * keep, pos, keep, cap, onehot
@@ -357,7 +364,8 @@ def moe_dispatch(onehot: torch.Tensor, gate_vals: torch.Tensor,
     group's routes (``moe_routes``): 1 (dispatch) or the gate (combine)
     where token g holds slot c of expert e.  Each (g, e, c) has at most
     one (token, slot) term, so both are exact whatever the summation
-    order."""
+    order.  The reference's form, on no path of the port: the yardstick
+    that the tests and ``chip_smoke.py`` hold the index form to."""
     pos_oh = one_hot(pos, cap, torch.float32) * keep[..., None]
     dispatch = torch.einsum("gke,gkc->gec", onehot, pos_oh)
     combine = torch.einsum("gke,gkc->gec", onehot * gate_vals[..., None],
@@ -377,21 +385,214 @@ def moe_experts(p: dict, xe: torch.Tensor, act: str) -> torch.Tensor:
     return torch.bmm(h, p["wo"])
 
 
+def _per_group(w: Optional[torch.Tensor], N: int):
+    """A weight [Nw, ...] of N groups (Nw divides N, group n uses weight
+    n // (N / Nw)) as [N, ...]: a copy where Nw < N."""
+    if w is None or w.shape[0] == N:
+        return w
+    r = N // w.shape[0]
+    return w[:, None].expand(w.shape[0], r, *w.shape[1:]).reshape(
+        N, *w.shape[1:])
+
+
+def _group_forward(x, router, wi_gate, wi_up, wo, E, k, cf, act):
+    """N groups, x [N, G, D], router [Nr, D, E], experts [Nw, E, ...] (Nr,
+    Nw dividing N) -> (y [N, G, D], aux [N], and what the backward reads:
+    probs, gate_idx, gate, slot, owner, frac, xe, g, u, ye)."""
+    N, G, D = x.shape
+    probs, gate_idx, gate, pos, keep, cap, onehot = moe_routes(
+        x, _per_group(router, N), n_experts=E, top_k_=k, capacity_factor=cf)
+    slot, owner = moe_route.route_tables(gate_idx, pos, keep, cap, E)
+    xe = moe_route.gather_rows(x, owner, None, k)              # [N,E*C,D]
+    # moe_experts' products, with the pre-activations the backward reads:
+    # g the gate product (u again for the ungated gelu), u the up product
+    xe3 = xe.reshape(N * E, cap, D)
+    wu = _per_group(wi_up, N).flatten(0, 1)
+    if act in ("swiglu", "geglu"):
+        g = torch.bmm(xe3, _per_group(wi_gate, N).flatten(0, 1))
+        u = torch.bmm(xe3, wu)
+        a = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
+        h = a * u
+    else:
+        u = g = torch.bmm(xe3, wu)
+        h = F.gelu(u, approximate="tanh")
+    ye = torch.bmm(h, _per_group(wo, N).flatten(0, 1)).reshape(N, E * cap, D)
+    y = moe_route.sum_rows(ye, slot, gate.to(x.dtype))
+    # Shazeer load-balance aux loss: E * sum_e fraction_e * router_prob_e
+    frac = torch.mean(onehot.sum(-2), dim=-2)                       # [N,E]
+    prob = torch.mean(probs, dim=-2)                                # [N,E]
+    aux = E * torch.sum(frac * prob, dim=-1)
+    return y, aux, probs, gate_idx, gate, slot, owner, frac, xe, g, u, ye
+
+
+def _group_backward(dy, daux, x, router, wi_gate, wi_up, wo, probs,
+                    gate_idx, gate, slot, owner, frac, xe, g, u, ye, E, k,
+                    act):
+    """The gradients of ``_group_forward``'s (y, aux) with respect to x,
+    the router and the experts, each per group ([N, ...]): the formulas
+    autograd runs for the same operations (``silu_backward``,
+    ``gelu_backward``, ``_softmax_backward_data``, each product's two
+    transposed products), with the combine's and the dispatch's own
+    gradients by index (d ye: dy into the slots, weighted by the gate;
+    the gate's: <dy, ye[slot]>; dx: the sum of a token's slots)."""
+    N, G, D = x.shape
+    dt, f32 = x.dtype, probs.dtype
+    cap = owner.shape[-1] // E
+    if dy is None:
+        dy = torch.zeros_like(x)
+    dye = moe_route.gather_rows(dy, owner, gate.to(dt), k)
+    dgate = moe_route.route_dots(dy, ye, slot).to(f32)
+    # the experts, as autograd differentiates moe_experts
+    router = _per_group(router, N)
+    p = {n: None if w is None else _per_group(w, N).flatten(0, 1)
+         for n, w in (("wi_gate", wi_gate), ("wi_up", wi_up), ("wo", wo))}
+    xe3, dye3 = xe.reshape(N * E, cap, D), dye.reshape(N * E, cap, D)
+    gated = act in ("swiglu", "geglu")
+    if gated:
+        a = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
+        h = a * u
+    else:
+        h = F.gelu(u, approximate="tanh")
+    dh = torch.bmm(dye3, p["wo"].transpose(1, 2))
+    dwo = torch.bmm(h.transpose(1, 2), dye3)
+    if gated:
+        da, du = dh * u, dh * a
+        dg = (torch.ops.aten.silu_backward(da, g) if act == "swiglu" else
+              torch.ops.aten.gelu_backward(da, g, approximate="tanh"))
+        dwg = torch.bmm(xe3.transpose(1, 2), dg)
+        dxe = (torch.bmm(dg, p["wi_gate"].transpose(1, 2))
+               + torch.bmm(du, p["wi_up"].transpose(1, 2)))
+    else:
+        du = torch.ops.aten.gelu_backward(dh, u, approximate="tanh")
+        dwg = None
+        dxe = torch.bmm(du, p["wi_up"].transpose(1, 2))
+    dwu = torch.bmm(xe3.transpose(1, 2), du)
+    dx = moe_route.sum_rows(dxe.reshape(N, E * cap, D), slot, None)
+    # the routes: gate = top_k(probs) / (sum + 1e-9) * keep
+    dgv = dgate * (slot >= 0)
+    tv = torch.gather(probs, -1, gate_idx)
+    den = torch.sum(tv, -1, keepdim=True) + 1e-9
+    dtv = dgv / den + torch.sum(-dgv * (tv / den / den), -1, keepdim=True)
+    dprobs = torch.zeros_like(probs).scatter(-1, gate_idx, dtv)
+    if daux is not None:       # aux = E sum_e frac_e mean_g probs[g, e]
+        dprobs = dprobs + ((daux * E)[:, None] * frac / G)[:, None, :]
+    dlogits = torch.ops.aten._softmax_backward_data(dprobs, probs, -1, f32)
+    dx = dx + (dlogits @ router.to(f32).transpose(-1, -2)).to(dt)
+    drouter = (x.to(f32).transpose(-1, -2) @ dlogits).to(router.dtype)
+    return (dx, drouter,
+            None if dwg is None else dwg.reshape(N, E, D, -1),
+            dwu.reshape(N, E, D, -1), dwo.reshape(N, E, -1, D))
+
+
+def _fold_groups(batch: int, in_dims, args, rows):
+    """Each tensor argument with its vmapped dimension first, folded into
+    its group dimension ([B, N, ...] -> [B * N, ...]).  An unbatched one
+    is kept where it is a weight of one group for all (``rows`` False:
+    the groups share it) and expanded where every group needs its own
+    row (``rows`` True)."""
+    out = []
+    for a, d, row in zip(args, in_dims, rows):
+        if not isinstance(a, torch.Tensor):
+            out.append(a)
+            continue
+        if d is None:
+            if not row and a.shape[0] == 1:
+                out.append(a)
+                continue
+            a, d = a.expand(batch, *a.shape), 0
+        a = a.movedim(d, 0)
+        out.append(a.reshape(batch * a.shape[1], *a.shape[2:]))
+    return out
+
+
+def _unfold_groups(batch: int, outs):
+    return (tuple(None if o is None else
+                  o.reshape(batch, o.shape[0] // batch, *o.shape[1:])
+                  for o in outs),
+            tuple(None if o is None else 0 for o in outs))
+
+
+class _MoEGroup(torch.autograd.Function):
+    """N groups of tokens through the MoE MLP as one autograd node:
+    x [N, G, D], the router [Nr, D, E] and the experts [Nw, E, ...] (Nr
+    and Nw dividing N: group n uses weight n // (N / Nw), as folding a
+    batched level of clients over an unbatched one of groups lays them
+    out) -> (y [N, G, D], aux [N] fp32).
+
+    Forward and backward run the routes, the moves by index and the
+    experts on plain tensors: the ``vmap`` rule folds every batched level
+    (the round engine's clients, the grouped MoE's groups) into N, so the
+    per-operation cost of ``torch.func``'s wrappers is paid once for the
+    node, not for each of its operations.  The backward is another such
+    node (``_MoEGroupBackward``), and returns each weight's gradient per
+    group, summed here over the groups that share the weight.  Not
+    differentiable twice: nothing in the port takes a second derivative."""
+
+    @staticmethod
+    def forward(x, router, wi_gate, wi_up, wo, E, k, cf, act):
+        return _group_forward(x, router, wi_gate, wi_up, wo, E, k, cf, act)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.cfg = inputs[5:]
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(*output[2:])
+        ctx.save_for_backward(*inputs[:5], *output[2:])
+
+    @staticmethod
+    def backward(ctx, dy, daux, *_):
+        x, router, wi_gate, wi_up, wo, *saved = ctx.saved_tensors
+        E, k, _, act = ctx.cfg
+        grads = _MoEGroupBackward.apply(dy, daux, x, router, wi_gate, wi_up,
+                                        wo, *saved, E, k, act)
+        n = x.shape[0]
+        out = [grads[0]]
+        for gw, w in zip(grads[1:], (router, wi_gate, wi_up, wo)):
+            if gw is not None and w.shape[0] < n:
+                gw = gw.reshape(w.shape[0], n // w.shape[0],
+                                *gw.shape[1:]).sum(1)
+            out.append(gw)
+        return (*out, None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        rows = (True, False, False, False, False) + (False,) * 4
+        return _unfold_groups(info.batch_size, _MoEGroup.apply(
+            *_fold_groups(info.batch_size, in_dims, args, rows)))
+
+
+class _MoEGroupBackward(torch.autograd.Function):
+    """``_group_backward`` as one node with a ``vmap`` rule."""
+
+    @staticmethod
+    def forward(*args):
+        return _group_backward(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the MoE group's backward is not differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        # dy, daux, x: rows; router and experts: weights; the saved
+        # routes and activations: rows; E, k, act
+        rows = (True, True, True) + (False,) * 4 + (True,) * 10 + (False,) * 3
+        return _unfold_groups(info.batch_size, _MoEGroupBackward.apply(
+            *_fold_groups(info.batch_size, in_dims, args, rows)))
+
+
 def _moe_group(p: dict, xf: torch.Tensor, *, n_experts: int, top_k_: int,
                capacity_factor: float, act: str):
     """One group of tokens, x [G, D] -> (y [G, D], aux fp32 scalar)."""
-    probs, _, gate_vals, pos, keep, cap, onehot = moe_routes(
-        xf, p["router"], n_experts=n_experts, top_k_=top_k_,
-        capacity_factor=capacity_factor)
-    dispatch, combine = moe_dispatch(onehot, gate_vals, pos, keep, cap)
-    xe = torch.einsum("gec,gd->ecd", dispatch.to(xf.dtype), xf)     # [E,C,D]
-    ye = moe_experts(p, xe, act)
-    y = torch.einsum("gec,ecd->gd", combine.to(xf.dtype), ye)
-
-    # Shazeer load-balance aux loss: E * sum_e fraction_e * router_prob_e
-    frac = torch.mean(onehot.sum(1), dim=0)                          # [E]
-    prob = torch.mean(probs, dim=0)                                  # [E]
-    return y, n_experts * torch.sum(frac * prob)
+    w = [None if p.get(n) is None else p[n][None]
+         for n in ("router", "wi_gate", "wi_up", "wo")]
+    y, aux, *_ = _MoEGroup.apply(xf[None], *w, n_experts, top_k_,
+                                 capacity_factor, act)
+    return y[0], aux[0]
 
 
 def moe_apply(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,

@@ -49,7 +49,8 @@ each stacked group is rematerialized as the reference's
 ``jax.checkpoint`` does: one ``autograd.Function`` (``_RematGroup``, with
 ``generate_vmap_rule``, so ``torch.func`` transforms it, which
 ``torch.utils.checkpoint`` does not allow) keeps the group's inputs and
-recomputes the group under ``torch.func.vjp`` in the backward; a MoE
+recomputes the group in the backward, differentiated by plain autograd
+(under the round engine's ``vmap``, of the vmapped group); a MoE
 group's aux is a differentiable output of it, so the router keeps its
 load-balance gradient.  ``remat_policy="dots"`` also keeps the outputs of
 the group's weight products (``layers.proj``), which the recompute reads
@@ -203,18 +204,18 @@ def _make_rope(cfg: ModelConfig, positions: torch.Tensor,
 class _RematGroup(torch.autograd.Function):
     """``run(x, *diff_rest, *extras) -> (x, [aux])`` as one node: the
     forward saves its inputs (and, under ``"dots"``, the weight products
-    it recorded); the backward recomputes ``run`` under ``torch.func.vjp``
-    from them.  The first ``n_diff`` inputs (x; a decoder group's encoder
+    it recorded); the backward (``_RematGrads``) recomputes ``run`` from
+    them.  The first ``n_diff`` inputs (x; a decoder group's encoder
     output, twice, see ``blocks._cross_mix``; the group's weights) get
     grads; the extras (rope tables) do not.  The first ``n_out`` outputs
     are differentiable (x, and a MoE group's aux).
 
     ``torch.func.grad`` always differentiates with ``create_graph=True``,
     which would keep the recompute's graph, and so every group's
-    activations, alive through the whole backward: the grads leave the
-    backward detached, so each group's recompute is freed when its
-    backward returns.  The backward is therefore not differentiable
-    again; nothing in the port takes a second derivative."""
+    activations, alive through the whole backward: the recompute runs on
+    detached inputs, so each group's is freed when its backward returns.
+    The backward is therefore not differentiable again; nothing in the
+    port takes a second derivative."""
     generate_vmap_rule = True
 
     @staticmethod
@@ -234,19 +235,82 @@ class _RematGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *gouts):
-        saved = ctx.saved_tensors
-        diff, extras = saved[:ctx.n_diff], saved[ctx.n_diff:ctx.n_in]
-        products = saved[ctx.n_in:]
+        n_extra = ctx.n_in - ctx.n_diff
+        grads = _RematGrads.apply(ctx.run, ctx.policy, ctx.n_diff, ctx.n_out,
+                                  n_extra, torch.is_grad_enabled(),
+                                  *gouts[:ctx.n_out], *ctx.saved_tensors)
+        return (None,) * 4 + tuple(grads) + (None,) * n_extra
 
-        def rerun(*d):
-            if ctx.policy != "dots":
-                return ctx.run(*d, *extras)
-            with L.replayed_products(products):
-                return ctx.run(*d, *extras)
 
-        _, vjp_fn = torch.func.vjp(rerun, *diff)
-        grads = tuple(g.detach() for g in vjp_fn(gouts[:ctx.n_out]))
-        return (None,) * 4 + grads + (None,) * len(extras)
+def _rerun(run, policy, n_diff, n_extra):
+    """``run`` on (diff, extras, products), the products replayed under
+    ``"dots"``."""
+    def rerun(*a):
+        diff, extras = a[:n_diff], a[n_diff:n_diff + n_extra]
+        if policy != "dots":
+            return run(*diff, *extras)
+        with L.replayed_products(a[n_diff + n_extra:]):
+            return run(*diff, *extras)
+    return rerun
+
+
+class _RematGrads(torch.autograd.Function):
+    """``_RematGroup``'s backward as one node: the recompute and its
+    gradients by plain autograd on detached inputs, with the grad mode of
+    the backward that called it (``torch.func.grad`` differentiates with
+    ``create_graph``, under which autograd takes another formula for some
+    operations, ``silu``'s among them: the grads stay bit-equal to the
+    ones without remat), and returned detached.  Its ``vmap`` rule
+    (the round engine's clients) recomputes under one ``vmap`` of the
+    group and differentiates that by plain autograd, so the recompute pays
+    ``torch.func``'s wrappers of one level and its backward none, where a
+    ``torch.func.vjp`` under the generated rule paid those of three levels
+    an operation.  An unbatched input (the weights every client shares at
+    its first step) is expanded before it is differentiated: each client
+    gets its own grads, as ``vmap`` of the backward gives them."""
+
+    @staticmethod
+    def forward(run, policy, n_diff, n_out, n_extra, graph, *args):
+        gouts, rest = args[:n_out], args[n_out:]
+        with torch.enable_grad():
+            d = [a.detach().requires_grad_() for a in rest[:n_diff]]
+            outs = _rerun(run, policy, n_diff, n_extra)(*d, *rest[n_diff:])
+            grads = torch.autograd.grad(outs[:n_out], d, gouts,
+                                        create_graph=graph,
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        return tuple(g.detach() for g in grads)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("a remat group's backward is not differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, run, policy, n_diff, n_out, n_extra, graph,
+             *args):
+        B, dims = info.batch_size, in_dims[6:]
+
+        def first(a, d):
+            return a.expand(B, *a.shape) if d is None else a.movedim(d, 0)
+
+        gouts = [first(a, d) for a, d in zip(args[:n_out], dims[:n_out])]
+        rest, dims = args[n_out:], dims[n_out:]
+        with torch.enable_grad():
+            d = [first(a, dd).detach().requires_grad_()
+                 for a, dd in zip(rest[:n_diff], dims[:n_diff])]
+            outs = torch.func.vmap(
+                _rerun(run, policy, n_diff, n_extra),
+                in_dims=(0,) * n_diff + tuple(dims[n_diff:]),
+                randomness=info.randomness)(*d, *rest[n_diff:])
+            grads = torch.autograd.grad(outs[:n_out], d, gouts,
+                                        create_graph=graph,
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        return tuple(g.detach() for g in grads), (0,) * n_diff
 
 
 def _remat_group(gp: dict, cfg: ModelConfig, kinds, x: torch.Tensor,

@@ -7,12 +7,17 @@ configuration, ``prefill`` and ``decode_step`` for an attention, an RWKV
 and an RG-LRU configuration.  Two steps differ by construction, and the
 tests hold the named difference exactly (ROADMAP Queue 3):
 
-  * remat: the port's recompute (``torch.func.vjp`` of the group) runs
+  * remat: the port's recompute (of the group, by plain autograd) runs
     each group's last weight product (the MLP's ``wo``), whose output no
     gradient needs; XLA drops it from the checkpointed recompute;
-  * the MoE combine's gate gradient: the reference's three-operand einsum
-    contracts it as a dot (2 G k C flops a MoE layer and step), the
-    port's ``onehot * gate_vals`` form as a multiply and a sum.
+  * the MoE dispatch and combine: the reference multiplies by dense
+    one-hot [G, E, C] tensors, the port moves rows by index
+    (``kernels/moe_route``), which does none of the products
+    ``FlopCounterMode`` counts.  The reference's count of those products
+    is the difference: in the forward the two tensors' einsums (2 G k E C
+    flops each) and the two products (2 G E C D each); in the backward the
+    products' three gradients (dx, d ye, d combine: 2 G E C D each), the
+    combine tensor's gradient (2 G k E C) and the gate dot (2 G k C).
 
 Then ``tests/test_hlo_cost.py``'s contracts in the port's terms, the bytes
 and peak models on a step whose traffic is known, and the collectives of a
@@ -71,8 +76,31 @@ def _jax_batch(cfg, lead, S):
     return b
 
 
+def _moe_shape(cfg, G):
+    """(G, E, k, C, D) of a MoE layer routing one group of G tokens."""
+    m = cfg.moe
+    C = math.ceil(m.top_k * G * m.capacity_factor / m.n_experts)
+    return G, m.n_experts, m.top_k, C, cfg.d_model
+
+
+def _dense_forward(cfg, G):
+    """The reference's dense dispatch and combine flops in one MoE layer's
+    forward: the two [G, E, C] tensors' einsums and the two products."""
+    G, E, k, C, D = _moe_shape(cfg, G)
+    return 2 * 2 * G * k * E * C + 2 * 2 * G * E * C * D
+
+
+def _dense_backward(cfg, G):
+    """...and in its backward: the products' three gradients, the combine
+    tensor's gradient and the gate dot."""
+    G, E, k, C, D = _moe_shape(cfg, G)
+    return 3 * 2 * G * E * C * D + 2 * G * k * E * C + 2 * G * k * C
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_loss_flops_equal_the_reference(arch):
+    """Equal, but for the MoE configurations' dense dispatch and combine,
+    which only the reference counts (the module note)."""
     jcfg, tcfg = jax_config(arch).reduced(), get_config(arch).reduced()
     # the VLM's 256 patches replace the first positions: S above them
     S = 320 if jcfg.family == "vlm" else 64
@@ -82,7 +110,9 @@ def test_loss_flops_equal_the_reference(arch):
     want = _jax_flops(lambda p, b: JT.loss_fn(p, jcfg, b)[0], jp, jb)
     got = cost.analyze(lambda p, b: TT.loss_fn(p, tcfg, b), tp,
                        {k: _meta(v) for k, v in jb.items()})["flops"]
-    assert got == want > 0
+    dense = (tcfg.n_layers * _dense_forward(tcfg, 2 * S)
+             if tcfg.family == "moe" else 0)
+    assert got > 0 and want - got == dense
 
 
 def _rounds(arch, cfg_kw, C, H, b, S, placement="mesh"):
@@ -145,12 +175,13 @@ def test_round_flops_dense_with_remat_hold_the_recompute_difference():
     assert got == want > 0
 
 
-def test_round_flops_moe_hold_the_gate_gradient_difference():
+def test_round_flops_moe_hold_the_dense_dispatch_difference():
     C, H, b, S = 2, 2, 3, 32
     want, got, cfg = _rounds("granite-moe-1b-a400m", {}, C, H, b, S)
-    G, k = b * S, cfg.moe.top_k
-    cap = math.ceil(k * G * cfg.moe.capacity_factor / cfg.moe.n_experts)
-    assert want - got == C * H * cfg.n_layers * 2 * G * k * cap
+    G = b * S
+    assert got > 0
+    assert want - got == C * H * cfg.n_layers * (
+        _dense_forward(cfg, G) + _dense_backward(cfg, G))
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "rwkv6-7b",
@@ -333,7 +364,9 @@ def test_flops_equal_flop_counter_mode_and_profile_sums_them():
     assert sum(r[2] for r in rows) == res["flops"]
     assert sum(r[1] for r in rows) == res["bytes"]
     assert rows[0][2] >= rows[-1][2]
-    assert any("moe_experts" in r[0] for r in rows[:5])
+    # the experts' products, in the MoE node's forward and backward
+    assert any(site in r[0] for r in rows[:5]
+               for site in ("_group_forward", "_group_backward"))
     with pytest.raises(ValueError):
         cost.profile(fn, tp, b, by="time")
 

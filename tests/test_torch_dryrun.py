@@ -3,8 +3,9 @@
 A reduced-depth train combination and a decode combination end ``ok``
 with every field of the record, a full-attention ``long_500k`` ends
 ``skipped`` with the reference's reason, a kernel asked for on the meta
-device ends ``error`` with its message, and the command line writes its
-records and summary.  The full-depth sweep (``--all``) is run by hand:
+device ends ``error`` with its message, the MoE dispatch variants count
+on the meta device through the routing ops' shape rules, and the command
+line writes its records and summary.  The full-depth sweep (``--all``) is run by hand:
 its time goes to grok-1-314b's and qwen2-vl-72b's rounds.
 """
 import json
@@ -110,6 +111,24 @@ def test_variants_change_the_config_and_the_delta():
     # the plan moves, the rank's count does not
     assert seq["arg_bytes_per_dev"] < zero["arg_bytes_per_dev"]
     assert seq["flops_per_rank"] == zero["flops_per_rank"]
+
+
+def test_moe_dispatch_variants_count_through_the_shape_rules():
+    """granite's train round, cut to one layer, routed by index
+    (``kernels/moe_route``): the groups one after another and vmapped
+    (``moe_vmap``, ``moe_vmap_bf16``) run on the meta device through the
+    ops' shape rules, launch nothing, and count the same flops."""
+    from repro_torch.kernels.moe_route import kernel as mr_kernel
+    cfg = _cut("granite-moe-1b-a400m", 1)
+    before = mr_kernel.launches
+    flops = set()
+    for variant in (None, "moe_vmap", "moe_vmap_bf16"):
+        rec = dryrun.dry_run("granite-moe-1b-a400m", "train_4k",
+                             verbose=False, cfg=cfg, variant=variant)
+        assert rec["status"] == "ok", rec.get("traceback")
+        flops.add(rec["flops_per_rank"])
+    assert len(flops) == 1 and flops.pop() > 0
+    assert mr_kernel.launches == before
 
 
 def test_command_line_writes_records_and_summary(tmp_path, capsys):

@@ -56,6 +56,12 @@ within 1e-6 of one device; the zoo's new families: the kernel at grok-1's
 shape (in ``FLASH_SHAPES``), granite's MoE MLP at full width on the card against
 the CPU (routes compared, y held where they agree), and reduced granite's
 captured device-plane chunks against the same chunks run eagerly; the
+``moe_route`` kernels bit-equal to their plain version (granite's and
+grok-1's groups, decode at G = 1 and 8, drops, a ragged width, bf16, every
+weighted and unweighted call of the forward and the backward), two runs
+bit-equal, the MoE layer's node under ``vmap(grad_and_value)`` on the
+card against the CPU (the same routes, grads within 1e-4), and a captured
+full-width layer step's replays bit-equal to the eager call; the
 streaming plane's overlapped prefetch: ``prefetch`` 2 bit-equal to 0 on
 the padded, bucketed and hook lanes under evictions of slots the chunk in
 flight reads, the cache's ``ensure`` and ``view`` never making the host
@@ -1814,6 +1820,206 @@ def test_granite_captured_chunk_matches_eager(cuda, monkeypatch):
     assert len(la) == 4 and np.allclose(la, lb, atol=1e-5, rtol=1e-5)
     for x, y in zip(leaves(graphed.state.w), leaves(eager.state.w)):
         assert torch.allclose(x, y, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# MoE routing by index (kernels/moe_route)
+# ---------------------------------------------------------------------------
+# (G, E, k, capacity factor, D, N groups, dtype): granite's training group,
+# grok-1's 8 experts top-2 at its width, decode at G = 1 and 8, drops, a
+# ragged width (one element a lane), bf16 and several groups at once
+ROUTE_SHAPES = [
+    (2048, 32, 8, 1.25, 1024, 1, torch.float32),
+    (1024, 8, 2, 1.25, 6144, 1, torch.float32),
+    (1, 32, 8, 1.25, 1024, 1, torch.float32),
+    (8, 32, 8, 1.25, 1024, 1, torch.float32),
+    (256, 32, 8, 0.1, 1024, 1, torch.float32),
+    (96, 4, 2, 1.25, 100, 3, torch.float32),
+    (512, 32, 8, 1.25, 1024, 2, torch.bfloat16),
+    (64, 8, 2, 1.25, 36, 1, torch.bfloat16),
+]
+
+
+def _route_case(G, E, k, cf, D, N, dtype, seed=0):
+    """N groups' tables, gates, tokens and slot rows on the CPU."""
+    from repro_torch.kernels.moe_route import ops as mr_ops
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(seed)
+    router = torch.randn((D, E), generator=g)
+    x = torch.randn((N, G, D), generator=g).to(dtype)
+    slots, owners, gates = [], [], []
+    for xi in x:
+        _, idx, gate, pos, keep, cap, _ = L.moe_routes(
+            xi, router, n_experts=E, top_k_=k, capacity_factor=cf)
+        slot, owner = mr_ops.route_tables(idx, pos, keep, cap, E)
+        slots.append(slot)
+        owners.append(owner)
+        gates.append(gate.to(dtype))
+    slot, owner, gate = (torch.stack(t) for t in (slots, owners, gates))
+    ye = torch.randn((N, owner.shape[1], D), generator=g).to(dtype)
+    return slot, owner, gate, x, ye
+
+
+@pytest.mark.parametrize("G,E,k,cf,D,N,dtype", ROUTE_SHAPES)
+def test_moe_route_kernels_bit_equal_to_plain(cuda, G, E, k, cf, D, N,
+                                              dtype):
+    """The three kernels, with and without weights (every call the forward
+    and the backward make), bit-equal to their plain version on the CPU;
+    a second run bit-equal to the first; one launch a call."""
+    from repro_torch.kernels.moe_route import kernel as mr_kernel
+    from repro_torch.kernels.moe_route import ref as mr_ref
+    slot, owner, gate, x, ye = _route_case(G, E, k, cf, D, N, dtype)
+    on = [t.to(cuda) for t in (slot, owner, gate, x, ye)]
+    cs, co, cg, cx, cye = on
+    calls = {
+        "dispatch": (lambda: mr_kernel.gather_rows(cx, co, None, k),
+                     lambda: mr_ref.gather_rows(x, owner, None, k)),
+        "combine_dye": (lambda: mr_kernel.gather_rows(cx, co, cg, k),
+                        lambda: mr_ref.gather_rows(x, owner, gate, k)),
+        "combine": (lambda: mr_kernel.sum_rows(cye, cs, cg),
+                    lambda: mr_ref.sum_rows(ye, slot, gate)),
+        "dispatch_dx": (lambda: mr_kernel.sum_rows(cye, cs, None),
+                        lambda: mr_ref.sum_rows(ye, slot, None)),
+        "gate_dots": (lambda: mr_kernel.route_dots(cx, cye, cs),
+                      lambda: mr_ref.route_dots(x, ye, slot)),
+    }
+    for name, (kern, plain) in calls.items():
+        before = mr_kernel.launches
+        got = kern()
+        again = kern()
+        assert mr_kernel.launches == before + 2, name
+        want = plain()
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == want.shape, name
+        assert torch.equal(got.cpu(), want), (
+            name, float((got.cpu().float() - want.float()).abs().max()))
+        assert torch.equal(got, again), name
+    if int((slot < 0).sum()):
+        print(f"{int((slot < 0).sum())} of {slot.numel()} routes dropped")
+
+
+def _moe_layer_case(device, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    E, D, F = 8, 256, 128
+    p = {"router": torch.randn((D, E), generator=g),
+         "wi_gate": torch.randn((E, D, F), generator=g) / 16,
+         "wi_up": torch.randn((E, D, F), generator=g) / 16,
+         "wo": torch.randn((E, F, D), generator=g) / 11}
+    x = torch.randn((2, 2, 64, D), generator=g)
+    r = torch.randn((2, 2, 64, D), generator=g)
+    return ({n: v.to(device) for n, v in p.items()}, x.to(device),
+            r.to(device))
+
+
+def _moe_layer_loss(p, x, r):
+    from repro_torch.models import layers as L
+    y, aux = L.moe_apply(p, x, n_experts=8, top_k=2, capacity_factor=1.25,
+                         act="swiglu")
+    return (y * r).sum() + aux
+
+
+def test_moe_group_grads_on_card_match_cpu(cuda):
+    """The MoE layer's forward and backward (one ``layers._MoEGroup`` node,
+    its routes, moves by index and experts) under ``vmap(grad_and_value)``
+    over two clients, as the round engine calls it, on the card against
+    the CPU: the same routes, the loss and every grad within 1e-4 (cuBLAS
+    and the CPU sum the experts' products in other orders); five launches
+    a client step, the clients folded into each (two forward, three
+    backward), each counted by the recorder as ``moe.route_launches``."""
+    from repro_torch import spans
+    from repro_torch.kernels.moe_route import kernel as mr_kernel
+    from repro_torch.models import layers as L
+
+    def run(device):
+        p, x, r = _moe_layer_case(device)
+        return torch.func.vmap(torch.func.grad_and_value(
+            _moe_layer_loss, (0, 1)), in_dims=(None, 0, 0))(p, x, r)
+
+    p, x, _ = _moe_layer_case("cpu")
+    for xi in x:
+        want = L.moe_routes(xi.reshape(-1, 256), p["router"], n_experts=8,
+                            top_k_=2, capacity_factor=1.25)
+        got = L.moe_routes(xi.reshape(-1, 256).to(cuda),
+                           p["router"].to(cuda), n_experts=8, top_k_=2,
+                           capacity_factor=1.25)
+        assert torch.equal(got[1].cpu(), want[1])
+        assert torch.equal(got[3].cpu(), want[3])
+    before = mr_kernel.launches
+    with spans.recording() as rec:
+        got = run(cuda)
+    torch.cuda.synchronize()
+    assert mr_kernel.launches == before + 5
+    assert rec.counters["moe.route_launches"] == 5
+    want = run("cpu")
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-4, atol=1e-4)
+    (gp, gx), (wp, wx) = got[0], want[0]
+    torch.testing.assert_close(gx.cpu(), wx, rtol=1e-4, atol=1e-4)
+    for n in wp:
+        torch.testing.assert_close(gp[n].cpu(), wp[n], rtol=1e-4, atol=1e-4)
+
+
+def test_moe_layer_graph_replay_equals_eager(cuda):
+    """granite's MoE layer at full width (32 experts top-8, D=1024,
+    F=512) on one client step's 2 x 1024 fp32 tokens, forward and
+    backward, captured in one CUDA graph (the routes, the tables and the
+    moves: no host sync, no data-dependent shape): two replays bit-equal
+    to the eager call; the Python counter counts the capture's launches
+    only."""
+    from repro_torch.kernels.moe_route import kernel as mr_kernel
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=cuda).manual_seed(0)
+    E, D, F = 32, 1024, 512
+    p = {"router": torch.randn((D, E), generator=g, device=cuda),
+         "wi_gate": torch.randn((E, D, F), generator=g, device=cuda) / 32,
+         "wi_up": torch.randn((E, D, F), generator=g, device=cuda) / 32,
+         "wo": torch.randn((E, F, D), generator=g, device=cuda) / 23}
+    x = torch.randn((2, 1024, D), generator=g, device=cuda)
+    r = torch.randn((2, 1024, D), generator=g, device=cuda)
+
+    def step():
+        xr = x.detach().requires_grad_(True)
+        pr = {n: v.detach().requires_grad_(True) for n, v in p.items()}
+        y, aux = L.moe_apply(pr, xr, n_experts=E, top_k=8,
+                             capacity_factor=1.25, act="swiglu")
+        grads = torch.autograd.grad((y * r).sum() + aux, (xr, *pr.values()))
+        return (y.detach(), aux.detach(), *grads)
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = mr_kernel.launches
+    with torch.cuda.graph(graph):
+        out = step()
+    assert mr_kernel.launches == before + 5
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert mr_kernel.launches == before + 5
+        for a, b in zip(out, eager):
+            assert torch.equal(a, b)
+
+
+def test_moe_route_kernels_refuse_what_they_cannot_take(cuda):
+    from repro_torch.kernels.moe_route import kernel as mr_kernel
+    slot, owner, gate, x, ye = _route_case(64, 8, 2, 1.25, 64, 1,
+                                           torch.float32)
+    cs, co, cx, cye = (t.to(cuda) for t in (slot, owner, x, ye))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        mr_kernel.gather_rows(cx, owner, None, 2)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        mr_kernel.sum_rows(cye.half(), cs, None)
+    with pytest.raises(ValueError, match="int32"):
+        mr_kernel.sum_rows(cye, cs.long(), None)
+    with pytest.raises(ValueError, match="contiguous"):
+        mr_kernel.route_dots(cx, cye.transpose(1, 2).contiguous()
+                             .transpose(1, 2), cs)
+    with pytest.raises(ValueError, match="1 to 32"):
+        mr_kernel.sum_rows(cye, torch.zeros((1, 2, 33), dtype=torch.int32,
+                                            device=cuda), None)
 
 
 # ---------------------------------------------------------------------------

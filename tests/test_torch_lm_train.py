@@ -58,7 +58,7 @@ from repro_torch.launch.plan import ExecutionPlan, PlanError  # noqa: E402
 from repro_torch.launch.train import FederatedTrainer  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serve import generate as tgenerate  # noqa: E402
-from repro_torch.tree import flatten_with_paths, leaves  # noqa: E402
+from repro_torch.tree import flatten_with_paths, leaves, tree_map  # noqa: E402,E501
 
 RTOL, ATOL = 1e-4, 1e-5
 C, H, B, S = 2, 2, 2, 32
@@ -208,6 +208,31 @@ def test_remat_grads_equal_and_match_reference(arch, n_layers):
     paths, _ = flatten_with_paths(params)
     for p, a, b in zip(paths, plain, jax.tree.leaves(want)):
         _assert_leaf_close(arch, p, a.numpy(), b)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "gemma3-1b",
+                                  "rwkv6-7b"])
+def test_remat_grads_bit_equal_under_the_round_engines_vmap(arch):
+    """As the round engine's second local step takes them: ``vmap`` over
+    two clients, each with weights and tokens of its own, of
+    ``torch.func.grad``; the grads with remat (both policies) bit-equal to
+    the ones without."""
+    cfg = tget(arch).reduced().replace(dtype="float32", n_layers=4,
+                                       scan_layers=True, remat=True)
+    params, _ = TT.init(cfg, prng.PRNGKey(1), device="cpu")
+    pb = tree_map(lambda t: torch.stack([t, t * 1.01]), params)
+    batch = {k: torch.as_tensor(v) for k, v in _lm_batch(cfg.vocab, S=32,
+                                                         seed=12).items()}
+    tb = {k: torch.stack([v, v.flip(0)]) for k, v in batch.items()}
+
+    def grads(c):
+        return leaves(torch.func.vmap(torch.func.grad(
+            lambda p, b: TT.loss_fn(p, c, b)[0]))(pb, tb))
+
+    plain = grads(dataclasses.replace(cfg, remat=False))
+    for policy in ("full", "dots"):
+        got = grads(dataclasses.replace(cfg, remat_policy=policy))
+        assert all(torch.equal(a, b) for a, b in zip(got, plain)), policy
 
 
 def test_remat_policy_is_checked():
